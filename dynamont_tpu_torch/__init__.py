@@ -1,0 +1,22 @@
+"""dynamont-tpu-torch: the PyTorch + CUDA port of dynamont_tpu.
+
+The JAX package `dynamont_tpu` is the reference; this package mirrors its
+module names so each counterpart is found at the same path:
+
+  ops/nt_banded_batch.py    plain-torch banded DP (CPU path, kernel oracles)
+  ops/nt_banded_kernels.py  CUDA wrappers of the three banded kernels
+                            (counterpart of ops/nt_banded_pallas.py)
+  ops/nt_banded_device.py   wire format, on-device decode, device entry
+  ops/nt_banded.py          exact per-read banded DP (the fp64 rung)
+  models/                   parameters, per-read and batched engines
+  cli/resquiggle.py         dynamont-resquiggle --mode basic
+  csrc/                     CUDA C++ kernels, built with nvcc at first use
+                            (see _build.py)
+
+Host code without JAX (pore models, k-mers, geometry, packing, readers,
+CSV writers, the native library) is imported from `dynamont_tpu`, never
+copied. This package imports `torch` and never `jax`. Importing it
+compiles nothing: the kernels build on first launch.
+"""
+
+__version__ = "0.1.0"

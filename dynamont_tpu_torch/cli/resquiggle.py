@@ -1,0 +1,203 @@
+"""dynamont-resquiggle on PyTorch + CUDA, basic mode (counterpart of
+dynamont_tpu/cli/resquiggle.py).
+
+Reads come from a plain TSV (--tsv) or a dorado BAM + raw directory; they
+are bucketed and segmented by the banded engine on one device, and the
+results stream to a zstd CSV with the reference's columns and `.errors`
+sidecar. Resquiggle (NTC) mode is not ported yet.
+
+    python -m dynamont_tpu_torch.cli.resquiggle --tsv reads.tsv \\
+        -o out.csv.zst --mode basic -p rna002 [--device cuda]
+"""
+
+from __future__ import annotations
+
+import sys
+from argparse import ArgumentParser
+from collections import deque
+
+from dynamont_tpu.constants import PORES
+
+
+def build_parser() -> ArgumentParser:
+    p = ArgumentParser(prog="dynamont-resquiggle")
+    p.add_argument("-r", "--raw", metavar="DIR", default=None,
+                   help="Path to raw ONT data (pod5/fast5/slow5 directory)")
+    p.add_argument("-b", "--basecalls", metavar="BAM", default=None,
+                   help="Basecalls of ONT training data as .bam file")
+    p.add_argument("--tsv", metavar="TSV", default=None,
+                   help="Plain-TSV read source (readid, signalid, signal, read)")
+    p.add_argument("-o", "--outfile", metavar="CSV", required=True,
+                   help="Outfile path (.csv.zst)")
+    p.add_argument("--mode", choices=["basic", "resquiggle"], required=True)
+    p.add_argument("-p", "--pore", required=True, choices=list(PORES))
+    p.add_argument("--model_path", default=None)
+    p.add_argument("-q", "--qscore", type=float, default=0.0)
+    p.add_argument("--batch_size", type=int, default=32,
+                   help="reads per device bucket")
+    p.add_argument("-t", "--processes", type=int, default=None,
+                   help="accepted for reference compatibility; device "
+                        "batching replaces the process pool")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; the run "
+                        "fails rather than fall back to the CPU)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue an interrupted run: reads already in the "
+                        "output CSV are skipped, new results are appended")
+    p.add_argument("--profile", action="store_true",
+                   help="print engine wall-clock accounting to stderr")
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.tsv is None and (args.raw is None or args.basecalls is None):
+        print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
+        raise SystemExit(2)
+    if args.mode != "basic":
+        print("--mode resquiggle (NTC) is not yet ported to the PyTorch "
+              "package; use dynamont_tpu's dynamont-resquiggle", file=sys.stderr)
+        raise SystemExit(2)
+
+    import os
+
+    import torch
+
+    from dynamont_tpu.constants import is_rna
+    from dynamont_tpu.io import output as out_io
+    from dynamont_tpu.io import readers
+    from dynamont_tpu.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.models.batch import BandedBatchEngine
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("--device cuda: torch sees no CUDA device (pass --device cpu "
+              "to run the plain-torch path)", file=sys.stderr)
+        raise SystemExit(2)
+
+    rna = is_rna(args.pore)
+    model = load_model_for_pore(args.pore, args.model_path)
+    done: set = set()
+    resume = args.resume and os.path.exists(args.outfile)
+    if resume:
+        done = out_io.prepare_resume(args.outfile)
+        print(f"resume: skipping {len(done)} already-segmented reads",
+              file=sys.stderr)
+    writer = out_io.SegmentationWriter(args.outfile, append=resume)
+
+    def jobs():
+        if args.tsv is not None:
+            for job in readers.generate_tsv_jobs(args.tsv, rna, args.qscore):
+                if job.readid not in done:
+                    yield job
+            return
+        for raw in readers.generate_bam_jobs(args.raw, args.basecalls,
+                                             args.qscore):
+            if raw[6] in done:
+                continue
+            try:
+                yield readers.materialize_bam_job(raw, rna)
+            except Exception as e:  # unreadable raw data -> sidecar
+                writer.put_error(
+                    f"error: raw read failed, {e}\tRid: {raw[6]}\tSid: {raw[7]}")
+
+    try:
+        eng = BandedBatchEngine(model, args.pore, device=device,
+                                batch_size=args.batch_size)
+        _pump_engine(args, eng, jobs(), writer, rna, model)
+    finally:
+        writer.close()
+    if args.profile:
+        pr = eng.profile
+        wall = max(1e-9, pr["dispatch_s"] + pr["collect_s"])
+        print(f"profile: {pr['reads']} reads in {pr['buckets']} buckets | "
+              f"dispatch {pr['dispatch_s']:.2f}s | device-wait+collect "
+              f"{pr['collect_s']:.2f}s | {pr['reads'] / wall:.1f} reads/s "
+              f"| fp64 retries {pr.get('z_retries', 0)}", file=sys.stderr)
+
+
+def _emit(writer, job, out, model, rna) -> None:
+    """CSV bytes of one read: the native formatter straight from the
+    device summaries, else the Python one (byte-identical)."""
+    from dynamont_tpu.io import output as out_io
+    from dynamont_tpu.native import summaries_csv_native
+
+    last = len(job.signal) + job.sig_offset
+    if out.summaries is not None:
+        starts_row, medians_row, N, kmer_size = out.summaries
+        data = summaries_csv_native(
+            f"{job.readid},{job.signalid},", starts_row, medians_row, N,
+            job.read, kmer_size, rna, job.sig_offset, last)
+        if data is not None:
+            writer.put_result(data)
+            return
+    writer.put_result(out_io.format_segments_csv(
+        job.readid, job.signalid, out.segments, job.sig_offset, last,
+        job.read, model.kmer_size, rna))
+
+
+def _pump_engine(args, eng, jobs, writer, rna, model) -> None:
+    """Stream jobs through the engine, dispatching chunk i+1 before
+    collecting chunk i. A chunk whose run raises is re-run read by read,
+    so one bad read costs only itself a sidecar line."""
+    from dynamont_tpu_torch.models.batch import BatchItem
+
+    chunk_size = args.batch_size * 4
+    window: deque = deque()
+
+    def emit(outs):
+        for o in outs:
+            job = o.item.meta
+            if o.error is not None:
+                writer.put_error(
+                    f"error: 3, {o.error}\tT: {len(job.signal)}"
+                    f"\tN: {len(job.read)}\tRid: {job.readid}"
+                    f"\tSid: {job.signalid}")
+            else:
+                _emit(writer, job, o, model, rna)
+
+    def isolate(part, why):
+        print(f"engine exception on a {len(part)}-read chunk: {why}; "
+              "isolating per read", file=sys.stderr)
+        for job in part:
+            try:
+                emit(eng.run([BatchItem(job.signal, job.read, job)]))
+            except Exception as e:  # the read itself breaks the engine
+                writer.put_error(
+                    f"error: engine exception, {e}\tT: {len(job.signal)}"
+                    f"\tN: {len(job.read)}\tRid: {job.readid}"
+                    f"\tSid: {job.signalid}")
+
+    def collect_oldest():
+        handle, part = window.popleft()
+        try:
+            outs = eng.collect(handle)
+        except Exception as e:
+            isolate(part, e)
+            return
+        emit(outs)
+
+    def submit(part):
+        try:
+            handle = eng.dispatch([BatchItem(j.signal, j.read, j) for j in part])
+        except Exception as e:
+            isolate(part, e)
+            return
+        window.append((handle, part))
+        if len(window) > 1:
+            collect_oldest()
+
+    chunk: list = []
+    for job in jobs:
+        chunk.append(job)
+        if len(chunk) >= chunk_size:
+            submit(chunk)
+            chunk = []
+    if chunk:
+        submit(chunk)
+    while window:
+        collect_oldest()
+
+
+if __name__ == "__main__":
+    main()

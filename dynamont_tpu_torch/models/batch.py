@@ -1,0 +1,205 @@
+"""Batched banded segmentation engine (counterpart of
+dynamont_tpu/models/batch.py): reads are packed into padded buckets, each
+bucket runs as one device pipeline (wire -> decode -> three kernels ->
+summaries), and reads that fail the fp32 Z gate escalate to the exact
+per-read fp64 rung.
+
+One device, given explicitly. dispatch() queues every bucket on the
+current CUDA stream and starts the summaries' copies into pinned host
+memory; collect() waits for them, so host formatting of one chunk can
+overlap the device work of the next.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from dynamont_tpu.constants import NT_TRANSITIONS
+from dynamont_tpu.models.packing import pack_buckets, t_pad_ladder
+from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu_torch.models.nt import ZConsistencyError, _validate
+from dynamont_tpu_torch.models.nt_banded import run_nt_banded
+from dynamont_tpu_torch.models.params import params_from_numpy
+from dynamont_tpu_torch.ops import nt_banded_batch as bb
+from dynamont_tpu_torch.ops import nt_banded_device as dv
+
+# bucket limits of the JAX engine's defaults: padded lengths on the
+# t_pad_ladder floored at 512 rows, at most 4M padded samples per bucket
+T_PAD_TO = 512
+MAX_BATCH_SAMPLES = 4_000_000
+
+
+@dataclass
+class BatchItem:
+    """One read prepared for the DP (already normalized/filtered/oriented)."""
+
+    signal: np.ndarray
+    read: str
+    meta: object = None  # carried through untouched (read id, signal id, ...)
+
+
+@dataclass
+class BatchOutput:
+    item: BatchItem
+    _segments: list | None  # None => failed read (or lazily built below)
+    Z: float
+    error: str | None = None
+    # device summaries (starts_row, medians_row, N, kmer_size): the CLI
+    # formats CSV from these; segment tuples are built on demand
+    summaries: tuple | None = None
+
+    @property
+    def segments(self) -> list | None:
+        if self._segments is None and self.summaries is not None:
+            self._segments = dv.summaries_to_segments(*self.summaries)
+        return self._segments
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """Start a copy of x into pinned host memory (no wait on CUDA)."""
+    if x.device.type == "cpu":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x, non_blocking=True)
+    return out
+
+
+class BandedBatchEngine:
+    """Runs banded segmentation over arbitrary read lists on one device."""
+
+    def __init__(self, model, pore: str, *, device, dtype=torch.float32,
+                 batch_size: int = 32, band: int = 400,
+                 fp64_fallback: bool = True):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, not {dtype}")
+        self.model = model
+        self.pore = pore
+        self.m1, self.e2 = NT_TRANSITIONS[pore]["m1"], NT_TRANSITIONS[pore]["e2"]
+        self.band = band
+        self.dtype = dtype
+        self.batch_size = batch_size
+        self.fp64_fallback = fp64_fallback
+        # wall-clock accounting across run() calls: dispatch = host prep +
+        # queueing, collect = device wait + summary decode
+        self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
+                        "collect_s": 0.0}
+        p = params_from_numpy(model, self.m1, self.e2, device=self.device,
+                              dtype=dtype)
+        self._dev_run = dv.make_device_fn(p.means, p.c1, p.c2, p.log_m1,
+                                          p.log_e2)
+
+    def _buckets(self, items: list[BatchItem]):
+        """Reads packed into padded buckets minimizing device rows
+        (models/packing.py); one thread block per read, so group 1."""
+        return pack_buckets(
+            [len(it.signal) for it in items], batch_size=self.batch_size,
+            max_batch_samples=MAX_BATCH_SAMPLES, t_pad_to=T_PAD_TO, group=1,
+        )
+
+    def dispatch(self, items: list[BatchItem]):
+        """Validate and queue every bucket; returns a handle for collect()."""
+        outputs: list[BatchOutput | None] = [None] * len(items)
+        valid: list[int] = []
+        for i, it in enumerate(items):
+            err = self._validate(it)
+            if err is not None:
+                outputs[i] = BatchOutput(it, None, math.nan, err)
+            else:
+                valid.append(i)
+        t0 = time.perf_counter()
+        pending = [
+            self._dispatch_bucket([items[valid[g]] for g in group],
+                                  [valid[g] for g in group])
+            for group in self._buckets([items[i] for i in valid])
+        ]
+        self.profile["dispatch_s"] += time.perf_counter() - t0
+        return outputs, valid, pending
+
+    def collect(self, handle) -> list[BatchOutput]:
+        """Wait for the handle's buckets and build outputs."""
+        outputs, valid, pending = handle
+        t1 = time.perf_counter()
+        for bucket in pending:
+            self._collect_bucket(bucket, outputs)
+        self.profile["buckets"] += len(pending)
+        self.profile["reads"] += len(valid)
+        self.profile["collect_s"] += time.perf_counter() - t1
+        return outputs  # type: ignore[return-value]
+
+    def run(self, items: list[BatchItem]) -> list[BatchOutput]:
+        return self.collect(self.dispatch(items))
+
+    def _dispatch_bucket(self, its: list[BatchItem], gidx: list[int]):
+        kmer_ids = [
+            seq_to_kmer_ids(it.read, self.model.kmer_size,
+                            self.model.alphabet_size)
+            for it in its
+        ]
+        t_pad = t_pad_ladder(max(len(it.signal) for it in its) + 1, T_PAD_TO)
+        wire = dv.prepare_wire(
+            [it.signal for it in its], kmer_ids, band=self.band,
+            device=self.device, t_pad=t_pad,
+        )
+        res = self._dev_run(wire)
+        host = dv.DeviceSegResult(*(_to_host(x) for x in res))
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        T = np.array([len(it.signal) + 1 for it in its])
+        N = np.array([len(k) + 1 for k in kmer_ids])
+        return its, gidx, T, N, wire.B, host, done
+
+    def _collect_bucket(self, bucket, outputs):
+        its, gidx, T, N, B, host, done = bucket
+        if done is not None:
+            done.synchronize()
+        Zf = host.Zf.numpy().astype(np.float64)
+        Zb = host.Zb.numpy().astype(np.float64)
+        starts = host.starts.numpy()
+        medians = host.medians.numpy()
+        ok = bb.check_z_batch(Zf, Zb, T, B, self.dtype)
+        for j, out_i in enumerate(gidx):
+            if not ok[j]:
+                outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
+                                              float(Zb[j]))
+            else:
+                outputs[out_i] = BatchOutput(
+                    its[j], None, float(Zb[j]),
+                    summaries=(starts[j], medians[j], int(N[j]),
+                               self.model.kmer_size),
+                )
+
+    def _validate(self, it: BatchItem) -> str | None:
+        try:
+            _validate(len(it.signal), len(it.read), self.model.kmer_size)
+        except SystemExit as e:
+            return f"input validation failed (reference exit {e.code})"
+        return None
+
+    def _z_fail(self, it: BatchItem, zf: float, zb: float) -> BatchOutput:
+        """A read failing the fp32 gate is usually fp32 round-off: it
+        re-runs on the exact per-read fp64 rung. fp64 gate failures are
+        terminal — the reference's exit-3 contract
+        (NT_banded_main.cpp:156-183)."""
+        err = f"Z values between matrices do not match! Zf: {zf}, Zb: {zb}"
+        if self.dtype == torch.float32 and self.fp64_fallback:
+            self.profile["z_retries"] = self.profile.get("z_retries", 0) + 1
+            try:
+                res = run_nt_banded(
+                    it.signal, it.read, self.model, self.pore,
+                    {"m1": self.m1, "e2": self.e2}, band=self.band,
+                    device=self.device, dtype=torch.float64, validate=False,
+                )
+                return BatchOutput(it, res.segments, res.Z)
+            except ZConsistencyError as e:
+                return BatchOutput(it, None, zb, str(e))
+        return BatchOutput(it, None, zb, err)

@@ -1,0 +1,219 @@
+"""Wrappers of the banded CUDA kernels (counterpart of
+dynamont_tpu/ops/nt_banded_pallas.py).
+
+Each wrapper sits beside its plain-torch version:
+
+  backward  / backward_plain   K1 banded_bwd      replaces _bwd_kernel
+  fwd_vit   / fwd_vit_plain    K2 banded_fwd_vit  replaces _fwd_vit_kernel
+  walk      / walk_plain       K3 banded_walk     replaces _walk_kernel
+
+A wrapper runs its plain version for tensors on the CPU, launches its
+kernel (csrc/nt_banded.cu) for CUDA tensors, and raises for anything else
+or when the launch fails: there is no fallback from a kernel to its plain
+version. LAUNCHES counts kernel launches and PLAIN_RUNS counts plain-
+version runs, one per call, so a run can show which route it took.
+
+`banded_segment` is the fused entry the engine calls (bwd -> fwd_vit ->
+walk -> grouped medians), returning (Zf, Zb, starts, medians) like
+banded_segment_pallas.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dynamont_tpu_torch import _build
+from dynamont_tpu_torch.ops import nt_banded_batch as bb
+
+KERNELS = ("banded_bwd", "banded_fwd_vit", "banded_walk")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
+MAX_B = 1024  # one thread per band column
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_RUNS[k] = 0
+
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = {
+    "nt_banded_bwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_fwd_vit": [_P] * 15 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
+}
+_bound: dict = {}
+
+
+def _entry(name: str, dtype):
+    """ctypes function of kernel `name` for `dtype`, with its argtypes."""
+    key = f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(_build.load(), key)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return fn
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"banded kernels run on cuda or cpu, not {t.device}")
+    return False
+
+
+def _check(name: str, dtype, device, **tensors) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {dtype} is neither float32 nor float64")
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def _check_batch(name: str, batch: bb.BandedBatch) -> None:
+    dtype = batch.sig.dtype
+    _check(name, dtype, batch.sig.device, sig=batch.sig, mu_pad=batch.mu_pad,
+           c1_pad=batch.c1_pad, c2_pad=batch.c2_pad, bstart=batch.bstart,
+           T=batch.T, N=batch.N, bw=batch.bw)
+    for arg in ("mu_pad", "c1_pad", "c2_pad"):
+        if getattr(batch, arg).dtype != dtype:
+            raise TypeError(f"{name}: {arg} is not {dtype}")
+    for arg in ("bstart", "T", "N", "bw"):
+        if getattr(batch, arg).dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} is not int32")
+    if batch.B % 32 or not 0 < batch.B <= MAX_B:
+        raise ValueError(f"{name}: band width B={batch.B} must be a multiple "
+                         f"of 32 in (0, {MAX_B}]")
+
+
+def _raise_on(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaGetLastError() = {rc}")
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# K1: backward
+# ---------------------------------------------------------------------------
+
+def backward_plain(batch: bb.BandedBatch, log_m1: float, log_e2: float):
+    PLAIN_RUNS["banded_bwd"] += 1
+    return bb.backward(batch, log_m1, log_e2)
+
+
+def backward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
+    """(bM, bE), each (R, T_pad, B)."""
+    if _on_cpu(batch.sig):
+        return backward_plain(batch, log_m1, log_e2)
+    _check_batch("banded_bwd", batch)
+    R, T_pad = batch.bstart.shape
+    bM = torch.empty((R, T_pad, batch.B), dtype=batch.sig.dtype,
+                     device=batch.sig.device)
+    bE = torch.empty_like(bM)
+    rc = _entry("nt_banded_bwd", bM.dtype)(
+        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+        _ptr(batch.bw), _ptr(bM), _ptr(bE), R, T_pad, batch.mu_pad.shape[1],
+        batch.B, batch.pad, log_m1, log_e2, _stream(bM.device))
+    _raise_on("banded_bwd", rc)
+    LAUNCHES["banded_bwd"] += 1
+    return bM, bE
+
+
+# ---------------------------------------------------------------------------
+# K2: fused forward + posterior + Viterbi
+# ---------------------------------------------------------------------------
+
+def fwd_vit_plain(batch: bb.BandedBatch, bM, bE, Zb, log_m1: float,
+                  log_e2: float):
+    PLAIN_RUNS["banded_fwd_vit"] += 1
+    return bb.fwd_vit(batch, bM, bE, Zb, log_m1, log_e2)
+
+
+def fwd_vit(batch: bb.BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):
+    """(ch uint8, LPM, LPE, Zf) from the backward rows and Zb."""
+    if _on_cpu(batch.sig):
+        return fwd_vit_plain(batch, bM, bE, Zb, log_m1, log_e2)
+    _check_batch("banded_fwd_vit", batch)
+    dtype = batch.sig.dtype
+    _check("banded_fwd_vit", dtype, batch.sig.device, bM=bM, bE=bE, Zb=Zb)
+    R, T_pad = batch.bstart.shape
+    if bM.shape != (R, T_pad, batch.B) or bE.shape != bM.shape \
+            or Zb.shape != (R,) or {bM.dtype, bE.dtype, Zb.dtype} != {dtype}:
+        raise ValueError("banded_fwd_vit: bM/bE/Zb do not match the batch")
+    ch = torch.empty(bM.shape, dtype=torch.uint8, device=bM.device)
+    LPM = torch.empty_like(bM)
+    LPE = torch.empty_like(bM)
+    Zf = torch.full((R,), float("-inf"), dtype=dtype, device=bM.device)
+    rc = _entry("nt_banded_fwd_vit", dtype)(
+        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+        _ptr(batch.bw), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(ch), _ptr(LPM),
+        _ptr(LPE), _ptr(Zf), R, T_pad, batch.mu_pad.shape[1], batch.B,
+        batch.pad, log_m1, log_e2, _stream(bM.device))
+    _raise_on("banded_fwd_vit", rc)
+    LAUNCHES["banded_fwd_vit"] += 1
+    return ch, LPM, LPE, Zf
+
+
+# ---------------------------------------------------------------------------
+# K3: traceback walk
+# ---------------------------------------------------------------------------
+
+def walk_plain(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
+    PLAIN_RUNS["banded_walk"] += 1
+    return bb.walk(LPM, LPE, ch, batch, N_max)
+
+
+def walk(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
+    """(path_n int32, prob, close bool), each (R, T_pad-1)."""
+    if _on_cpu(LPM):
+        return walk_plain(LPM, LPE, ch, batch, N_max)
+    dtype = LPM.dtype
+    _check("banded_walk", dtype, LPM.device, LPM=LPM, LPE=LPE, ch=ch,
+           bstart=batch.bstart, T=batch.T, N=batch.N, bw=batch.bw)
+    R, T_pad, B = LPM.shape
+    if LPE.shape != LPM.shape or ch.shape != LPM.shape \
+            or LPE.dtype != dtype or ch.dtype != torch.uint8 \
+            or batch.bstart.shape != (R, T_pad):
+        raise ValueError("banded_walk: LPM/LPE/ch do not match the batch")
+    path_n = torch.empty((R, T_pad - 1), dtype=torch.int32, device=LPM.device)
+    prob = torch.empty((R, T_pad - 1), dtype=dtype, device=LPM.device)
+    close = torch.empty((R, T_pad - 1), dtype=torch.uint8, device=LPM.device)
+    rc = _entry("nt_banded_walk", dtype)(
+        _ptr(LPM), _ptr(LPE), _ptr(ch), _ptr(batch.bstart), _ptr(batch.T),
+        _ptr(batch.N), _ptr(batch.bw), _ptr(path_n), _ptr(prob), _ptr(close),
+        R, T_pad, B, N_max, _stream(LPM.device))
+    _raise_on("banded_walk", rc)
+    LAUNCHES["banded_walk"] += 1
+    return path_n, prob, close.bool()
+
+
+def banded_segment(batch: bb.BandedBatch, N_max: int, log_m1: float,
+                   log_e2: float):
+    """Fused entry: backward (its row 0 yields Zb) -> forward + posterior +
+    Viterbi -> walk -> grouped medians. Returns (Zf, Zb, starts, medians),
+    starts (R, N_max) int32 with -1 for no segment."""
+    bM, bE = backward(batch, log_m1, log_e2)
+    r = torch.arange(bM.shape[0], device=bM.device)
+    Zb = bE[r, 0, batch.bw.long() + 1]
+    ch, LPM, LPE, Zf = fwd_vit(batch, bM, bE, Zb, log_m1, log_e2)
+    del bM, bE
+    path_n, prob, close = walk(LPM, LPE, ch, batch, N_max)
+    starts, medians = bb.path_summaries(path_n, prob, close, N_max)
+    return Zf, Zb, starts, medians

@@ -1,0 +1,86 @@
+"""The three banded CUDA kernels against their plain-torch versions, on a
+card. JAX-free, so it runs where the port runs:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+(--noconftest: tests/conftest.py configures JAX). Without a CUDA device
+every case skips. Kernel and plain version compute the same float
+operations in the same order on the same device inputs, so band cells
+agree to 1e-5, choice bits and walked paths exactly.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from dynamont_tpu.models.registry import load_model_for_pore
+from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu.utils.synthetic import make_read
+from dynamont_tpu_torch.ops import nt_banded_batch as bb
+from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+
+LM, LE = math.log(0.019889650396799997), math.log(0.9801103496029998)
+
+
+def _close_band(got, want, T, atol=1e-5):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for i in range(got.shape[0]):
+        x, y = got[i, : int(T[i])], want[i, : int(T[i])]
+        assert np.array_equal(np.isneginf(x), np.isneginf(y)), f"read {i}: -inf pattern"
+        fin = np.isfinite(y)
+        d = np.abs(x[fin] - y[fin])
+        assert d.size == 0 or d.max() <= atol, f"read {i}: max diff {d.max()}"
+
+
+def test_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain version; any other non-CUDA
+    device raises instead of falling back."""
+    model = load_model_for_pore("rna002")
+    sig, read = make_read(model, n_bases=40, seed=0)
+    kid = seq_to_kmer_ids(read, model.kmer_size, model.alphabet_size)
+    b = bb.prepare_batch([sig], [kid], model, device="meta",
+                         dtype=torch.float32)
+    runs = dict(kk.PLAIN_RUNS)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kk.backward(b, LM, LE)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kk.walk(b.mu_pad, b.mu_pad, b.bstart, b, 2)
+    assert kk.PLAIN_RUNS == runs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_match_plain_on_cuda(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    model = load_model_for_pore("rna002")
+    items = [make_read(model, n_bases=40 + 10 * s, seed=s) for s in range(3)]
+    kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
+            for _, r in items]
+    b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                         dtype=dtype, t_pad_to=256)
+    T = b.T.cpu().numpy()
+    N_max = int(b.N.max())
+    launches = dict(kk.LAUNCHES)
+
+    bM, bE = kk.backward(b, LM, LE)
+    pM, pE = kk.backward_plain(b, LM, LE)
+    _close_band(bM, pM, T)
+    _close_band(bE, pE, T)
+
+    Zb = pE[torch.arange(3, device="cuda"), 0, b.bw.long() + 1]
+    ch, LPM, LPE, Zf = kk.fwd_vit(b, pM, pE, Zb, LM, LE)
+    pch, pLPM, pLPE, pZf = kk.fwd_vit_plain(b, pM, pE, Zb, LM, LE)
+    assert torch.equal(ch, pch)
+    _close_band(LPM, pLPM, T)
+    _close_band(LPE, pLPE, T)
+    torch.testing.assert_close(Zf, pZf, rtol=1e-6, atol=0)
+
+    path_n, prob, close = kk.walk(pLPM, pLPE, pch, b, N_max)
+    p_path_n, p_prob, p_close = kk.walk_plain(pLPM, pLPE, pch, b, N_max)
+    torch.cuda.synchronize()
+    assert torch.equal(path_n, p_path_n)
+    assert torch.equal(close, p_close)
+    torch.testing.assert_close(prob, p_prob, rtol=0, atol=1e-6)
+    assert all(kk.LAUNCHES[k] == launches[k] + 1 for k in kk.KERNELS)
