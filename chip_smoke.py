@@ -17,10 +17,24 @@ result line):
      read must yield CSV rows, every kernel must have launched and no
      plain version run; three short reads are held against the exact fp64
      rung (borders identical, probabilities within 2e-3);
-  5. CUDA-event times of each kernel beside its plain version at the main
-     path's bucket shape (32, 16384, 512).
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Needs no JAX, no zstandard, no network.
+  5. CUDA-event times of each kernel beside its plain version at its
+     path's bucket shape: (32, 16384, 512) for the segmentation kernels,
+     (24, 16384, 512) for the training kernels;
+  6. the training kernels (banded_fwd, banded_bwd_train) against their
+     plain versions on the short reads and on one (2, 16384, 512) bucket,
+     fp32 and fp64: every output bit for bit;
+  7. the training path: 48 reads of the phase-4 shape through
+     dynamont_tpu_torch.cli.train.main in-process (batch 24, 2 batches,
+     fp32, cuda), launch counters reset right before and read right
+     after: both training kernels launched, no plain version, no read on
+     the per-read fp64 rung, 2 finite params.csv rows and 2 checkpoints; a
+     second identical run writes byte-identical files; fp32 and fp64
+     trainers on 4 short reads agree on m1/e2 within rel 1e-3; the
+     training step's reads/s at (24, 16384, 512), split into host prep,
+     banded_fwd, banded_bwd_train, emission statistics and transfer back.
+Each phase prints its wall time. The line before the last is
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}. Needs no
+JAX, no zstandard, no network.
 """
 
 from __future__ import annotations
@@ -30,17 +44,28 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N_READS, N_BASES, MEAN_DWELL, T_TRIM, BATCH = 64, 1800, 9.0, 16000, 32
-SOURCE = "dynamont_tpu_torch/csrc/nt_banded.cu"
+TRAIN_READS, TRAIN_BATCH = 48, 24
+SOURCE = {
+    "banded_bwd": "dynamont_tpu_torch/csrc/nt_banded.cu",
+    "banded_fwd_vit": "dynamont_tpu_torch/csrc/nt_banded.cu",
+    "banded_walk": "dynamont_tpu_torch/csrc/nt_banded.cu",
+    "banded_fwd": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
+    "banded_bwd_train": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
+}
 REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
     "banded_fwd_vit": "dynamont_tpu/ops/nt_banded_pallas.py:584",
     "banded_walk": "dynamont_tpu/ops/nt_banded_pallas.py:747",
+    "banded_fwd": "dynamont_tpu/ops/nt_banded_pallas.py:113",
+    "banded_bwd_train": "dynamont_tpu/ops/nt_banded_train.py:90",
 }
 CELL_ATOL = 1e-5
 RUNS = 5
+STEPS = 5  # timed training steps after a warm-up
 
 
 def log(msg: str) -> None:
@@ -125,6 +150,65 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+class Phases:
+    """Prints each phase's wall time as the next one starts."""
+
+    def __init__(self):
+        self.name, self.t0 = None, time.perf_counter()
+
+    def start(self, name: str) -> None:
+        self.end()
+        self.name, self.t0 = name, time.perf_counter()
+
+    def end(self) -> None:
+        if self.name is not None:
+            log(f"[{self.name}] phase wall {time.perf_counter() - self.t0:.1f} s")
+        self.name = None
+
+
+def compare_train_kernels(batch, lm, le):
+    """banded_fwd and banded_bwd_train against their plain versions on one
+    batch: every output bit for bit. Returns the max abs error per kernel
+    (0.0) and raises on any difference."""
+    import torch
+
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+
+    fM, fE = kk.forward(batch, lm, le)
+    pfM, pfE = kk.forward_plain(batch, lm, le)
+    torch.cuda.synchronize()
+    if not (torch.equal(fM, pfM) and torch.equal(fE, pfE)):
+        raise AssertionError("banded_fwd differs from its plain version")
+    del fM, fE, pfM
+    got = kk.backward_train(batch, pfE, lm, le)
+    want = kk.backward_train_plain(batch, pfE, lm, le)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("bM", "bE", "rawM1", "rawE2"), got, want):
+        if not torch.equal(g, w):
+            fin = torch.isfinite(w)
+            raise AssertionError(
+                f"banded_bwd_train {name} differs from its plain version: "
+                f"max abs {(g[fin] - w[fin]).abs().max().item()}")
+    return {"banded_fwd": 0.0, "banded_bwd_train": 0.0}
+
+
+def write_tsv(path: str, reads) -> None:
+    """(signal, read in processing orientation) pairs as the TSV the CLIs
+    read: RNA 5'->3', without the polyA stub the reader adds back."""
+    with open(path, "w") as f:
+        for i, (sig, read) in enumerate(reads):
+            f.write(f"r{i}\tr{i}\t{','.join(repr(float(x)) for x in sig)}"
+                    f"\t{read[9:][::-1]}\n")
+
+
+def files_of(outdir: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(outdir)):
+        with open(os.path.join(outdir, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -140,14 +224,21 @@ def main() -> int:
     from dynamont_tpu.native import summaries_csv_native
     from dynamont_tpu.utils.kmer import seq_to_kmer_ids
     from dynamont_tpu.utils.synthetic import make_read
+    from dynamont_tpu.io import readers
     from dynamont_tpu_torch import _build
+    from dynamont_tpu_torch.cli import train as train_cli
     from dynamont_tpu_torch.models.batch import BandedBatchEngine, BatchItem
     from dynamont_tpu_torch.models.nt_banded import run_nt_banded
     from dynamont_tpu_torch.models.params import params_from_numpy
+    from dynamont_tpu_torch.ops import nt_banded_batch as bb
     from dynamont_tpu_torch.ops import nt_banded_device as dv
     from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import nt_banded_train as nt
+    from dynamont_tpu_torch.training.trainer import T_PAD_TO, Trainer
 
+    phase = Phases()
     # 1. the card
+    phase.start("1")
     kind = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
     nvcc = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True,
@@ -158,6 +249,7 @@ def main() -> int:
     log(card)
 
     # 2. a fresh build from the checkout's sources
+    phase.start("2")
     lib_path = _build.library_path()
     if os.path.exists(lib_path):
         os.remove(lib_path)
@@ -184,6 +276,7 @@ def main() -> int:
         return dv.decode(wire, p.means, p.c1, p.c2, dtype), wire.N_max
 
     # 3. kernels against their plain versions
+    phase.start("3")
     small = [make_read(model, n_bases=40 + 10 * s, seed=s) for s in range(3)]
     bench = []
     for s in range(N_READS):
@@ -204,6 +297,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 4. the main path
+    phase.start("4")
     items = [BatchItem(sig, read) for sig, read in bench]
     eng = BandedBatchEngine(model, "rna002", device="cuda", batch_size=BATCH)
     eng.run(items[:BATCH])  # warm-up: allocator and first launches
@@ -225,7 +319,7 @@ def main() -> int:
         f"{per_run('dispatch_s') * 1e3:.1f} ms, wait+collect "
         f"{per_run('collect_s') * 1e3:.1f} ms | fp64 retries "
         f"{eng.profile.get('z_retries', 0)} | launches {launches} | plain {plain_runs}")
-    if any(v == 0 for v in launches.values()) or any(plain_runs.values()):
+    if any(launches[k] == 0 for k in kk.SEGMENT_KERNELS) or any(plain_runs.values()):
         raise AssertionError(f"main path missed a kernel: {launches} {plain_runs}")
     n_rows = 0
     for o, (sig, read) in zip(outs, bench):
@@ -256,7 +350,8 @@ def main() -> int:
             raise AssertionError(f"fp32 probability off the fp64 rung by {dp}")
     log("[4] short reads: fp32 borders identical to the fp64 rung, probabilities within 2e-3")
 
-    # 5. kernel and plain-version times at the main path's bucket shape
+    # 5. kernel and plain-version times at each path's bucket shape
+    phase.start("5")
     main_b, nmax = bucket(bench[:BATCH], torch.float32)
     log(f"[5] timing bucket {(main_b.sig.shape[0], main_b.bstart.shape[1], main_b.B)}")
     r = torch.arange(BATCH, device="cuda")
@@ -271,13 +366,164 @@ def main() -> int:
         "banded_walk": (lambda: kk.walk(LPM, LPE, ch, main_b, nmax),
                         lambda: kk.walk_plain(LPM, LPE, ch, main_b, nmax)),
     }
-    kernels = []
+    kids_of = lambda reads: [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
+                             for _, r in reads]
+    train_b = bb.prepare_batch([s for s, _ in bench[:TRAIN_BATCH]], kids_of(bench[:TRAIN_BATCH]),
+                               model, device="cuda", dtype=torch.float32,
+                               t_pad_to=T_PAD_TO)
+    if (train_b.sig.shape[0], train_b.bstart.shape[1], train_b.B) != (TRAIN_BATCH, 16384, 512):
+        raise AssertionError("training bucket shape")
+    fM, fE = kk.forward(train_b, lm, le)
+    del fM
+    runs["banded_fwd"] = (lambda: kk.forward(train_b, lm, le),
+                          lambda: kk.forward_plain(train_b, lm, le))
+    runs["banded_bwd_train"] = (lambda: kk.backward_train(train_b, fE, lm, le),
+                                lambda: kk.backward_train_plain(train_b, fE, lm, le))
+    times = {}
     for name, (kern, plain) in runs.items():
         kern()
         ms = cuda_ms(kern, 3)
         plain_ms = cuda_ms(plain, 1)
         log(f"[5] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
+        times[name] = (ms, plain_ms)
+    del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs
+    torch.cuda.empty_cache()
+
+    # 6. the training kernels against their plain versions
+    phase.start("6")
+    for dtype in (torch.float32, torch.float64):
+        for reads in (small, bench[:2]):
+            b = bb.prepare_batch([s for s, _ in reads], kids_of(reads), model,
+                                 device="cuda", dtype=dtype, t_pad_to=T_PAD_TO)
+            errs = compare_train_kernels(b, lm, le)
+            log(f"[6] bucket {(b.sig.shape[0], b.bstart.shape[1], b.B)} {dtype}: "
+                f"bitwise equal, max abs err {errs}")
+            del b
+        if dtype == torch.float32:
+            max_err.update(errs)
+    torch.cuda.empty_cache()
+
+    # 7. the training path through the CLI
+    phase.start("7")
+    with tempfile.TemporaryDirectory(prefix="dynamont_train_") as tmp:
+        tsv = os.path.join(tmp, "train.tsv")
+        write_tsv(tsv, bench[:TRAIN_READS])
+        args = ["--tsv", tsv, "-p", "rna002", "--mode", "basic", "-q", "0",
+                "--batch_size", str(TRAIN_BATCH), "--max_batches", "2",
+                "--precision", "fp32", "--device", "cuda"]
+        outs = []
+        for rep in range(2):
+            out = os.path.join(tmp, f"run{rep}")
+            kk.reset_counts()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(args + ["-o", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            train_launches, train_plain = dict(kk.LAUNCHES), dict(kk.PLAIN_RUNS)
+            log(f"[7] CLI run {rep}: {TRAIN_READS} reads in {wall:.2f} s | launches "
+                f"{train_launches} | plain {train_plain} | fp64 rung {trainer.fp64_reads}")
+            if (train_launches["banded_fwd"] < 4 or train_launches["banded_bwd_train"] < 4
+                    or any(train_plain.values()) or trainer.fp64_reads):
+                raise AssertionError("training path missed a kernel or fell back")
+            outs.append(files_of(out))
+            if rep == 0:
+                launches.update({k: train_launches[k] for k in kk.TRAIN_KERNELS})
+        rows = outs[0]["params.csv"].decode().splitlines()
+        log("[7] params.csv: " + " | ".join(rows))
+        if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
+                                     for v in row.split(",")[4:7]):
+            raise AssertionError("params.csv rows")
+        if not {"trained_0_1.model", "trained_0_2.model"} <= set(outs[0]):
+            raise AssertionError(f"checkpoints missing: {sorted(outs[0])}")
+        if outs[0] != outs[1]:
+            raise AssertionError("a repeat run wrote different files")
+        log(f"[7] repeat run: {len(outs[0])} files byte-identical")
+
+        short_tsv = os.path.join(tmp, "short.tsv")
+        write_tsv(short_tsv, [make_read(model, n_bases=30, seed=80 + s) for s in range(4)])
+        jobs = list(readers.generate_tsv_jobs(short_tsv, rna=True))
+        params = {}
+        for prec in ("fp32", "fp64"):
+            t = Trainer("basic", "rna002", os.path.join(tmp, prec),
+                        os.path.join(tmp, "run0", "trained_0_0.model"),
+                        batch_size=4, precision=prec, device="cuda")
+            t.process_batch(jobs, epoch=0)
+            t.close()
+            params[prec] = t.transition_params
+        rel = {p: abs(params["fp32"][p] / params["fp64"][p] - 1) for p in ("m1", "e2")}
+        log(f"[7] fp32 vs fp64 trainer on 4 short reads: m1/e2 rel diff {rel}")
+        if max(rel.values()) > 1e-3:
+            raise AssertionError("fp32 trainer off the fp64 trainer")
+
+    # the training step at (24, 16384, 512): prepare_batch and
+    # banded_batch_train with the results brought to the host, as the
+    # trainer runs them (host clock); then the same stages one by one,
+    # kernels and emission statistics on CUDA events
+    step_reads = bench[:TRAIN_BATCH]
+
+    def prepare():
+        kids = kids_of(step_reads)
+        b = bb.prepare_batch([s for s, _ in step_reads], kids, model, device="cuda",
+                             dtype=torch.float32, t_pad_to=T_PAD_TO)
+        kid_pad = np.zeros((len(kids), max(len(k) for k in kids)), np.int32)
+        for i, k in enumerate(kids):
+            kid_pad[i, : len(k)] = k
+        return b, kid_pad
+
+    split = {k: [] for k in ("step", "host_prep", "banded_fwd", "banded_bwd_train",
+                             "emission_stats", "to_host")}
+    torch.cuda.reset_peak_memory_stats()
+    for it in range(STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, kid_pad = prepare()
+        res = nt.banded_batch_train(b, lm, le, kid_pad, model.num_kmers)
+        host = [x.cpu() for x in res]
+        step_ms = (time.perf_counter() - t0) * 1e3
+        del res, host, b
+        t0 = time.perf_counter()
+        b, kid_pad = prepare()
+        plan = nt.stats_plan(b.bstart.cpu().numpy(), b.T.cpu().numpy(),
+                             b.N.cpu().numpy(), kid_pad, model.num_kmers,
+                             b.sig.device, b.sig.dtype)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        fM, fE = kk.forward(b, lm, le)
+        ev[1].record()
+        bM, bE, rawM1, rawE2 = kk.backward_train(b, fE, lm, le)
+        ev[2].record()
+        Zb = bE[torch.arange(TRAIN_BATCH, device="cuda"), 0, b.bw.long() + 1]
+        means, stdevs = nt.emission_stats(b, fM, fE, bM, bE, Zb, plan,
+                                          kid_pad.shape[1] + 1)
+        ev[3].record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        host = [x.cpu() for x in (rawM1, rawE2, Zb, means, stdevs)]
+        t3 = time.perf_counter()
+        del fM, fE, bM, bE, means, stdevs, host, b
+        if it == 0:
+            continue  # warm-up
+        split["step"].append(step_ms)
+        split["host_prep"].append((t1 - t0) * 1e3)
+        split["banded_fwd"].append(ev[0].elapsed_time(ev[1]))
+        split["banded_bwd_train"].append(ev[1].elapsed_time(ev[2]))
+        split["emission_stats"].append(ev[2].elapsed_time(ev[3]))
+        split["to_host"].append((t3 - t2) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
+    log(f"[7] training step (24, 16384, 512) fp32, median of {STEPS}: {med['step']:.2f} ms "
+        f"= {TRAIN_BATCH / (med['step'] / 1e3):.2f} reads/s (all steps ms "
+        f"{[round(x, 2) for x in split['step']]}) | split, medians: host prep "
+        f"{med['host_prep']:.2f} ms, banded_fwd {med['banded_fwd']:.3f} ms, "
+        f"banded_bwd_train {med['banded_bwd_train']:.3f} ms, emission stats "
+        f"{med['emission_stats']:.3f} ms, to host {med['to_host']:.2f} ms | peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase.end()
+
+    kernels = []
+    for name, (ms, plain_ms) in times.items():
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE[name],
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": max_err[name], "ms": ms,
                         "plain_ms": plain_ms})

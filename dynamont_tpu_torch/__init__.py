@@ -4,12 +4,16 @@ The JAX package `dynamont_tpu` is the reference; this package mirrors its
 module names so each counterpart is found at the same path:
 
   ops/nt_banded_batch.py    plain-torch banded DP (CPU path, kernel oracles)
-  ops/nt_banded_kernels.py  CUDA wrappers of the three banded kernels
-                            (counterpart of ops/nt_banded_pallas.py)
+  ops/nt_banded_kernels.py  CUDA wrappers of the five banded kernels
+                            (counterpart of ops/nt_banded_pallas.py and of
+                            the kernel in ops/nt_banded_train.py)
   ops/nt_banded_device.py   wire format, on-device decode, device entry
+  ops/nt_banded_train.py    batched Baum-Welch estimates (training op)
   ops/nt_banded.py          exact per-read banded DP (the fp64 rung)
   models/                   parameters, per-read and batched engines
+  training/trainer.py       the basic-mode training driver
   cli/resquiggle.py         dynamont-resquiggle --mode basic
+  cli/train.py              dynamont-train --mode basic
   csrc/                     CUDA C++ kernels, built with nvcc at first use
                             (see _build.py)
 

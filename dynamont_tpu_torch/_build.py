@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The kernels are plain CUDA C++ with an `extern "C"` interface: nvcc builds
-them into one shared library, which ctypes loads. No PyTorch header is
-compiled, so a build takes seconds instead of the minutes a
-torch.utils.cpp_extension build takes.
+The kernels are plain CUDA C++ with an `extern "C"` interface: one nvcc
+per source file, all started together, compiles an object each, and one
+more nvcc links them into a shared library, which ctypes loads. No
+PyTorch header is compiled, so a build takes seconds instead of the
+minutes a torch.utils.cpp_extension build takes.
 
 The library is built at first use into `_kernels_build/` beside this file
 (listed in .gitignore; override with DYNAMONT_TORCH_BUILD_DIR), under a
@@ -30,10 +31,10 @@ import threading
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-fmad=false", "-Xptxas", "-v", "-c"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -66,7 +67,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
@@ -74,29 +75,37 @@ def library_path() -> str:
     return os.path.join(build_dir(), f"libdynamont_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _nvcc(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands side by side; their joined output, or a
+    RuntimeError naming the first that failed once all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    done = [(cmd, *p.communicate(), p.returncode) for cmd, p in procs]
+    for cmd, out, err, rc in done:
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}{err}")
+    return "".join(out + err for _, out, err, _ in done)
+
+
 def _compile(out: str) -> None:
     global build_log, build_seconds
     import time
 
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    nvcc = find_nvcc()
+    sources = [s for s in _sources() if s.endswith(".cu")]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in sources]
+        log = _nvcc([[nvcc, *COMPILE_FLAGS, "-o", o, s]
+                     for s, o in zip(sources, objs)])
+        lib = os.path.join(tmp, "kernels.so")
+        log += _nvcc([[nvcc, *LINK_FLAGS, "-o", lib, *objs]])
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-
+    build_log = log
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (thread-safe)."""

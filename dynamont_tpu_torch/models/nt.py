@@ -1,11 +1,14 @@
-"""Per-read result type, input contract and Z error of the NT pipelines
-(the JAX-free parts of dynamont_tpu/models/nt.py)."""
+"""Per-read result type, input contract, Z error and trained-emission
+report of the NT pipelines (the JAX-free parts of
+dynamont_tpu/models/nt.py)."""
 
 from __future__ import annotations
 
 import math
 import sys
 from dataclasses import dataclass
+
+from dynamont_tpu.utils.kmer import int2kmer
 
 
 class ZConsistencyError(RuntimeError):
@@ -18,6 +21,8 @@ class ZConsistencyError(RuntimeError):
 class NTResult:
     segments: list | None = None
     Z: float = math.nan
+    trained_transitions: dict | None = None
+    trained_emissions: dict | None = None
 
 
 def _validate(signal_len: int, read_len: int, kmer_size: int) -> None:
@@ -35,3 +40,14 @@ def _validate(signal_len: int, read_len: int, kmer_size: int) -> None:
         die(10, f"Signal: {signal_len + 1} smaller than read: {read_len}")
     if read_len < kmer_size:
         die(11, f"Read: {read_len} smaller than kmerSize of the pore type: {kmer_size}")
+
+
+def _emissions_to_dict(means, stdevs, model) -> dict:
+    """Only k-mers with nonzero trained stdev are reported (ref:
+    NT.cpp:355-361)."""
+    out = {}
+    for k in range(model.num_kmers):
+        if stdevs[k] != 0.0:
+            kmer = int2kmer(k, model.alphabet_size, model.kmer_size, model.rna)
+            out[kmer] = (float(means[k]), float(stdevs[k]))
+    return out

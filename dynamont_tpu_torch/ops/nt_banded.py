@@ -1,18 +1,20 @@
-"""Exact per-read banded NT segmentation (counterpart of
-dynamont_tpu/ops/nt_banded.py, segment mode).
+"""Exact per-read banded NT DP (counterpart of dynamont_tpu/ops/nt_banded.py):
+segmentation, and the Baum-Welch estimates of the train and calcZ modes.
 
 The JAX package runs a separate per-read scan here. The port runs the
-same three kernels as the batched path, one read per launch, on the
-unpadded float64 signal (T_pad = T): the batched pipeline already equals
-the per-read DP to 1e-12 in fp64, and one set of kernels serves both.
+same kernels as the batched paths, one read per launch, on the unpadded
+float64 signal (T_pad = T): the batched pipelines already equal the
+per-read DP to 1e-12 in fp64, and one set of kernels serves both.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+from dynamont_tpu_torch.ops import nt_banded_train
 
 
 def banded_segment_read(signal, kmer_ids, model, band: int,
@@ -26,3 +28,19 @@ def banded_segment_read(signal, kmer_ids, model, band: int,
     Zf, Zb, starts, medians = kk.banded_segment(batch, N, log_m1, log_e2)
     return (float(Zf[0]), float(Zb[0]), starts[0].cpu().numpy(),
             medians[0].cpu().numpy())
+
+
+def banded_train_read(signal, kmer_ids, model, band: int, log_m1: float,
+                      log_e2: float, *, device, dtype=torch.float64):
+    """One read through the training kernels (K4, K5) -> (Zf, Zb, m1, e2,
+    means, stdevs) as host values: floats, then (K,) numpy arrays. The
+    emission statistics divide by each position's weight unconditionally,
+    as the JAX per-read path does (ops/nt_banded.py:321, 334)."""
+    batch = bb.prepare_batch([signal], [kmer_ids], model, band,
+                             device=device, dtype=dtype, t_pad_to=1)
+    res = nt_banded_train.banded_batch_train(
+        batch, log_m1, log_e2, np.asarray(kmer_ids)[None],
+        model.num_kmers, guard=False)
+    return (float(res.Zf[0]), float(res.Zb[0]), float(res.m1[0]),
+            float(res.e2[0]), res.means[0].cpu().numpy(),
+            res.stdevs[0].cpu().numpy())

@@ -1,5 +1,5 @@
 """Batched banded NT DP in plain PyTorch — the CPU path and the plain
-versions of the three CUDA kernels (counterpart of
+versions of the five CUDA kernels (counterpart of
 dynamont_tpu/ops/nt_banded_batch.py).
 
 Reads are padded to a common (T_pad, B) bucket. Every recurrence is a
@@ -66,6 +66,18 @@ class BandedBatch(NamedTuple):
     bw: torch.Tensor       # (R,) int32 per-read effective bandwidth
     pad: int               # left padding of the parameter arrays
     B: int                 # band array width (>= 2*max_bw+3)
+
+
+class BandedTrainResult(NamedTuple):
+    """Per-read Baum-Welch estimates of a padded batch."""
+
+    Zf: torch.Tensor         # (R,)
+    Zb: torch.Tensor         # (R,)
+    m1: torch.Tensor         # (R,) updated transition probabilities
+    e2: torch.Tensor         # (R,)
+    means: torch.Tensor      # (R, K) k-mer level means (0 where unseen)
+    stdevs: torch.Tensor     # (R, K) k-mer level stdevs (0 where unseen)
+    kmer_mask: torch.Tensor  # (R, K) bool: the read contributes this k-mer
 
 
 def round_up(x: int, m: int) -> int:
@@ -196,12 +208,99 @@ def _row_shifts(batch: BandedBatch):
 # the recurrences
 # ---------------------------------------------------------------------------
 
+def forward(batch: BandedBatch, log_m1: float, log_e2: float):
+    """(fM, fE), each (R, T_pad, B); plain version of the banded_fwd
+    kernel (ref: NT_banded.cpp:23-62). Row 0 is M = -inf and E = 0 at band
+    column bw+1; rows t >= T are -inf."""
+    R, T_pad = batch.bstart.shape
+    dtype = batch.sig.dtype
+    sc_b = _band_scores(batch, slice(1, None), batch.sig, -2)
+    valid = _valid(batch, slice(1, None), True)
+    s1 = _row_shifts(batch)
+    M = torch.full((R, batch.B), NEG_INF, dtype=dtype, device=sc_b.device)
+    E = _start_row(batch, dtype)
+    fM = torch.empty((R, T_pad, batch.B), dtype=dtype, device=sc_b.device)
+    fE = torch.empty_like(fM)
+    fM[:, 0], fE[:, 0] = M, E
+    for t in range(1, T_pad):
+        M, E = _forward_row(M, E, s1[:, t - 1 : t], sc_b[:, t - 1],
+                            valid[:, t - 1], log_m1, log_e2)
+        fM[:, t], fE[:, t] = M, E
+    dead = (torch.arange(T_pad, device=fM.device) >= batch.T[:, None])[:, :, None]
+    fM.masked_fill_(dead, NEG_INF)
+    fE.masked_fill_(dead, NEG_INF)
+    return fM, fE
+
+
+def _online_add(m, s, x):
+    """Fold x into the running log-sum (m, s), value m + log(s), as the
+    banded_bwd_train kernel folds it (`online_add`)."""
+    m_new = torch.maximum(m, x)
+    live = m_new > NEG_INF
+    safe = torch.where(live, m_new, 0.0)
+    s = torch.where(live, s * torch.exp(m - safe) + torch.exp(x - safe), s)
+    return m_new, s
+
+
+def band_lse(m, s):
+    """(R,) log-sum over the band of per-column online sums (m, s), each
+    (R, B), reduced as the banded_bwd_train kernel reduces (`band_lse`):
+    the max, then a pairwise tree sum of exp(acc - max) over the band
+    zero-padded to a power of two, then log + max. -inf for a read with
+    no finite term."""
+    acc = torch.where(s > 0, m + torch.log(torch.where(s > 0, s, 1.0)),
+                      NEG_INF)
+    mx = acc.amax(dim=1)
+    live = mx > NEG_INF
+    safe = torch.where(live, mx, 0.0)
+    B = acc.shape[1]
+    x = F.pad(torch.exp(acc - safe[:, None]), (0, (1 << (B - 1).bit_length()) - B))
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return torch.where(live, torch.log(x[:, 0]) + safe, mx)
+
+
 def backward(batch: BandedBatch, log_m1: float, log_e2: float):
     """(M, E), each (R, T_pad, B); plain version of the banded_bwd kernel.
 
     The terminal row is each read's own t = T-1 (E = 0 at band column
     bw+1); rows above it are -inf and leave the carry untouched, so reads
     of different T share one bucket (ref: NT_banded.cpp:64-123)."""
+    M, E, _ = _backward(batch, log_m1, log_e2, None)
+    return M, E
+
+
+def backward_train(batch: BandedBatch, fE, log_m1: float, log_e2: float):
+    """(bM, bE, rawM1, rawE2); plain version of the banded_bwd_train
+    kernel: the backward recurrence of `backward`, unchanged, fused with
+    the Baum-Welch transition numerators over the forward E rows fE
+    (ref: NT_banded.cpp:303-371).
+
+    At row t < T-1, m1_t = fE + log_m1 + sc_a + bMq where n + 1 < N and
+    e2_t = fE + log_e2 + sc_b + bEq where n > 0, with bMq/bEq backward row
+    t+1 under the reference's quirked next shift (at t = T-2 it compares
+    bstart[T-2] with bstart[0], NT_banded.cpp:309); the recurrence keeps
+    the true shift. Terms fold per band column online over t, then one
+    band_lse per read gives rawM1/rawE2 (R,): log numerators that already
+    hold log_m1/log_e2."""
+    M, E, (m1, e2) = _backward(batch, log_m1, log_e2, fE)
+    return M, E, band_lse(*m1), band_lse(*e2)
+
+
+def _quirked_shifts(batch: BandedBatch):
+    """(R, T_pad-1) bool: index t holds bstart[t+1] != bstart[t], except
+    at t = T-2, where it holds bstart[T-2] != bstart[0]."""
+    sb = _row_shifts(batch)
+    T = batch.T.long()[:, None]
+    s_last = batch.bstart.gather(1, (T - 2).clamp(min=0)) != batch.bstart[:, :1]
+    t = torch.arange(sb.shape[1], device=sb.device)
+    return torch.where(t == T - 2, s_last, sb)
+
+
+def _backward(batch: BandedBatch, log_m1: float, log_e2: float, fE):
+    """The backward recurrence; with forward rows fE also the per-column
+    online (max, sum) pairs of the m1 and e2 numerators."""
     R, T_pad = batch.bstart.shape
     B = batch.B
     dtype = batch.sig.dtype
@@ -221,7 +320,21 @@ def backward(batch: BandedBatch, log_m1: float, log_e2: float):
     M[:, T_pad - 1] = NEG_INF
     E[:, T_pad - 1] = torch.where(T == T_pad, term_row, NEG_INF)
     M_next, E_next = M[:, T_pad - 1], E[:, T_pad - 1]
+    if fE is not None:
+        snq = _quirked_shifts(batch)
+        zero = torch.zeros((R, B), dtype=dtype, device=sc_b.device)
+        m1 = e2 = (torch.full_like(zero, NEG_INF), zero)
     for t in range(T_pad - 2, -1, -1):
+        if fE is not None:  # numerators over row t+1, before it moves on
+            q = snq[:, t : t + 1]
+            bMq = torch.where(q, M_next, _shift_left(M_next))
+            bEq = torch.where(q, _shift_right(E_next), E_next)
+            live = t < T - 1
+            fe = fE[:, t]
+            m1 = _online_add(*m1, torch.where(
+                live & has_next[:, t], fe + log_m1 + sc_a[:, t] + bMq, NEG_INF))
+            e2 = _online_add(*e2, torch.where(
+                live & has_prev[:, t], fe + log_e2 + sc_b[:, t] + bEq, NEG_INF))
         s = sb[:, t : t + 1]
         E_n = torch.where(s, _shift_right(E_next), E_next)
         M_n = torch.where(s, M_next, _shift_left(M_next))
@@ -237,7 +350,7 @@ def backward(batch: BandedBatch, log_m1: float, log_e2: float):
         E_next = torch.where(live, E_new, torch.where(term, term_row, E_next))
         M[:, t] = torch.where(live, M_new, NEG_INF)
         E[:, t] = torch.where(live, E_new, torch.where(term, term_row, NEG_INF))
-    return M, E
+    return M, E, ((m1, e2) if fE is not None else None)
 
 
 def fwd_vit(batch: BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):

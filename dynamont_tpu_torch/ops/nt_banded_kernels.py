@@ -1,14 +1,20 @@
 """Wrappers of the banded CUDA kernels (counterpart of
-dynamont_tpu/ops/nt_banded_pallas.py).
+dynamont_tpu/ops/nt_banded_pallas.py and the Pallas kernel of
+dynamont_tpu/ops/nt_banded_train.py).
 
 Each wrapper sits beside its plain-torch version:
 
-  backward  / backward_plain   K1 banded_bwd      replaces _bwd_kernel
-  fwd_vit   / fwd_vit_plain    K2 banded_fwd_vit  replaces _fwd_vit_kernel
-  walk      / walk_plain       K3 banded_walk     replaces _walk_kernel
+  backward  / backward_plain    K1 banded_bwd        replaces _bwd_kernel
+  fwd_vit   / fwd_vit_plain     K2 banded_fwd_vit    replaces _fwd_vit_kernel
+  walk      / walk_plain        K3 banded_walk       replaces _walk_kernel
+  forward   / forward_plain     K4 banded_fwd        replaces _fwd_kernel
+  backward_train / backward_train_plain
+                                K5 banded_bwd_train  replaces _bwd_train_kernel
+
+K1-K3 are in csrc/nt_banded.cu, K4-K5 in csrc/nt_banded_train.cu.
 
 A wrapper runs its plain version for tensors on the CPU, launches its
-kernel (csrc/nt_banded.cu) for CUDA tensors, and raises for anything else
+kernel for CUDA tensors, and raises for anything else
 or when the launch fails: there is no fallback from a kernel to its plain
 version. LAUNCHES counts kernel launches and PLAIN_RUNS counts plain-
 version runs, one per call, so a run can show which route it took.
@@ -27,7 +33,9 @@ import torch
 from dynamont_tpu_torch import _build
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 
-KERNELS = ("banded_bwd", "banded_fwd_vit", "banded_walk")
+SEGMENT_KERNELS = ("banded_bwd", "banded_fwd_vit", "banded_walk")
+TRAIN_KERNELS = ("banded_fwd", "banded_bwd_train")
+KERNELS = SEGMENT_KERNELS + TRAIN_KERNELS
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 MAX_B = 1024  # one thread per band column
@@ -44,6 +52,8 @@ _ARGTYPES = {
     "nt_banded_bwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
     "nt_banded_fwd_vit": [_P] * 15 + [_I] * 5 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
+    "nt_banded_fwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_bwd_train": [_P] * 13 + [_I] * 5 + [_D, _D, _P],
 }
 _bound: dict = {}
 
@@ -202,6 +212,70 @@ def walk(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
     _raise_on("banded_walk", rc)
     LAUNCHES["banded_walk"] += 1
     return path_n, prob, close.bool()
+
+
+# ---------------------------------------------------------------------------
+# K4: forward, every row stored
+# ---------------------------------------------------------------------------
+
+def forward_plain(batch: bb.BandedBatch, log_m1: float, log_e2: float):
+    PLAIN_RUNS["banded_fwd"] += 1
+    return bb.forward(batch, log_m1, log_e2)
+
+
+def forward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
+    """(fM, fE), each (R, T_pad, B); rows t >= T are -inf."""
+    if _on_cpu(batch.sig):
+        return forward_plain(batch, log_m1, log_e2)
+    _check_batch("banded_fwd", batch)
+    R, T_pad = batch.bstart.shape
+    fM = torch.empty((R, T_pad, batch.B), dtype=batch.sig.dtype,
+                     device=batch.sig.device)
+    fE = torch.empty_like(fM)
+    rc = _entry("nt_banded_fwd", fM.dtype)(
+        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+        _ptr(batch.bw), _ptr(fM), _ptr(fE), R, T_pad, batch.mu_pad.shape[1],
+        batch.B, batch.pad, log_m1, log_e2, _stream(fM.device))
+    _raise_on("banded_fwd", rc)
+    LAUNCHES["banded_fwd"] += 1
+    return fM, fE
+
+
+# ---------------------------------------------------------------------------
+# K5: backward fused with the m1/e2 transition numerators
+# ---------------------------------------------------------------------------
+
+def backward_train_plain(batch: bb.BandedBatch, fE, log_m1: float,
+                         log_e2: float):
+    PLAIN_RUNS["banded_bwd_train"] += 1
+    return bb.backward_train(batch, fE, log_m1, log_e2)
+
+
+def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
+    """(bM, bE, rawM1, rawE2): the backward rows, each (R, T_pad, B), and
+    the per-read log numerators of m1 and e2, each (R,)."""
+    if _on_cpu(batch.sig):
+        return backward_train_plain(batch, fE, log_m1, log_e2)
+    _check_batch("banded_bwd_train", batch)
+    dtype = batch.sig.dtype
+    _check("banded_bwd_train", dtype, batch.sig.device, fE=fE)
+    R, T_pad = batch.bstart.shape
+    if fE.shape != (R, T_pad, batch.B) or fE.dtype != dtype:
+        raise ValueError("banded_bwd_train: fE does not match the batch")
+    bM = torch.empty_like(fE)
+    bE = torch.empty_like(fE)
+    rawM1 = torch.empty((R,), dtype=dtype, device=fE.device)
+    rawE2 = torch.empty_like(rawM1)
+    rc = _entry("nt_banded_bwd_train", dtype)(
+        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+        _ptr(batch.bw), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(rawM1),
+        _ptr(rawE2), R, T_pad, batch.mu_pad.shape[1], batch.B, batch.pad,
+        log_m1, log_e2, _stream(fE.device))
+    _raise_on("banded_bwd_train", rc)
+    LAUNCHES["banded_bwd_train"] += 1
+    return bM, bE, rawM1, rawE2
 
 
 def banded_segment(batch: bb.BandedBatch, N_max: int, log_m1: float,

@@ -140,7 +140,7 @@ def test_segment_matches_scan_pipeline_fp64(reads):
     res, N_max, starts_j, med_j = _scan_pipeline(jb)
     before = dict(kk.PLAIN_RUNS)
     Zf, Zb, starts, med = kk.banded_segment(tb, N_max, LM, LE)
-    assert all(kk.PLAIN_RUNS[k] == before[k] + 1 for k in kk.KERNELS)
+    assert all(kk.PLAIN_RUNS[k] == before[k] + 1 for k in kk.SEGMENT_KERNELS)
     np.testing.assert_allclose(Zf.numpy(), np.asarray(res.Zf), rtol=1e-6)
     np.testing.assert_allclose(Zb.numpy(), np.asarray(res.Zb), rtol=1e-6)
     np.testing.assert_array_equal(starts.numpy(), starts_j)

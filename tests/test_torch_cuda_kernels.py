@@ -1,12 +1,13 @@
-"""The three banded CUDA kernels against their plain-torch versions, on a
+"""The five banded CUDA kernels against their plain-torch versions, on a
 card. JAX-free, so it runs where the port runs:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-(--noconftest: tests/conftest.py configures JAX). Without a CUDA device
-every case skips. Kernel and plain version compute the same float
-operations in the same order on the same device inputs, so band cells
-agree to 1e-5, choice bits and walked paths exactly.
+(--noconftest: tests/conftest.py configures JAX). Cases marked `cuda`
+skip without a CUDA device. Kernel and plain version compute the same
+float operations in the same order on the same device inputs, so band
+cells agree to 1e-5 (the training kernels' bit for bit), choice bits and
+walked paths exactly.
 """
 
 import math
@@ -20,6 +21,7 @@ from dynamont_tpu.utils.kmer import seq_to_kmer_ids
 from dynamont_tpu.utils.synthetic import make_read
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
 
 LM, LE = math.log(0.019889650396799997), math.log(0.9801103496029998)
 
@@ -50,14 +52,24 @@ def test_wrappers_refuse_other_devices():
     assert kk.PLAIN_RUNS == runs
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernels_match_plain_on_cuda(dtype):
+@pytest.fixture
+def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+
+def _reads():
     model = load_model_for_pore("rna002")
     items = [make_read(model, n_bases=40 + 10 * s, seed=s) for s in range(3)]
     kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
             for _, r in items]
+    return model, items, kids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_match_plain_on_cuda(card, dtype):
+    model, items, kids = _reads()
     b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
                          dtype=dtype, t_pad_to=256)
     T = b.T.cpu().numpy()
@@ -83,4 +95,42 @@ def test_kernels_match_plain_on_cuda(dtype):
     assert torch.equal(path_n, p_path_n)
     assert torch.equal(close, p_close)
     torch.testing.assert_close(prob, p_prob, rtol=0, atol=1e-6)
-    assert all(kk.LAUNCHES[k] == launches[k] + 1 for k in kk.KERNELS)
+    assert all(kk.LAUNCHES[k] == launches[k] + 1 for k in kk.SEGMENT_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_training_kernels_match_plain_on_cuda(card, dtype):
+    """K4 fM/fE and K5 bM/bE, rawM1/rawE2 bit for bit: the plain version
+    folds the numerators in the kernel's order and reduces the band in
+    the kernel's tree order."""
+    model, items, kids = _reads()
+    b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                         dtype=dtype, t_pad_to=256)
+    launches = dict(kk.LAUNCHES)
+    fM, fE = kk.forward(b, LM, LE)
+    pfM, pfE = kk.forward_plain(b, LM, LE)
+    assert torch.equal(fM, pfM) and torch.equal(fE, pfE)
+    got = kk.backward_train(b, pfE, LM, LE)
+    want = kk.backward_train_plain(b, pfE, LM, LE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert kk.LAUNCHES["banded_fwd"] == launches["banded_fwd"] + 1
+    assert kk.LAUNCHES["banded_bwd_train"] == launches["banded_bwd_train"] + 1
+
+
+@pytest.mark.cuda
+def test_batch_train_repeats_bit_for_bit_on_cuda(card):
+    """Two runs of the training op on the card give identical estimates
+    (no atomics in the position and k-mer sums)."""
+    model, items, kids = _reads()
+    b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                         dtype=torch.float32, t_pad_to=256)
+    kid_pad = np.zeros((3, max(len(k) for k in kids)), np.int32)
+    for i, k in enumerate(kids):
+        kid_pad[i, : len(k)] = k
+    a = banded_batch_train(b, LM, LE, kid_pad, model.num_kmers)
+    c = banded_batch_train(b, LM, LE, kid_pad, model.num_kmers)
+    for x, y in zip(a, c):
+        assert torch.equal(x, y)

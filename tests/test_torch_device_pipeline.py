@@ -162,7 +162,8 @@ def test_engine_cpu_runs_plain_versions_only(model):
     kk.reset_counts()
     BandedBatchEngine(model, "rna002", device="cpu").run(
         _quantized_items(model, n_reads=2))
-    assert all(kk.PLAIN_RUNS[k] == 1 for k in kk.KERNELS)
+    assert all(kk.PLAIN_RUNS[k] == 1 for k in kk.SEGMENT_KERNELS)
+    assert all(kk.PLAIN_RUNS[k] == 0 for k in kk.TRAIN_KERNELS)
     assert all(kk.LAUNCHES[k] == 0 for k in kk.KERNELS)
 
 
