@@ -31,7 +31,28 @@ result line):
      second identical run writes byte-identical files; fp32 and fp64
      trainers on 4 short reads agree on m1/e2 within rel 1e-3; the
      training step's reads/s at (24, 16384, 512), split into host prep,
-     banded_fwd, banded_bwd_train, emission statistics and transfer back.
+     banded_fwd, banded_bwd_train, emission statistics and transfer back;
+  8. the NTC pre-pass kernels (ntc_tn_fwd, ntc_tn_bwd_sel, ntc_tk_bwd,
+     ntc_tk_fwd_u) against their plain versions, fp32 and fp64, on the CPU
+     tests' three short reads and on one (2, 16384) bucket at N2 2048 and
+     K 1024: every output bit for bit (both stores, the TN pack, E0, U,
+     finalE), then identical candidates, counts and overflow flags;
+  9. the batched pre-pass at the resquiggle engine's bucket shape: 16
+     reads of the phase-4 shape, (16, 16384), N2 2048, K 1024, CN 8,
+     CK0 120, fp32, through pre_tn_batch and pre_tk_batch with the launch
+     counters reset right before and read right after (all four kernels,
+     no plain version); the preProcTN/TK Z gates per read (at most one may
+     fail); overflowing reads and the share of columns at the cap; each
+     kernel's CUDA-event time beside its plain version's; peak memory;
+ 10. the exact per-read NTC through dynamont_tpu_torch.cli.ntc_main.main in
+     process: three short reads in segment, calcZ and train mode on cuda
+     against cpu (borders and polish k-mers identical, probabilities and
+     trained values within 1e-9 — a k-mer reported on one side only must
+     have a stdev within that bound —, Z within rel 1e-12), no pre-pass
+     kernel launched; then the first phase-4 read in segment mode with
+     its wall time and CAP_LADDER rung, and the batched fp64 kernels at
+     R = 1 and that rung's caps, whose candidate sets must equal the
+     per-read pre-pass's.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]}; the last is {"ok": true, "device": {...}}. Needs no
 JAX, no zstandard, no network.
@@ -39,6 +60,8 @@ JAX, no zstandard, no network.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -55,6 +78,10 @@ SOURCE = {
     "banded_walk": "dynamont_tpu_torch/csrc/nt_banded.cu",
     "banded_fwd": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
     "banded_bwd_train": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
+    "ntc_tn_fwd": "dynamont_tpu_torch/csrc/ntc_pre.cu",
+    "ntc_tn_bwd_sel": "dynamont_tpu_torch/csrc/ntc_pre.cu",
+    "ntc_tk_bwd": "dynamont_tpu_torch/csrc/ntc_pre.cu",
+    "ntc_tk_fwd_u": "dynamont_tpu_torch/csrc/ntc_pre.cu",
 }
 REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
@@ -62,7 +89,13 @@ REPLACES = {
     "banded_walk": "dynamont_tpu/ops/nt_banded_pallas.py:747",
     "banded_fwd": "dynamont_tpu/ops/nt_banded_pallas.py:113",
     "banded_bwd_train": "dynamont_tpu/ops/nt_banded_train.py:90",
+    "ntc_tn_fwd": "dynamont_tpu/ops/ntc_pre_pallas.py:78",
+    "ntc_tn_bwd_sel": "dynamont_tpu/ops/ntc_pre_pallas.py:113",
+    "ntc_tk_bwd": "dynamont_tpu/ops/ntc_pre_pallas.py:336",
+    "ntc_tk_fwd_u": "dynamont_tpu/ops/ntc_pre_pallas.py:381",
 }
+NTC_READS, CN, CK0 = 16, 8, 120  # the resquiggle engine's kernel geometry
+FP32_EPSILON = 1e-6  # per-cell Z tolerance of the fp32 engine gates
 CELL_ATOL = 1e-5
 RUNS = 5
 STEPS = 5  # timed training steps after a warm-up
@@ -207,6 +240,287 @@ def files_of(outdir: str) -> dict:
         with open(os.path.join(outdir, name), "rb") as f:
             out[name] = f.read()
     return out
+
+
+def pre_bucket(model, reads, t_pad: int, n2: int):
+    """(sig, kid, N_r, T_r) on the card for (signal, read) pairs, zero-padded
+    to (R, t_pad - 1) and (R, n2 - 1) as the batched NTC engine pads."""
+    import numpy as np
+    import torch
+
+    from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+
+    R = len(reads)
+    sig = np.zeros((R, t_pad - 1))
+    kid = np.zeros((R, n2 - 1), np.int32)
+    T, N = np.zeros(R, np.int32), np.zeros(R, np.int32)
+    for i, (s, r) in enumerate(reads):
+        k = seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
+        sig[i, : len(s)] = s
+        kid[i, : len(k)] = k
+        T[i], N[i] = len(s) + 1, len(k) + 1
+    return tuple(torch.from_numpy(a).cuda() for a in (sig, kid, N, T))
+
+
+def model_tensors(model):
+    """means, stdevs, c1, c2 of the pore model as float64 tensors on the card."""
+    import torch
+
+    means, c1, c2 = model.score_params()
+    return tuple(torch.from_numpy(a).cuda() for a in (means, model.stdevs, c1, c2))
+
+
+def same(name: str, got, want) -> None:
+    """Raise unless got equals want bit for bit (infinities included)."""
+    import torch
+
+    try:
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    except AssertionError as e:
+        raise AssertionError(f"{name} differs from its plain version: {e}") from None
+
+
+def compare_pre_kernels(model, bucket, dtype, lm, le, cap_n=CN, cap_k=CK0):
+    """K7-K10 and their plain versions on one bucket: every output bit for
+    bit, then the selections made from them identical. Raises otherwise."""
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    sig, kid, N_r, T_r = bucket
+    sig = sig.to(dtype)
+    means, stdevs, c1, c2 = model_tensors(model)
+    tab = nb.tn_tables(kid, means, stdevs, dtype)
+    tabk = nb.tk_tables(means, c1, c2, dtype)
+    N2 = kid.shape[1] + 1
+    fwd = kn.tn_fwd_plain(sig, tab, N_r, lm, le)
+    same("ntc_tn_fwd", kn.tn_fwd(sig, tab, N_r, lm, le), fwd)
+    got = kn.tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap_n, lm, le)
+    want = kn.tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap_n, lm, le)
+    del fwd
+    for part, g, w in zip(("pack", "E0"), got, want):
+        same(f"ntc_tn_bwd_sel {part}", g, w)
+    sel_g = nb.tn_select(got[0], T_r, cap_n, N2)
+    sel_w = nb.tn_select(want[0], T_r, cap_n, N2)
+    for key in sel_w:
+        same(f"TN selection {key}", sel_g[key], sel_w[key])
+    bwd = kn.tk_bwd_plain(sig, tabk, T_r, 4, lm, le)
+    same("ntc_tk_bwd", kn.tk_bwd(sig, tabk, T_r, 4, lm, le), bwd)
+    got = kn.tk_fwd_u(sig, tabk, T_r, bwd, 4, lm, le)
+    want = kn.tk_fwd_u_plain(sig, tabk, T_r, bwd, 4, lm, le)
+    del bwd
+    for part, g, w in zip(("U", "finalE"), got, want):
+        same(f"ntc_tk_fwd_u {part}", g, w)
+    sel_g, sel_w = nb.tk_select(got[0], T_r, cap_k), nb.tk_select(want[0], T_r, cap_k)
+    for key in sel_w:
+        same(f"TK selection {key}", sel_g[key], sel_w[key])
+    torch.cuda.synchronize()
+    return dict.fromkeys(kn.KERNELS, 0.0)
+
+
+def run_ntc_cli(sig, read, device: str, flags=()):
+    """dynamont_tpu_torch.cli.ntc_main.main in process on one read: (the
+    NTCResult, stdout)."""
+    from dynamont_tpu.models.registry import get_model_path
+    from dynamont_tpu.utils.synthetic import signal_to_text
+    from dynamont_tpu_torch.cli import ntc_main
+
+    stdin, out = sys.stdin, io.StringIO()
+    sys.stdin = io.StringIO(f"{signal_to_text(sig)}\n{read}\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            res = ntc_main.main(["-m", get_model_path("rna002"), "-r", "rna002",
+                                 "--device", device, *flags])
+    finally:
+        sys.stdin = stdin
+    return res, out.getvalue()
+
+
+def ntc_agree(got, want, mode: str) -> float:
+    """cuda against cpu results of the per-read NTC: borders and polish
+    k-mers identical, probabilities and trained values within 1e-9, Z
+    within rel 1e-12. Returns the largest difference seen."""
+    if abs(got.Z - want.Z) > 1e-12 * abs(want.Z):
+        raise AssertionError(f"{mode}: Z {got.Z} vs {want.Z}")
+    err = abs(got.Z - want.Z)
+    if mode == "segment":
+        if [s[:3] + s[4:] for s in got.segments] != [s[:3] + s[4:] for s in want.segments]:
+            raise AssertionError("segment: borders or polish k-mers differ")
+        err = max([err] + [abs(g[3] - w[3]) for g, w in zip(got.segments, want.segments)])
+    elif mode == "train":
+        pairs = [(got.trained_transitions[k], v) for k, v in want.trained_transitions.items()]
+        ge, we = got.trained_emissions, want.trained_emissions
+        for kmer in set(ge) | set(we):
+            if kmer in ge and kmer in we:
+                pairs += list(zip(ge[kmer], we[kmer]))
+            elif (ge.get(kmer) or we.get(kmer))[1] > 1e-9:
+                raise AssertionError(f"train: k-mer {kmer} reported on one side only")
+            # else: a k-mer trained on one cell has a stdev of 0 or ~1e-16
+            # depending on the last bit of its weight, and the reference
+            # reports only stdev != 0: equal within the bound
+        err = max([err] + [abs(g - w) for g, w in pairs])
+        if any(abs(g - w) > 1e-9 * max(1.0, abs(w)) for g, w in pairs):
+            raise AssertionError("train: trained values differ beyond 1e-9")
+    if err > 1e-9 * max(1.0, abs(want.Z)):
+        raise AssertionError(f"{mode}: off by {err}")
+    return err
+
+
+def same_candidates(per_read, batched, sentinel_batched: int, sort_batched: bool):
+    """Columns whose candidate sets differ between the per-read pre-pass
+    (cand (T, cap) ascending, count (T,)) and the batched one at R = 1
+    (cand (T, 1, cap), cnt (T, 1))."""
+    import torch
+
+    cnt_p = per_read.count.long()
+    cnt_b = batched.cnt[:, 0].long()
+    cap = per_read.cand.shape[1]
+    slot = torch.arange(cap, device=cnt_p.device)[None, :]
+    cand_p = torch.where(slot < cnt_p[:, None], per_read.cand.long(), sentinel_batched)
+    cand_b = batched.cand[:, 0].long()
+    if sort_batched:
+        cand_b = torch.sort(torch.where(slot < cnt_b[:, None], cand_b,
+                                        sentinel_batched), dim=1).values
+    bad = (cnt_p != cnt_b) | (cand_p != cand_b).any(dim=1)
+    return int(bad.sum())
+
+
+def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
+    """Phases 8-10 (the NTC pre-pass kernels and the per-read NTC). Fills
+    max_err and launches for the four pre-pass kernels; returns their
+    (kernel ms, plain ms) at the engine's bucket shape."""
+    import torch
+
+    from dynamont_tpu.models.packing import round_up, t_pad_ladder
+    from dynamont_tpu.utils.synthetic import make_read
+    from dynamont_tpu_torch.models.ntc import CAP_LADDER
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    n_of = lambda read: len(read) - model.kmer_size + 2  # N = k-mers + 1
+    # 8. the pre-pass kernels against their plain versions
+    phase.start("8")
+    short = [make_read(model, n_bases=n, seed=s) for s, n in ((0, 25), (1, 31), (2, 18))]
+    t_short = round_up(max(len(s) for s, _ in short) + 1, 64)   # the CPU tests'
+    n_short = round_up(max(n_of(r) for _, r in short), 16)      # engine padding
+    t_full = t_pad_ladder(len(bench[0][0]) + 1, 2048)
+    n_full = round_up(n_of(bench[0][1]), 256)
+    if (t_full, n_full) != (16384, 2048):
+        raise AssertionError(f"NTC bucket shape {(t_full, n_full)}")
+    for dtype in (torch.float32, torch.float64):
+        for reads, t_pad, n2 in ((short, t_short, n_short), (bench[:2], t_full, n_full)):
+            errs = compare_pre_kernels(model, pre_bucket(model, reads, t_pad, n2),
+                                       dtype, lm, le)
+            log(f"[8] bucket {(len(reads), t_pad, n2)} K {model.num_kmers} {dtype}: "
+                f"every output and the selections bit for bit, max abs err {errs}")
+        torch.cuda.empty_cache()
+    max_err.update(errs)
+
+    # 9. the batched pre-pass at the engine's bucket shape
+    phase.start("9")
+    sig, kid, N_r, T_r = pre_bucket(model, bench[:NTC_READS], t_full, n_full)
+    means, stdevs, c1, c2 = model_tensors(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kn.reset_counts()
+    t0 = time.perf_counter()
+    pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, lm, le, CN, torch.float32)
+    pk = nb.pre_tk_batch(sig, T_r, means, c1, c2, lm, le, model.alphabet_size, CK0,
+                         torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre_launches, pre_plain = dict(kn.LAUNCHES), dict(kn.PLAIN_RUNS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[9] pre-pass ({NTC_READS}, {t_full}) N2 {n_full} K {model.num_kmers} CN {CN} "
+        f"CK0 {CK0} fp32: {wall * 1e3:.1f} ms wall | launches {pre_launches} | plain "
+        f"{pre_plain} | peak device memory {peak:.2f} GiB")
+    if any(v == 0 for v in pre_launches.values()) or any(pre_plain.values()):
+        raise AssertionError("the pre-pass missed a kernel or ran a plain version")
+    launches.update(pre_launches)
+    fails = []
+    K = model.num_kmers
+    for j in range(NTC_READS):
+        T, N = int(T_r[j]), int(N_r[j])
+        for name, res, cells in (("preProcTN", pn, T * N), ("preProcTK", pk, T * K)):
+            zf, zb = float(res.Zf[j]), float(res.Zb[j])
+            if math.isinf(zf) or math.isinf(zb) or abs(zf - zb) / cells > FP32_EPSILON:
+                fails.append(f"read {j} {name} Zf {zf} Zb {zb}")
+    log(f"[9] Z gates (fp32 eps {FP32_EPSILON}, cells T*N and T*K): "
+        f"{NTC_READS - len({f.split()[1] for f in fails})}/{NTC_READS} reads pass"
+        + "".join(f"; {f}" for f in fails))
+    if len(fails) > 1:
+        raise AssertionError("more than one read fails the pre-pass Z gates")
+    live = torch.arange(t_full, device="cuda")[:, None] < T_r[None, :]
+    at_cap = {name: float(((res.cnt == cap) & live).sum() / live.sum())
+              for name, res, cap in (("TN", pn, CN), ("TK", pk, CK0))}
+    log(f"[9] overflowing reads: TN {int(pn.overflow.sum())}, TK {int(pk.overflow.sum())} "
+        f"of {NTC_READS} | share of live columns at the cap: TN {at_cap['TN']:.4%} "
+        f"(cap {CN}), TK {at_cap['TK']:.4%} (cap {CK0})")
+    del pn, pk
+    dtype = torch.float32
+    sig = sig.to(dtype)
+    tab = nb.tn_tables(kid, means, stdevs, dtype)
+    tabk = nb.tk_tables(means, c1, c2, dtype)
+    fwd = kn.tn_fwd(sig, tab, N_r, lm, le)
+    bwd = kn.tk_bwd(sig, tabk, T_r, 4, lm, le)
+    runs = {
+        "ntc_tn_fwd": (lambda: kn.tn_fwd(sig, tab, N_r, lm, le),
+                       lambda: kn.tn_fwd_plain(sig, tab, N_r, lm, le)),
+        "ntc_tn_bwd_sel": (lambda: kn.tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, CN, lm, le),
+                           lambda: kn.tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, CN,
+                                                       lm, le)),
+        "ntc_tk_bwd": (lambda: kn.tk_bwd(sig, tabk, T_r, 4, lm, le),
+                       lambda: kn.tk_bwd_plain(sig, tabk, T_r, 4, lm, le)),
+        "ntc_tk_fwd_u": (lambda: kn.tk_fwd_u(sig, tabk, T_r, bwd, 4, lm, le),
+                         lambda: kn.tk_fwd_u_plain(sig, tabk, T_r, bwd, 4, lm, le)),
+    }
+    times = {}
+    for name, (kern, plain) in runs.items():
+        ms = cuda_ms(kern, 2)
+        plain_ms = cuda_ms(plain, 1)
+        log(f"[9] {name} ({NTC_READS}, {t_full}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        times[name] = (ms, plain_ms)
+    del fwd, bwd, runs, tab, tabk, sig
+    torch.cuda.empty_cache()
+
+    # 10. the exact per-read NTC through its CLI
+    phase.start("10")
+    before = dict(kn.LAUNCHES)
+    for i, (s, r) in enumerate(make_read(model, n_bases=25, seed=s) for s in range(3)):
+        for mode, flags in (("segment", ()), ("calcZ", ("-z",)), ("train", ("--train",))):
+            t0 = time.perf_counter()
+            got, out_g = run_ntc_cli(s, r, "cuda", flags)
+            t1 = time.perf_counter()
+            want, out_w = run_ntc_cli(s, r, "cpu", flags)
+            err = ntc_agree(got, want, mode)
+            log(f"[10] short read {i} {mode}: cuda {t1 - t0:.2f} s, cpu "
+                f"{time.perf_counter() - t1:.2f} s, rung {got.caps}, max diff {err:.3g}, "
+                f"stdout {'identical' if out_g == out_w else 'differs'}")
+    if kn.LAUNCHES != before:
+        raise AssertionError("the per-read NTC launched a pre-pass kernel")
+    s, r = bench[0]
+    t0 = time.perf_counter()
+    res, _ = run_ntc_cli(s, r, "cuda")
+    wall = time.perf_counter() - t0
+    if not res.segments or not math.isfinite(res.Z):
+        raise AssertionError(f"long read: {len(res.segments or [])} segments, Z {res.Z}")
+    log(f"[10] long read ({len(r)} bases, T {len(s) + 1}) segment on cuda: {wall:.1f} s, "
+        f"rung {res.caps} (CAP_LADDER index {CAP_LADDER.index(res.caps)}), "
+        f"{len(res.segments)} segments, Z {res.Z!r}")
+    cap_n, cap_k = res.caps
+    sig1, kid1, N1, T1 = pre_bucket(model, [(s, r)], len(s) + 1, round_up(n_of(r), 256))
+    pn1 = nb.pre_tn_batch(sig1, kid1, N1, T1, means, stdevs, lm, le, cap_n, torch.float64)
+    pk1 = nb.pre_tk_batch(sig1, T1, means, c1, c2, lm, le, model.alphabet_size, cap_k,
+                          torch.float64)
+    tn_pre, tk_pre = res.prepass
+    bad_tn = same_candidates(tn_pre, pn1, kid1.shape[1] + 1, False)
+    bad_tk = same_candidates(tk_pre, pk1, model.num_kmers, True)
+    log(f"[10] batched fp64 kernels at R = 1, caps {res.caps}: TN {bad_tn}, TK {bad_tk} "
+        f"of {len(s) + 1} columns differ from the per-read pre-pass")
+    if bad_tn or bad_tk:
+        raise AssertionError("batched and per-read candidate sets differ")
+    return times
 
 
 def main() -> int:
@@ -519,6 +833,10 @@ def main() -> int:
         f"banded_bwd_train {med['banded_bwd_train']:.3f} ms, emission stats "
         f"{med['emission_stats']:.3f} ms, to host {med['to_host']:.2f} ms | peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del split, step_reads
+
+    ntc_times = phases_ntc(phase, model, bench, lm, le, max_err, launches)
+    times.update(ntc_times)
     phase.end()
 
     kernels = []

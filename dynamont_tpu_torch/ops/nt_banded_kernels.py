@@ -74,7 +74,7 @@ def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
-        raise ValueError(f"banded kernels run on cuda or cpu, not {t.device}")
+        raise ValueError(f"the kernels run on cuda or cpu, not {t.device}")
     return False
 
 

@@ -1,0 +1,395 @@
+"""Wrappers of the NTC pre-pass CUDA kernels (counterpart of
+dynamont_tpu/ops/ntc_pre_pallas.py) and their plain-torch versions:
+
+  tn_fwd     / tn_fwd_plain      K7  ntc_tn_fwd      replaces _tn_fwd_kernel
+  tn_bwd_sel / tn_bwd_sel_plain  K8  ntc_tn_bwd_sel  replaces _tn_bwd_kernel
+  tk_bwd     / tk_bwd_plain      K9  ntc_tk_bwd      replaces _tk_bwd_kernel
+  tk_fwd_u   / tk_fwd_u_plain    K10 ntc_tk_fwd_u    replaces _tk_fwd_kernel
+
+The kernels are in csrc/ntc_pre.cu, in float and double. As in
+ops/nt_banded_kernels.py, a wrapper runs its plain version for tensors on
+the CPU, launches its kernel for CUDA tensors, and raises for anything else
+or when the launch fails; LAUNCHES and PLAIN_RUNS count one per call.
+
+Layouts (one bucket of R reads, T_pad lattice rows, row t of the forward
+uses sig[t-1], of the backward sig[t]; the rows past a read's T are dead):
+
+  sig     (R, T_pad-1)        signal
+  tab     (3, R, N2-1)        TN tables per k-mer position: mu, 1/sd, 2 log sd
+  kid     (R, N2-1) int32     k-mer ids, 0 past the read
+  tabk    (3, K)              TK tables per k-mer: mu, c1, c2
+  N_r,T_r (R,) int32          per-read lattice sizes
+  fwd     (T_pad, 2, R, N2)   TN forward store (M, E)
+  pack    (T_pad, R, 4cap+2)  per TN column: the top-cap values | their
+                              indices | kid at index-1 | kid at index
+                              (clipped to [0, N2-2]) | max | mass
+  E0      (R, N2)             TN backward E row 0 (Zb = E0[:, 0])
+  bwd     (T_pad, 2, R, K)    TK backward store (M, E)
+  U       (T_pad, R, K)       TK combined log-posteriors, unnormalized
+  finalE  (R, K)              TK forward E at row T_r-1 (Zf)
+
+The mass in the pack is sum(exp(u - max)) over the column, added in a
+fixed order that the kernel and its plain version share: thread b of a
+block of B threads owns columns b, b+B, b+2B, ... and sums them in that
+order; the partial sums then add as pairwise trees (element i gets
+element i+h for h = W/2, ..., 1), first within each warp of 32 threads,
+then over the warp sums. B = threads(N2). The top-cap takes the maximum
+`cap` times, ties to the lowest index, and masks it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from dynamont_tpu_torch import _build
+from dynamont_tpu_torch.ops.nt_banded_kernels import (
+    _check, _on_cpu, _ptr, _raise_on, _stream,
+)
+from dynamont_tpu_torch.ops.ntc_pre import _prec_sum, _suc_sum
+from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c
+
+KERNELS = ("ntc_tn_fwd", "ntc_tn_bwd_sel", "ntc_tk_bwd", "ntc_tk_fwd_u")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
+MAX_THREADS = 512  # csrc/ntc_pre.cu __launch_bounds__
+MAX_COLS = 8  # columns per thread (registers in the kernels)
+NEG_INF = -math.inf
+LOG_2PI = 1.8378770664093453
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_RUNS[k] = 0
+
+
+def threads(W: int) -> int:
+    """Threads per block for a row of W columns: the largest power of two
+    that divides W, at most MAX_THREADS."""
+    return min(W & -W, MAX_THREADS)
+
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_ARGTYPES = {
+    "ntc_tn_fwd": [_P] * 4 + [_I] * 4 + [_D, _D, _P],
+    "ntc_tn_bwd_sel": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
+    "ntc_tk_bwd": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
+    "ntc_tk_fwd_u": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
+}
+_bound: dict = {}
+
+
+def _entry(name: str, dtype):
+    key = f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(_build.load(), key)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return fn
+
+
+def _check_ints(name: str, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} is not int32")
+
+
+def _check_width(name: str, W: int) -> int:
+    B = threads(W)
+    if W // B > MAX_COLS:
+        raise ValueError(f"{name}: a row of {W} columns needs {W // B} per "
+                         f"thread at {B} threads; the kernel takes at most "
+                         f"{MAX_COLS} (pad the row to a multiple of "
+                         f"{max(W // MAX_COLS, 32)})")
+    return B
+
+
+def _check_same(name: str, dtype, *tensors) -> None:
+    if any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"{name}: every float input must be {dtype}")
+
+
+# ---------------------------------------------------------------------------
+# plain building blocks
+# ---------------------------------------------------------------------------
+
+def _tn_scores(sig_t, mu_n, sinv_n, l2s_n, n_live):
+    """(R, N2-1) emission row; padded n positions are -inf. Same op order
+    as utils.logmath.log_normal_pdf, so the fp64 batched lattice equals the
+    per-read pre-pass's."""
+    d = (sig_t[:, None] - mu_n) * sinv_n
+    return torch.where(n_live, -0.5 * (LOG_2PI + l2s_n + d * d), NEG_INF)
+
+
+def _topk_maxmask(U, cap: int):
+    """Top-cap by iterated max-extraction: (vals, idx), each (rows, cap),
+    descending, ties to the lowest index (the minimum index holding the
+    maximum), the taken entry masked to -inf. An exhausted row repeats
+    index 0 with -inf values, as the JAX function does."""
+    W = U.shape[-1]
+    lane = torch.arange(W, device=U.device)
+    u = U
+    vals, idxs = [], []
+    for _ in range(cap):
+        v = torch.amax(u, dim=-1)
+        i = torch.where(u == v[..., None], lane, W).amin(dim=-1)
+        vals.append(v)
+        idxs.append(i)
+        u = torch.where(lane == i[..., None], NEG_INF, u)
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def _halve(s):
+    """Pairwise tree over the last dim (a power of two): element i gets
+    element i + h for h = W/2, ..., 1."""
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    return s[..., 0]
+
+
+def _tree_sum(e, B: int):
+    """sum over the last dim of e (..., W) in ntc_tn_bwd_sel's order:
+    thread b's columns b, b+B, ... first, then a pairwise tree within each
+    warp of 32 threads and one over the warp sums (one tree when B <= 32)."""
+    W = e.shape[-1]
+    parts = e.reshape(*e.shape[:-1], W // B, B)
+    s = parts[..., 0, :]
+    for j in range(1, W // B):
+        s = s + parts[..., j, :]
+    if B > 32:
+        s = _halve(s.reshape(*s.shape[:-1], B // 32, 32))
+    return _halve(s)
+
+
+# ---------------------------------------------------------------------------
+# K7: TN forward store
+# ---------------------------------------------------------------------------
+
+def tn_fwd_plain(sig, tab, N_r, log_m1: float, log_e2: float):
+    PLAIN_RUNS["ntc_tn_fwd"] += 1
+    R, Tm1 = sig.shape
+    N2 = tab.shape[2] + 1
+    mu, sinv, l2s = tab
+    live = torch.arange(N2 - 1, device=sig.device)[None, :] < (N_r - 1)[:, None]
+    fwd = torch.empty((Tm1 + 1, 2, R, N2), dtype=sig.dtype, device=sig.device)
+    fwd[0] = NEG_INF
+    fwd[0, 1, :, 0] = 0.0
+    fwd[1:, :, :, 0] = NEG_INF
+    for t in range(1, Tm1 + 1):
+        sc = _tn_scores(sig[:, t - 1], mu, sinv, l2s, live)
+        M_prev, E_prev = fwd[t - 1, 0], fwd[t - 1, 1]
+        fwd[t, 0, :, 1:] = E_prev[:, :-1] + sc + log_m1
+        fwd[t, 1, :, 1:] = torch.logaddexp(M_prev[:, 1:] + sc,
+                                           E_prev[:, 1:] + sc + log_e2)
+    return fwd
+
+
+def tn_fwd(sig, tab, N_r, log_m1: float, log_e2: float):
+    """fwd (T_pad, 2, R, N2): the TN forward lattice, every row."""
+    if _on_cpu(sig):
+        return tn_fwd_plain(sig, tab, N_r, log_m1, log_e2)
+    name = "ntc_tn_fwd"
+    dtype = sig.dtype
+    _check(name, dtype, sig.device, sig=sig, tab=tab, N_r=N_r)
+    _check_same(name, dtype, tab)
+    _check_ints(name, N_r=N_r)
+    R, Tm1 = sig.shape
+    N2 = tab.shape[2] + 1
+    if tab.shape[:2] != (3, R) or N_r.shape != (R,):
+        raise ValueError(f"{name}: tab/N_r do not match sig {tuple(sig.shape)}")
+    B = _check_width(name, N2)
+    fwd = torch.empty((Tm1 + 1, 2, R, N2), dtype=dtype, device=sig.device)
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(fwd), R, Tm1 + 1, N2, B,
+        log_m1, log_e2, _stream(sig.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return fwd
+
+
+# ---------------------------------------------------------------------------
+# K8: TN backward fused with the per-column top-cap
+# ---------------------------------------------------------------------------
+
+def tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
+                     log_e2: float):
+    PLAIN_RUNS["ntc_tn_bwd_sel"] += 1
+    R, Tm1 = sig.shape
+    T_pad, N2 = Tm1 + 1, tab.shape[2] + 1
+    dev, dtype = sig.device, sig.dtype
+    mu, sinv, l2s = tab
+    B = threads(N2)
+    n_iota = torch.arange(N2, device=dev)[None, :]
+    live = n_iota[:, :-1] < (N_r - 1)[:, None]
+    term_E = torch.where(n_iota == (N_r - 1)[:, None], 0.0, NEG_INF).to(dtype)
+    kid = kid.long()
+    pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=dtype, device=dev)
+    M_next = torch.full((R, N2), NEG_INF, dtype=dtype, device=dev)
+    E_next = M_next.clone()
+    neg1 = torch.full((R, 1), NEG_INF, dtype=dtype, device=dev)
+    zero = torch.zeros((R,), dtype=dtype, device=dev)
+    for t in range(T_pad - 1, -1, -1):
+        sc = _tn_scores(sig[:, t] if t < Tm1 else zero, mu, sinv, l2s, live)
+        ext = torch.cat([M_next[:, 1:] + sc + log_m1, neg1], dim=1)
+        M_new = torch.cat([neg1, E_next[:, 1:] + sc], dim=1)
+        ext[:, 1:] = torch.logaddexp(ext[:, 1:], E_next[:, 1:] + sc + log_e2)
+        is_term = (t == T_r - 1)[:, None]
+        dead = (t > T_r - 1)[:, None]
+        M_next = torch.where(is_term | dead, NEG_INF, M_new)
+        E_next = torch.where(is_term, term_E, torch.where(dead, NEG_INF, ext))
+        u = torch.logaddexp(fwd[t, 0] + M_next, fwd[t, 1] + E_next)
+        vals, idx = _topk_maxmask(u, cap)
+        m0 = vals[:, 0]
+        m0s = torch.where(torch.isfinite(m0), m0, 0.0)
+        tot = _tree_sum(torch.exp(u - m0s[:, None]), B)
+        kn1 = torch.gather(kid, 1, (idx - 1).clamp(0, N2 - 2))
+        kn2 = torch.gather(kid, 1, idx.clamp(0, N2 - 2))
+        pack[t] = torch.cat([vals, idx.to(dtype), kn1.to(dtype),
+                             kn2.to(dtype), m0[:, None], tot[:, None]], dim=1)
+    return pack, E_next
+
+
+def tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
+               log_e2: float):
+    """(pack (T_pad, R, 4cap+2), E0 (R, N2)) from the TN forward store."""
+    if _on_cpu(sig):
+        return tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap, log_m1,
+                                log_e2)
+    name = "ntc_tn_bwd_sel"
+    dtype = sig.dtype
+    _check(name, dtype, sig.device, sig=sig, tab=tab, kid=kid, N_r=N_r,
+           T_r=T_r, fwd=fwd)
+    _check_same(name, dtype, tab, fwd)
+    _check_ints(name, kid=kid, N_r=N_r, T_r=T_r)
+    R, Tm1 = sig.shape
+    N2 = tab.shape[2] + 1
+    if (tab.shape[:2] != (3, R) or kid.shape != (R, N2 - 1)
+            or fwd.shape != (Tm1 + 1, 2, R, N2) or N_r.shape != (R,)
+            or T_r.shape != (R,)):
+        raise ValueError(f"{name}: inputs do not match sig {tuple(sig.shape)}")
+    if not 1 <= cap <= N2:
+        raise ValueError(f"{name}: cap {cap} outside [1, {N2}]")
+    B = _check_width(name, N2)
+    pack = torch.empty((Tm1 + 1, R, 4 * cap + 2), dtype=dtype,
+                       device=sig.device)
+    E0 = torch.empty((R, N2), dtype=dtype, device=sig.device)
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(tab), _ptr(kid), _ptr(N_r), _ptr(T_r), _ptr(fwd),
+        _ptr(pack), _ptr(E0), R, Tm1 + 1, N2, B, cap, log_m1, log_e2,
+        _stream(sig.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return pack, E0
+
+
+# ---------------------------------------------------------------------------
+# K9: TK backward store
+# ---------------------------------------------------------------------------
+
+def tk_bwd_plain(sig, tabk, T_r, alphabet_size: int, log_m1: float,
+                 log_e2: float):
+    PLAIN_RUNS["ntc_tk_bwd"] += 1
+    R, Tm1 = sig.shape
+    K = tabk.shape[1]
+    bwd = torch.empty((Tm1 + 1, 2, R, K), dtype=sig.dtype, device=sig.device)
+    M_next = torch.full((R, K), NEG_INF, dtype=sig.dtype, device=sig.device)
+    E_next = M_next.clone()
+    zero = torch.zeros((R,), dtype=sig.dtype, device=sig.device)
+    for t in range(Tm1, -1, -1):
+        sc = log_normal_pdf_c((sig[:, t] if t < Tm1 else zero)[:, None], *tabk)
+        M_new = E_next + sc
+        E_new = torch.logaddexp(_suc_sum(M_next + sc + log_m1, alphabet_size),
+                                E_next + sc + log_e2)
+        is_term = (t == T_r - 1)[:, None]
+        dead = (t > T_r - 1)[:, None]
+        M_next = torch.where(is_term | dead, NEG_INF, M_new)
+        E_next = torch.where(is_term, 0.0, torch.where(dead, NEG_INF, E_new))
+        bwd[t, 0] = M_next
+        bwd[t, 1] = E_next
+    return bwd
+
+
+def tk_bwd(sig, tabk, T_r, alphabet_size: int, log_m1: float, log_e2: float):
+    """bwd (T_pad, 2, R, K): the TK backward lattice, every row."""
+    if _on_cpu(sig):
+        return tk_bwd_plain(sig, tabk, T_r, alphabet_size, log_m1, log_e2)
+    name = "ntc_tk_bwd"
+    dtype = sig.dtype
+    _check(name, dtype, sig.device, sig=sig, tabk=tabk, T_r=T_r)
+    _check_same(name, dtype, tabk)
+    _check_ints(name, T_r=T_r)
+    R, Tm1 = sig.shape
+    K = tabk.shape[1]
+    if tabk.shape != (3, K) or T_r.shape != (R,) or K % alphabet_size:
+        raise ValueError(f"{name}: tabk/T_r do not match sig {tuple(sig.shape)}")
+    B = _check_width(name, K)
+    bwd = torch.empty((Tm1 + 1, 2, R, K), dtype=dtype, device=sig.device)
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), R, Tm1 + 1, K,
+        alphabet_size, B, log_m1, log_e2, _stream(sig.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return bwd
+
+
+# ---------------------------------------------------------------------------
+# K10: TK forward fused with U = lse(bM + M, bE + E) and finalE
+# ---------------------------------------------------------------------------
+
+def tk_fwd_u_plain(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
+                   log_e2: float):
+    PLAIN_RUNS["ntc_tk_fwd_u"] += 1
+    R, Tm1 = sig.shape
+    K = tabk.shape[1]
+    U = torch.empty((Tm1 + 1, R, K), dtype=sig.dtype, device=sig.device)
+    M_prev = torch.full((R, K), NEG_INF, dtype=sig.dtype, device=sig.device)
+    E_prev = torch.zeros_like(M_prev)
+    finalE = M_prev.clone()
+    zero = torch.zeros((R,), dtype=sig.dtype, device=sig.device)
+    for t in range(Tm1 + 1):
+        sc = log_normal_pdf_c((sig[:, t - 1] if t > 0 else zero)[:, None], *tabk)
+        M_new = _prec_sum(E_prev, alphabet_size) + sc + log_m1
+        E_new = torch.logaddexp(M_prev + sc, E_prev + sc + log_e2)
+        dead = (t > T_r - 1)[:, None]
+        if t == 0:
+            M_prev = torch.full_like(M_new, NEG_INF)
+            E_prev = torch.zeros_like(E_new)
+        else:
+            M_prev = torch.where(dead, NEG_INF, M_new)
+            E_prev = torch.where(dead, NEG_INF, E_new)
+        finalE = torch.where((t == T_r - 1)[:, None], E_prev, finalE)
+        U[t] = torch.logaddexp(bwd[t, 0] + M_prev, bwd[t, 1] + E_prev)
+    return U, finalE
+
+
+def tk_fwd_u(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
+             log_e2: float):
+    """(U (T_pad, R, K), finalE (R, K)) from the TK backward store."""
+    if _on_cpu(sig):
+        return tk_fwd_u_plain(sig, tabk, T_r, bwd, alphabet_size, log_m1,
+                              log_e2)
+    name = "ntc_tk_fwd_u"
+    dtype = sig.dtype
+    _check(name, dtype, sig.device, sig=sig, tabk=tabk, T_r=T_r, bwd=bwd)
+    _check_same(name, dtype, tabk, bwd)
+    _check_ints(name, T_r=T_r)
+    R, Tm1 = sig.shape
+    K = tabk.shape[1]
+    if (tabk.shape != (3, K) or T_r.shape != (R,) or K % alphabet_size
+            or bwd.shape != (Tm1 + 1, 2, R, K)):
+        raise ValueError(f"{name}: inputs do not match sig {tuple(sig.shape)}")
+    B = _check_width(name, K)
+    U = torch.empty((Tm1 + 1, R, K), dtype=dtype, device=sig.device)
+    finalE = torch.empty((R, K), dtype=dtype, device=sig.device)
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), _ptr(U), _ptr(finalE),
+        R, Tm1 + 1, K, alphabet_size, B, log_m1, log_e2, _stream(sig.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return U, finalE

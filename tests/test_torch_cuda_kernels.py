@@ -1,4 +1,4 @@
-"""The five banded CUDA kernels against their plain-torch versions, on a
+"""The port's CUDA kernels against their plain-torch versions, on a
 card. JAX-free, so it runs where the port runs:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -6,8 +6,8 @@ card. JAX-free, so it runs where the port runs:
 (--noconftest: tests/conftest.py configures JAX). Cases marked `cuda`
 skip without a CUDA device. Kernel and plain version compute the same
 float operations in the same order on the same device inputs, so band
-cells agree to 1e-5 (the training kernels' bit for bit), choice bits and
-walked paths exactly.
+cells agree to 1e-5 (the training kernels' and the NTC pre-pass kernels'
+bit for bit), choice bits and walked paths exactly.
 """
 
 import math
@@ -134,3 +134,75 @@ def test_batch_train_repeats_bit_for_bit_on_cuda(card):
     c = banded_batch_train(b, LM, LE, kid_pad, model.num_kmers)
     for x, y in zip(a, c):
         assert torch.equal(x, y)
+
+
+def _ntc_bucket(dtype):
+    """The three ragged reads of tests/test_torch_ntc_pre.py on the card,
+    padded to (3, 320) with N2 48, and the model tables."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+
+    model = load_model_for_pore("rna002")
+    reads = [make_read(model, n_bases=n, seed=s) for s, n in ((0, 25), (1, 31), (2, 18))]
+    sig = np.zeros((3, 319))
+    kid = np.zeros((3, 47), np.int32)
+    T, N = np.zeros(3, np.int32), np.zeros(3, np.int32)
+    for i, (s, r) in enumerate(reads):
+        k = seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
+        sig[i, : len(s)], kid[i, : len(k)] = s, k
+        T[i], N[i] = len(s) + 1, len(k) + 1
+    cuda = lambda a: torch.from_numpy(np.asarray(a)).cuda()
+    means, c1, c2 = model.score_params()
+    tab = nb.tn_tables(cuda(kid), cuda(model.means), cuda(model.stdevs), dtype)
+    tabk = nb.tk_tables(cuda(means), cuda(c1), cuda(c2), dtype)
+    return cuda(sig).to(dtype), cuda(kid), cuda(N), cuda(T), tab, tabk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_pre_kernels_match_plain_on_cuda(card, dtype):
+    """K7-K10 against their plain versions: the TN forward store, the TN
+    pack and E0, the TK backward store, U and finalE bit for bit, and the
+    selections made from them identical."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    sig, kid, N, T, tab, tabk = _ntc_bucket(dtype)
+    launches = dict(kn.LAUNCHES)
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                                   equal_nan=True)
+    fwd = kn.tn_fwd_plain(sig, tab, N, LM, LE)
+    same(kn.tn_fwd(sig, tab, N, LM, LE), fwd)
+    got = kn.tn_bwd_sel(sig, tab, kid, N, T, fwd, 8, LM, LE)
+    want = kn.tn_bwd_sel_plain(sig, tab, kid, N, T, fwd, 8, LM, LE)
+    for g, w in zip(got, want):
+        same(g, w)
+    for g, w in zip(nb.tn_select(got[0], T, 8, 48).values(),
+                    nb.tn_select(want[0], T, 8, 48).values()):
+        same(g, w)
+    bwd = kn.tk_bwd_plain(sig, tabk, T, 4, LM, LE)
+    same(kn.tk_bwd(sig, tabk, T, 4, LM, LE), bwd)
+    got = kn.tk_fwd_u(sig, tabk, T, bwd, 4, LM, LE)
+    want = kn.tk_fwd_u_plain(sig, tabk, T, bwd, 4, LM, LE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        same(g, w)
+    assert all(kn.LAUNCHES[k] == launches[k] + 1 for k in kn.KERNELS)
+
+
+@pytest.mark.cuda
+def test_ntc_per_read_cuda_matches_cpu(card):
+    """The exact per-read NTC on the card against the plain route: borders
+    and polish k-mers identical, probabilities within 1e-9, Z within rel
+    1e-12; no pre-pass kernel launched."""
+    from dynamont_tpu_torch.models.ntc import run_ntc
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    model = load_model_for_pore("rna002")
+    sig, read = make_read(model, n_bases=25, seed=0)
+    launches = dict(kn.LAUNCHES)
+    got = run_ntc(sig, read, model, "rna002", device="cuda")
+    want = run_ntc(sig, read, model, "rna002", device="cpu")
+    assert kn.LAUNCHES == launches
+    assert abs(got.Z - want.Z) <= 1e-12 * abs(want.Z)
+    assert [s[:3] + s[4:] for s in got.segments] == [s[:3] + s[4:] for s in want.segments]
+    assert max(abs(g[3] - w[3]) for g, w in zip(got.segments, want.segments)) <= 1e-9
