@@ -52,10 +52,37 @@ result line):
      kernel launched; then the first phase-4 read in segment mode with
      its wall time and CAP_LADDER rung, and the batched fp64 kernels at
      R = 1 and that rung's caps, whose candidate sets must equal the
-     per-read pre-pass's.
+     per-read pre-pass's. The long read's signal is Hampel-filtered as the
+     TSV reader delivers it, so that phase 12 can hold the engine to it;
+ 11. the NTC lattice kernels (ntc_tab_gather, ntc_bwd, ntc_pv, ntc_walk)
+     against their plain versions on the CPU tests' three short reads, in
+     fp32 and fp64, at the engine's caps (8, 120) and at its wide rung's
+     (16, 240): the bucket runs through the engine's own bucket program,
+     which keeps each kernel's inputs and outputs, and each plain version
+     runs on the same inputs; every output bit for bit (gathered tables,
+     store, lp written over the store, choices, slots, both finals, walk
+     records, segment summaries);
+ 12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
+     in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
+     --device cuda, --profile), every launch counter reset right before
+     and read right after: K7-K11, K13, K15, K16 all launched, no plain
+     version; at most 2 reads on the exact rung; the engine's profile,
+     reads/s and peak memory; read 0 against phase 10's exact fp64 run
+     (at most max(1, segments/50) borders differ, Z within rel 1e-3). Then
+     the engine's (16, 16384) bucket again, fp32, N2 2048, with its
+     kernels' inputs kept: each lattice kernel against its plain version
+     there, bit for bit as in phase 11, and its CUDA-event time beside the
+     plain version's (and, for ntc_tab_gather, the indexing call's). Then
+     the wide rung at full width: 8 of the reads at caps (2, 2), which all
+     overflow and re-run in one bucket at (16, 240); every NTC kernel
+     launched twice, no plain version, no exact retry, each read within
+     the bounds above of its main-rung result; wall time and peak memory.
 Each phase prints its wall time. The line before the last is
-{"kernels": [...]}; the last is {"ok": true, "device": {...}}. Needs no
-JAX, no zstandard, no network.
+{"kernels": [...]} with each kernel's bound (bytes each input read once and
+each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
+fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
+Needs no JAX and no network. `--phases 1,2,11` runs a subset (the kernels
+line then lists only what was measured).
 """
 
 from __future__ import annotations
@@ -82,6 +109,10 @@ SOURCE = {
     "ntc_tn_bwd_sel": "dynamont_tpu_torch/csrc/ntc_pre.cu",
     "ntc_tk_bwd": "dynamont_tpu_torch/csrc/ntc_pre.cu",
     "ntc_tk_fwd_u": "dynamont_tpu_torch/csrc/ntc_pre.cu",
+    "ntc_tab_gather": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_bwd": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_pv": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_walk": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
 }
 REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
@@ -93,8 +124,27 @@ REPLACES = {
     "ntc_tn_bwd_sel": "dynamont_tpu/ops/ntc_pre_pallas.py:113",
     "ntc_tk_bwd": "dynamont_tpu/ops/ntc_pre_pallas.py:336",
     "ntc_tk_fwd_u": "dynamont_tpu/ops/ntc_pre_pallas.py:381",
+    "ntc_tab_gather": "dynamont_tpu/ops/ntc_pallas.py:244",
+    "ntc_bwd": "dynamont_tpu/ops/ntc_pallas.py:839",
+    "ntc_pv": "dynamont_tpu/ops/ntc_pallas.py:984",
+    "ntc_walk": "dynamont_tpu/ops/ntc_pallas.py:1298",
 }
+# floors of the operations per unit of work, counted as the kernels are
+# written: each add, multiply, compare, max and each exp, log, log1p is one
+# operation. Unit: a live band cell (banded kernels), a live (row, column)
+# of both states (TN/TK pre-pass), a live lattice cell (ntc_bwd, ntc_pv),
+# a walk step (banded_walk, ntc_walk); ntc_tab_gather only moves bytes
+OPS_PER_UNIT = {
+    "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10,
+    "banded_fwd": 16, "banded_bwd_train": 30,
+    "ntc_tn_fwd": 16, "ntc_tn_bwd_sel": 30, "ntc_tk_bwd": 25,
+    "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_bwd": 130, "ntc_pv": 150,
+    "ntc_walk": 40,
+}
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM peak HBM3 bandwidth
+FP32_OPS_PER_S = 67e12     # H100 SXM peak fp32 rate outside the tensor cores
 NTC_READS, CN, CK0 = 16, 8, 120  # the resquiggle engine's kernel geometry
+WIDE_CN, WIDE_CK0 = 16, 240  # its wide rung
 FP32_EPSILON = 1e-6  # per-cell Z tolerance of the fp32 engine gates
 CELL_ATOL = 1e-5
 RUNS = 5
@@ -183,6 +233,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tensors_of(x) -> list:
+    """The tensors of a kernel wrapper's result (a tensor or a tuple of them)."""
+    import torch
+
+    return [x] if isinstance(x, torch.Tensor) else [t for t in x if isinstance(t, torch.Tensor)]
+
+
+def timed(name: str, kern, plain, inputs, units: int, reps: int, extra_bytes: int = 0,
+          library=None) -> dict:
+    """One kernel's entry of the kernels line: its CUDA-event time (mean of
+    `reps` launches after one), its plain version's (one run; or the time
+    already measured, when `plain` is a number), its bound from the bytes
+    of `inputs` and of what it returns (plus extra_bytes) and `units` of
+    work, and the library call's time where there is one."""
+    moved = nbytes(*inputs, *tensors_of(kern())) + extra_bytes
+    ms = cuda_ms(kern, reps)
+    plain_ms = plain if isinstance(plain, float) else cuda_ms(plain, 1)
+    bound_ms, bound_by = bound(name, moved, units)
+    lib_ms = cuda_ms(library, reps) if library is not None else None
+    log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {moved / 1e6:.1f} MB, {units} units)"
+        + (f", library call {lib_ms:.3f} ms" if lib_ms is not None else ""))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def bound(name: str, moved: int, units: int) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of `moved` bytes over the memory
+    rate and units * OPS_PER_UNIT[name] operations over the fp32 rate."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = units * OPS_PER_UNIT[name] / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 class Phases:
     """Prints each phase's wall time as the next one starts."""
 
@@ -248,7 +336,7 @@ def pre_bucket(model, reads, t_pad: int, n2: int):
     import numpy as np
     import torch
 
-    from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
 
     R = len(reads)
     sig = np.zeros((R, t_pad - 1))
@@ -322,8 +410,8 @@ def compare_pre_kernels(model, bucket, dtype, lm, le, cap_n=CN, cap_k=CK0):
 def run_ntc_cli(sig, read, device: str, flags=()):
     """dynamont_tpu_torch.cli.ntc_main.main in process on one read: (the
     NTCResult, stdout)."""
-    from dynamont_tpu.models.registry import get_model_path
-    from dynamont_tpu.utils.synthetic import signal_to_text
+    from dynamont_tpu_torch.models.registry import get_model_path
+    from dynamont_tpu_torch.utils.synthetic import signal_to_text
     from dynamont_tpu_torch.cli import ntc_main
 
     stdin, out = sys.stdin, io.StringIO()
@@ -386,21 +474,17 @@ def same_candidates(per_read, batched, sentinel_batched: int, sort_batched: bool
     return int(bad.sum())
 
 
-def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
+def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict, want):
     """Phases 8-10 (the NTC pre-pass kernels and the per-read NTC). Fills
     max_err and launches for the four pre-pass kernels; returns their
-    (kernel ms, plain ms) at the engine's bucket shape."""
+    timing entries at the engine's bucket shape and phase 10's exact run of
+    the long read, (signal, read, NTCResult), or None."""
     import torch
 
-    from dynamont_tpu.models.packing import round_up, t_pad_ladder
-    from dynamont_tpu.utils.synthetic import make_read
-    from dynamont_tpu_torch.models.ntc import CAP_LADDER
-    from dynamont_tpu_torch.ops import ntc_batch as nb
-    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.models.packing import round_up, t_pad_ladder
+    from dynamont_tpu_torch.utils.synthetic import make_read
 
     n_of = lambda read: len(read) - model.kmer_size + 2  # N = k-mers + 1
-    # 8. the pre-pass kernels against their plain versions
-    phase.start("8")
     short = [make_read(model, n_bases=n, seed=s) for s, n in ((0, 25), (1, 31), (2, 18))]
     t_short = round_up(max(len(s) for s, _ in short) + 1, 64)   # the CPU tests'
     n_short = round_up(max(n_of(r) for _, r in short), 16)      # engine padding
@@ -408,17 +492,35 @@ def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
     n_full = round_up(n_of(bench[0][1]), 256)
     if (t_full, n_full) != (16384, 2048):
         raise AssertionError(f"NTC bucket shape {(t_full, n_full)}")
-    for dtype in (torch.float32, torch.float64):
+    times, long_ref = {}, None
+    # 8. the pre-pass kernels against their plain versions
+    phase.start("8")
+    for dtype in (torch.float32, torch.float64) if want("8") else ():
         for reads, t_pad, n2 in ((short, t_short, n_short), (bench[:2], t_full, n_full)):
             errs = compare_pre_kernels(model, pre_bucket(model, reads, t_pad, n2),
                                        dtype, lm, le)
             log(f"[8] bucket {(len(reads), t_pad, n2)} K {model.num_kmers} {dtype}: "
                 f"every output and the selections bit for bit, max abs err {errs}")
         torch.cuda.empty_cache()
-    max_err.update(errs)
+        max_err.update(errs)
 
     # 9. the batched pre-pass at the engine's bucket shape
     phase.start("9")
+    if want("9"):
+        times = phase_9(model, bench, lm, le, launches, t_full, n_full)
+    # 10. the exact per-read NTC through its CLI
+    phase.start("10")
+    if want("10"):
+        long_ref = phase_10(model, bench, lm, le)
+    return times, long_ref
+
+
+def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
     sig, kid, N_r, T_r = pre_bucket(model, bench[:NTC_READS], t_full, n_full)
     means, stdevs, c1, c2 = model_tensors(model)
     torch.cuda.synchronize()
@@ -464,28 +566,44 @@ def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
     tabk = nb.tk_tables(means, c1, c2, dtype)
     fwd = kn.tn_fwd(sig, tab, N_r, lm, le)
     bwd = kn.tk_bwd(sig, tabk, T_r, 4, lm, le)
+    tn_units = int(T_r.sum()) * n_full
+    tk_units = int(T_r.sum()) * model.num_kmers
     runs = {
         "ntc_tn_fwd": (lambda: kn.tn_fwd(sig, tab, N_r, lm, le),
-                       lambda: kn.tn_fwd_plain(sig, tab, N_r, lm, le)),
+                       lambda: kn.tn_fwd_plain(sig, tab, N_r, lm, le),
+                       [sig, tab, N_r], tn_units),
         "ntc_tn_bwd_sel": (lambda: kn.tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, CN, lm, le),
                            lambda: kn.tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, CN,
-                                                       lm, le)),
+                                                       lm, le),
+                           [sig, tab, kid, N_r, T_r, fwd], tn_units),
         "ntc_tk_bwd": (lambda: kn.tk_bwd(sig, tabk, T_r, 4, lm, le),
-                       lambda: kn.tk_bwd_plain(sig, tabk, T_r, 4, lm, le)),
+                       lambda: kn.tk_bwd_plain(sig, tabk, T_r, 4, lm, le),
+                       [sig, tabk, T_r], tk_units),
         "ntc_tk_fwd_u": (lambda: kn.tk_fwd_u(sig, tabk, T_r, bwd, 4, lm, le),
-                         lambda: kn.tk_fwd_u_plain(sig, tabk, T_r, bwd, 4, lm, le)),
+                         lambda: kn.tk_fwd_u_plain(sig, tabk, T_r, bwd, 4, lm, le),
+                         [sig, tabk, T_r, bwd], tk_units),
     }
     times = {}
-    for name, (kern, plain) in runs.items():
-        ms = cuda_ms(kern, 2)
-        plain_ms = cuda_ms(plain, 1)
-        log(f"[9] {name} ({NTC_READS}, {t_full}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        times[name] = (ms, plain_ms)
+    log(f"[9] times at ({NTC_READS}, {t_full}):")
+    for name, (kern, plain, inputs, units) in runs.items():
+        times[name] = timed(name, kern, plain, inputs, units, 2)
     del fwd, bwd, runs, tab, tabk, sig
     torch.cuda.empty_cache()
+    return times
 
-    # 10. the exact per-read NTC through its CLI
-    phase.start("10")
+
+def phase_10(model, bench, lm, le):
+    import torch
+
+    from dynamont_tpu_torch.models.ntc import CAP_LADDER
+    from dynamont_tpu_torch.models.packing import round_up
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.utils.signal import hampel_filter
+    from dynamont_tpu_torch.utils.synthetic import make_read
+
+    n_of = lambda read: len(read) - model.kmer_size + 2  # N = k-mers + 1
+    means, stdevs, c1, c2 = model_tensors(model)
     before = dict(kn.LAUNCHES)
     for i, (s, r) in enumerate(make_read(model, n_bases=25, seed=s) for s in range(3)):
         for mode, flags in (("segment", ()), ("calcZ", ("-z",)), ("train", ("--train",))):
@@ -500,6 +618,7 @@ def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
     if kn.LAUNCHES != before:
         raise AssertionError("the per-read NTC launched a pre-pass kernel")
     s, r = bench[0]
+    s = hampel_filter(s.copy())  # as the TSV reader delivers it (phase 12)
     t0 = time.perf_counter()
     res, _ = run_ntc_cli(s, r, "cuda")
     wall = time.perf_counter() - t0
@@ -520,25 +639,366 @@ def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict):
         f"of {len(s) + 1} columns differ from the per-read pre-pass")
     if bad_tn or bad_tk:
         raise AssertionError("batched and per-read candidate sets differ")
-    return times
+    return s, r, res
 
 
-def main() -> int:
+def s_max_of(n2: int) -> int:
+    return -(-(n2 + n2 // 4 + 64) // 128) * 128  # models/ntc_batch._dispatch
+
+
+def compare_lattice_kernels(k: dict, plain_ms: dict) -> int:
+    """K11, K13, K15 and K16 against their plain versions on the inputs each
+    kernel had in one engine bucket (`k`, ntc_bucket_program's keep; K15
+    wrote lp over the store there, as the engine runs it): every output
+    bit for bit, then the segment summaries. Raises otherwise. Fills
+    plain_ms with each plain version's CUDA-event time; returns the number
+    of reads walked."""
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_walk as nw
+
+    def plain(name, fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        ev[1].synchronize()
+        plain_ms[name] = ev[0].elapsed_time(ev[1])
+        return out
+
+    plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
+    N_r, T_r = k["N_r"], k["T_r"]
+    want = plain("ntc_tab_gather", lambda: kern.tab_gather_plain(k["ks"], k["table"], dims))
+    for f, g, w in zip(want._fields, prm, want):
+        same(f"ntc_tab_gather {f}", g, w)
+    want = plain("ntc_bwd", lambda: kern.bwd_plain(plan, dims, prm, sig, tl, N_r, T_r))
+    same("ntc_bwd store", k["bwd"], want)
+    del want
+    want = plain("ntc_pv", lambda: kern.pv_plain(plan, dims, prm, sig, k["bwd"], k["Zb"],
+                                                 tl, T_r))
+    for f, w in zip(("lp", "choices", "slots", "apEf", "fwdEf"), want):
+        same(f"ntc_pv {f}", k[f], w)
+    del want
+    S_max = k["walk_dims"][-1]
+    rec, fin = plain("ntc_walk", lambda: kern.walk_plain(
+        k["lp"], k["choices"], k["slots"], plan, *k["start"], N_r, T_r, *k["walk_dims"]))
+    same("ntc_walk records", k["rec"], rec)
+    same("ntc_walk fin", k["fin"], fin)
+    segs = [nw.finish_records(r, f, S_max) for r, f in ((k["rec"], k["fin"]), (rec, fin))]
+    for i, (g, w) in enumerate(zip(*segs)):
+        same(f"segment summaries {i}", g, w)
+    torch.cuda.synchronize()
+    return int((segs[0][0] > 0).sum())
+
+
+def phase_11(model, max_err: dict):
+    """The lattice kernels against their plain versions on the short reads
+    (module docstring)."""
+    import torch
+
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, NTCBatchEngine
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.utils.synthetic import make_read
+
+    items = [BatchItem(*make_read(model, n_bases=n, seed=s))
+             for s, n in ((0, 25), (1, 31), (2, 18))]
+    for dtype in (torch.float32, torch.float64):
+        # the CPU tests' engine padding
+        eng = NTCBatchEngine(model, "rna002", device="cuda", dtype=dtype, t_pad_to=64,
+                             n_pad_to=16)
+        for caps in ((CN, CK0), WIDE_CAPS):
+            t0 = time.perf_counter()
+            keep, plain_ms = {}, {}
+            eng._dispatch(list(range(len(items))), items, *caps, keep=keep)
+            walked = compare_lattice_kernels(keep, plain_ms)
+            R, t_pad = keep["sig"].shape[0], keep["sig"].shape[1] + 1
+            log(f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: every output bit for bit, {walked}/{len(items)} reads "
+                f"walked ({time.perf_counter() - t0:.1f} s); plain versions ms "
+                + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
+            del keep
+        torch.cuda.empty_cache()
+    max_err.update(dict.fromkeys(kern.KERNELS, 0.0))
+
+
+def zstd_stand_in() -> bool:
+    """The card's machine has no zstandard: give the CLI's CSV writer a
+    pass-through stand-in, so that it writes plain CSV. True if it did."""
+    import importlib.util
+    import types
+
+    if importlib.util.find_spec("zstandard") is not None:
+        return False
+
+    class Writer:
+        def __init__(self, raw):
+            self.raw = raw
+
+        def write(self, data):
+            return self.raw.write(data)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    class ZstdCompressor:
+        def __init__(self, level: int = 3):
+            pass
+
+        def stream_writer(self, raw):
+            return Writer(raw)
+
+    mod = types.ModuleType("zstandard")
+    mod.ZstdCompressor = ZstdCompressor
+    sys.modules["zstandard"] = mod
+    return True
+
+
+def read_rows(path: str, plain_csv: bool) -> list:
+    """The CSV rows the CLI wrote."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not plain_csv:
+        import io as _io
+
+        import zstandard as zstd
+
+        data = zstd.ZstdDecompressor().stream_reader(
+            _io.BytesIO(data), read_across_frames=True).read()
+    return [ln.split(",") for ln in data.decode().strip().split("\n")[1:]]
+
+
+def phase_12(model, bench, launches: dict, long_ref):
+    """The resquiggle engine through its CLI at full width, then each
+    lattice kernel against its plain version and timed on the bucket the
+    engine ran, then the wide rung at full width (module docstring).
+    Returns the lattice kernels' timing entries."""
     import numpy as np
     import torch
 
+    from dynamont_tpu_torch.cli import resquiggle
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    reads = bench[:NTC_READS]
+    plain_csv = zstd_stand_in()
+    if plain_csv:
+        log("[12] no zstandard here: the CLI writes through a pass-through stand-in, so "
+            "the reads/s below leave out the CSV's compression")
+    with tempfile.TemporaryDirectory(prefix="dynamont_ntc_") as tmp:
+        tsv = os.path.join(tmp, "reads.tsv")
+        out = os.path.join(tmp, "out.csv.zst")
+        write_tsv(tsv, reads)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (kk, kn, kern):
+            mod.reset_counts()
+        t0 = time.perf_counter()
+        eng = resquiggle.main(["--tsv", tsv, "-o", out, "--mode", "resquiggle", "-p",
+                               "rna002", "--device", "cuda", "--profile"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lat, pre = dict(kern.LAUNCHES), dict(kn.LAUNCHES)
+        plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pr = eng.profile
+        log(f"[12] CLI --mode resquiggle, {NTC_READS} reads: {wall:.2f} s wall = "
+            f"{NTC_READS / wall:.2f} reads/s | engine dispatch {pr['dispatch_s']:.3f} s, "
+            f"collect {pr['collect_s']:.3f} s = "
+            f"{NTC_READS / (pr['dispatch_s'] + pr['collect_s']):.2f} reads/s | wide "
+            f"retries {pr['wide_retries']} ({pr['wide_s']:.2f} s), exact retries "
+            f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat} | "
+            f"plain {plain} | peak device memory {peak:.2f} GiB")
+        if (any(v == 0 for v in (*lat.values(), *pre.values())) or any(plain.values())
+                or any(kk.LAUNCHES.values())):
+            raise AssertionError("the engine missed a kernel or ran a plain version")
+        if pr["exact_retries"] > 2:
+            raise AssertionError(f"{pr['exact_retries']} reads reached the exact rung")
+        errors = os.path.join(tmp, "out.errors")
+        if os.path.exists(errors):
+            with open(errors) as f:
+                raise AssertionError(f"errors written: {f.read()[:2000]}")
+        rows = read_rows(out, plain_csv)
+        per_read = {f"r{i}": 0 for i in range(NTC_READS)}
+        for row in rows:
+            per_read[row[0]] += 1
+        log(f"[12] {len(rows)} CSV rows, per read {min(per_read.values())}-"
+            f"{max(per_read.values())}")
+        if min(per_read.values()) < 0.5 * N_BASES:
+            raise AssertionError(f"a read yields too few rows: {per_read}")
+        items = [BatchItem(job.signal, job.read)
+                 for job in readers.generate_tsv_jobs(tsv, True)]
+    launches.update(pre)
+    launches.update(lat)
+
+    if long_ref is not None:
+        s, r, ref = long_ref
+        if not (np.array_equal(items[0].signal, s) and items[0].read == r):
+            raise AssertionError("phase 10's long read is not the engine's read 0")
+        got = eng.run(items[:1])[0]
+        if got.error is not None:
+            raise AssertionError(f"read 0: {got.error}")
+        bad, n, dz, dp = segments_apart(got, ref)
+        log(f"[12] read 0 fp32 engine vs the exact fp64 rung: {bad} of {n} segments differ "
+            f"(bound {max(1, n // 50)}), Z {got.Z!r} vs {ref.Z!r} (rel {dz:.2e}), max prob "
+            f"diff {dp:.2e}")
+        if bad > max(1, n // 50) or dz > 1e-3:
+            raise AssertionError("the engine's read 0 is off the exact rung")
+
+    # each lattice kernel against its plain version on the bucket the engine
+    # ran, then timed there
+    t0 = time.perf_counter()
+    k, plain_ms = {}, {}
+    eng._dispatch(list(range(NTC_READS)), items, CN, CK0, keep=k)
+    shape = (k["sig"].shape[0], k["sig"].shape[1] + 1, k["walk_dims"][-1])
+    if shape != (NTC_READS, 16384, s_max_of(2048)):
+        raise AssertionError(f"engine bucket (R, T_pad, S_max) {shape}")
+    walked = compare_lattice_kernels(k, plain_ms)
+    log(f"[12] bucket {shape[:2]} N2 2048 {k['dims']} fp32: K11, K13, K15, K16 every output "
+        f"bit for bit with their plain versions, {walked}/{NTC_READS} reads walked "
+        f"({time.perf_counter() - t0:.1f} s)")
+    times = lattice_times(k, plain_ms)
+    del k
+    torch.cuda.empty_cache()
+    wide_rung(model, eng, items)
+    return times
+
+
+def segments_apart(got, ref):
+    """(borders or polish k-mers that differ, segments, Z rel diff, max
+    probability diff) between two NTC results of one read."""
+    key = lambda seg: (seg[0], seg[1], seg[2], seg[4])
+    n = max(len(got.segments), len(ref.segments))
+    bad = n - sum(key(g) == key(w) for g, w in zip(got.segments, ref.segments))
+    dz = abs(got.Z - ref.Z) / abs(ref.Z)
+    dp = max(abs(g[3] - w[3]) for g, w in zip(got.segments, ref.segments))
+    return bad, n, dz, dp
+
+
+def lattice_times(k: dict, plain_ms: dict) -> dict:
+    """Each lattice kernel's timing entry on the inputs it had in the
+    engine's bucket `k`, beside its plain version's time there."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_walk as nw
+
+    plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
+    N_r, T_r, ks, table, bwd, Zb = k["N_r"], k["T_r"], k["ks"], k["table"], k["bwd"], k["Zb"]
+    ks64 = ks.clamp(0, table.shape[1] - 1).long()  # dead slots (K) read a clipped row
+    walk_args = (k["lp"], k["choices"], k["slots"], plan, *k["start"], N_r, T_r,
+                 *k["walk_dims"])
+    cells = int(T_r.sum()) * dims.CN * dims.CK
+    steps = int(T_r.sum()) * nw.n_micro(dims.CN)
+    p = plan
+    bwd_in = [sig, p.cand_n, p.allowed, p.hd, p.d01, p.d02, p.brow_same, p.brow_next,
+              p.bcol_same, p.bcol_suc, *prm, N_r, T_r]
+    pv_in = [sig, p.cand_n, p.allowed, p.hd, p.row_same, p.row_prev, p.col_same,
+             p.col_prec, prm.mu_k, prm.c1_k, prm.c2_k, prm.nsl, bwd, Zb, T_r]
+    # the walk reads one cell of lp, choices, slots and the row maps per step
+    walk_reads = steps * (4 + 2 + 4 + 2 * 4)
+    log(f"[12] times at {(sig.shape[0], sig.shape[1] + 1)} N2 2048 {dims} fp32 (plain "
+        "versions: their run above):")
+    return {
+        "ntc_tab_gather": timed(
+            "ntc_tab_gather", lambda: kern.tab_gather(ks, table, dims),
+            plain_ms["ntc_tab_gather"], [ks, table], ks.numel(), 3,
+            library=lambda: table[:, ks64]),
+        "ntc_bwd": timed(
+            "ntc_bwd", lambda: kern.bwd(plan, dims, prm, sig, tl, N_r, T_r),
+            plain_ms["ntc_bwd"], bwd_in, cells, 2),
+        "ntc_pv": timed(
+            "ntc_pv", lambda: kern.pv(plan, dims, prm, sig, bwd, Zb, tl, T_r),
+            plain_ms["ntc_pv"], pv_in, cells, 2),
+        "ntc_walk": timed(
+            "ntc_walk", lambda: kern.walk(*walk_args), plain_ms["ntc_walk"],
+            [k["start"][-1], N_r, T_r], steps, 2, walk_reads),
+    }
+
+
+def wide_rung(model, eng, items) -> None:
+    """The engine's wide rung at full width: caps (2, 2) overflow every one
+    of WIDE_READS phase-12 reads, which then re-run in one bucket at the
+    wide caps. Every NTC kernel launches twice (the tiny main bucket, the
+    wide one), no plain version runs, no read reaches the exact rung, and
+    each read stays within the fp32-against-exact bounds of its main-rung
+    result (`eng`'s)."""
+    import torch
+
+    from dynamont_tpu_torch.models.batch import BatchOutput
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, WIDE_READS, NTCBatchEngine
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    wide_items = items[:WIDE_READS]
+    main = eng.run(wide_items)
+    weng = NTCBatchEngine(model, "rna002", device="cuda", cap_n=2, cap_k=2)
+    # a read on the exact rung would cost ~50 s: count it as a failure instead
+    weng._run_exact = lambda it: BatchOutput(it, None, math.nan, "reached the exact rung")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_counts()
+    kn.reset_counts()
+    held = torch.cuda.memory_allocated() / 2**30  # by the earlier phases
+    t0 = time.perf_counter()
+    outs = weng.run(wide_items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lat, pre = dict(kern.LAUNCHES), dict(kn.LAUNCHES)
+    plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pr = weng.profile
+    log(f"[12] wide rung, {WIDE_READS} reads at caps {WIDE_CAPS} after caps (2, 2): "
+        f"{wall:.2f} s wall, of which the wide rung {pr['wide_s']:.2f} s | wide retries "
+        f"{pr['wide_retries']}, exact retries {pr['exact_retries']} | launches {pre} {lat} | "
+        f"plain {plain} | peak device memory {peak:.2f} GiB, {peak - held:.2f} GiB above "
+        f"the {held:.2f} GiB held before")
+    if (pr["wide_retries"] != WIDE_READS or pr["exact_retries"]
+            or any(v != 2 for v in (*lat.values(), *pre.values())) or any(plain.values())):
+        raise AssertionError("the wide rung missed a kernel, a read or fell further")
+    worst = (0, 0.0, 0.0)
+    for i, (got, ref) in enumerate(zip(outs, main)):
+        if got.error is not None or ref.error is not None:
+            raise AssertionError(f"wide rung read {i}: {got.error} / {ref.error}")
+        bad, n, dz, dp = segments_apart(got, ref)
+        if bad > max(1, n // 50) or dz > 1e-3:
+            raise AssertionError(f"wide rung read {i}: {bad} of {n} segments differ from "
+                                 f"the main rung, Z rel {dz:.2e}")
+        worst = max(worst[0], bad), max(worst[1], dz), max(worst[2], dp)
+    log(f"[12] wide rung against the main rung: at most {worst[0]} segments differ per "
+        f"read, Z rel at most {worst[1]:.2e}, probabilities within {worst[2]:.2e}")
+    del weng, outs
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after 1-2 (default: all)")
+    args = ap.parse_args(argv)
+    chosen = None if args.phases is None else set(args.phases.split(","))
+    want = lambda n: chosen is None or n in chosen
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dynamont_tpu.constants import NT_TRANSITIONS
-    from dynamont_tpu.io.output import format_segments_csv
-    from dynamont_tpu.models.packing import t_pad_ladder
-    from dynamont_tpu.models.registry import load_model_for_pore
-    from dynamont_tpu.native import summaries_csv_native
-    from dynamont_tpu.utils.kmer import seq_to_kmer_ids
-    from dynamont_tpu.utils.synthetic import make_read
-    from dynamont_tpu.io import readers
+    from dynamont_tpu_torch.constants import NT_TRANSITIONS
+    from dynamont_tpu_torch.io.output import format_segments_csv
+    from dynamont_tpu_torch.models.packing import t_pad_ladder
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.native import summaries_csv_native
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+    from dynamont_tpu_torch.utils.synthetic import make_read
+    from dynamont_tpu_torch.io import readers
     from dynamont_tpu_torch import _build
     from dynamont_tpu_torch.cli import train as train_cli
     from dynamont_tpu_torch.models.batch import BandedBatchEngine, BatchItem
@@ -589,262 +1049,282 @@ def main() -> int:
         p = params_from_numpy(model, m1, e2, device="cuda", dtype=dtype)
         return dv.decode(wire, p.means, p.c1, p.c2, dtype), wire.N_max
 
-    # 3. kernels against their plain versions
-    phase.start("3")
     small = [make_read(model, n_bases=40 + 10 * s, seed=s) for s in range(3)]
     bench = []
     for s in range(N_READS):
         sig, read = make_read(model, n_bases=N_BASES, mean_dwell=MEAN_DWELL, seed=s)
         bench.append((sig[:T_TRIM], read))
-    max_err = {}
-    for dtype in (torch.float32, torch.float64):
-        for reads in (small, bench[:2]):
-            b, nmax = bucket(reads, dtype)
-            shape = (b.sig.shape[0], b.bstart.shape[1], b.B)
-            errs = compare_kernels(b, nmax, lm, le)
-            log(f"[3] bucket {shape} {dtype}: max abs err {errs}")
-            del b
-        if shape != (2, 16384, 512):
-            raise AssertionError(f"production bucket shape {shape}")
-        if dtype == torch.float32:
-            max_err = errs
-        torch.cuda.empty_cache()
+    kids_of = lambda reads: [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
+                             for _, r in reads]
+    max_err, launches, times = {}, {}, {}
+
+    # 3. kernels against their plain versions
+    phase.start("3")
+    if want("3"):
+        for dtype in (torch.float32, torch.float64):
+            for reads in (small, bench[:2]):
+                b, nmax = bucket(reads, dtype)
+                shape = (b.sig.shape[0], b.bstart.shape[1], b.B)
+                errs = compare_kernels(b, nmax, lm, le)
+                log(f"[3] bucket {shape} {dtype}: max abs err {errs}")
+                del b
+            if shape != (2, 16384, 512):
+                raise AssertionError(f"production bucket shape {shape}")
+            if dtype == torch.float32:
+                max_err.update(errs)
+            torch.cuda.empty_cache()
 
     # 4. the main path
     phase.start("4")
-    items = [BatchItem(sig, read) for sig, read in bench]
-    eng = BandedBatchEngine(model, "rna002", device="cuda", batch_size=BATCH)
-    eng.run(items[:BATCH])  # warm-up: allocator and first launches
-    torch.cuda.synchronize()
-    prof0 = dict(eng.profile)
-    kk.reset_counts()
-    walls = []
-    for _ in range(RUNS):
-        t0 = time.perf_counter()
-        outs = eng.run(items)
+    if want("4"):
+        items = [BatchItem(sig, read) for sig, read in bench]
+        eng = BandedBatchEngine(model, "rna002", device="cuda", batch_size=BATCH)
+        eng.run(items[:BATCH])  # warm-up: allocator and first launches
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    launches, plain_runs = dict(kk.LAUNCHES), dict(kk.PLAIN_RUNS)
-    rates = sorted(len(items) / w for w in walls)
-    per_run = lambda k: (eng.profile[k] - prof0[k]) / RUNS
-    log(f"[4] {len(items)} reads x {RUNS} runs: reads/s median {rates[RUNS // 2]:.2f} "
-        f"(min {rates[0]:.2f}, max {rates[-1]:.2f}; all {[round(r, 2) for r in rates]}) | "
-        f"per run: {per_run('buckets'):.0f} buckets, host dispatch "
-        f"{per_run('dispatch_s') * 1e3:.1f} ms, wait+collect "
-        f"{per_run('collect_s') * 1e3:.1f} ms | fp64 retries "
-        f"{eng.profile.get('z_retries', 0)} | launches {launches} | plain {plain_runs}")
-    if any(launches[k] == 0 for k in kk.SEGMENT_KERNELS) or any(plain_runs.values()):
-        raise AssertionError(f"main path missed a kernel: {launches} {plain_runs}")
-    n_rows = 0
-    for o, (sig, read) in zip(outs, bench):
-        if o.error is not None:
-            raise AssertionError(f"read failed: {o.error}")
-        starts, med, N, ks = o.summaries
-        data = summaries_csv_native("r,s,", starts, med, N, read, ks, True, 0, len(sig))
-        if data is None:  # no native library: the byte-identical Python formatter
-            data = format_segments_csv("r", "s", o.segments, 0, len(sig), read,
-                                       model.kmer_size, True)
-        rows = data.decode().strip().split("\n")
-        probs = [float(r.split(",")[8]) for r in rows]
-        if len(rows) < 0.5 * N_BASES or not all(0.0 <= p <= 1.0 for p in probs):
-            raise AssertionError(f"read yields {len(rows)} CSV rows")
-        n_rows += len(rows)
-    log(f"[4] {n_rows} CSV rows from {len(outs)} reads")
-    check = []
-    for s in range(3):  # snapped to the wire's int16 grid, so both see one signal
-        sig, read = make_read(model, n_bases=60, seed=100 + s)
-        dac, scale, offset = dv.quantize_signal(sig)
-        check.append(BatchItem(dac.astype(np.float64) * scale + offset, read))
-    for it, got in zip(check, eng.run(check)):
-        ref = run_nt_banded(it.signal, it.read, model, "rna002", device="cuda")
-        if [s[1:3] for s in got.segments] != [s[1:3] for s in ref.segments]:
-            raise AssertionError("fp32 borders differ from the fp64 rung")
-        dp = max(abs(x[3] - y[3]) for x, y in zip(got.segments, ref.segments))
-        if dp > 2e-3:
-            raise AssertionError(f"fp32 probability off the fp64 rung by {dp}")
-    log("[4] short reads: fp32 borders identical to the fp64 rung, probabilities within 2e-3")
+        prof0 = dict(eng.profile)
+        kk.reset_counts()
+        walls = []
+        for _ in range(RUNS):
+            t0 = time.perf_counter()
+            outs = eng.run(items)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        plain_runs = dict(kk.PLAIN_RUNS)
+        launches.update(kk.LAUNCHES)
+        rates = sorted(len(items) / w for w in walls)
+        per_run = lambda k: (eng.profile[k] - prof0[k]) / RUNS
+        log(f"[4] {len(items)} reads x {RUNS} runs: reads/s median {rates[RUNS // 2]:.2f} "
+            f"(min {rates[0]:.2f}, max {rates[-1]:.2f}; all {[round(r, 2) for r in rates]}) | "
+            f"per run: {per_run('buckets'):.0f} buckets, host dispatch "
+            f"{per_run('dispatch_s') * 1e3:.1f} ms, wait+collect "
+            f"{per_run('collect_s') * 1e3:.1f} ms | fp64 retries "
+            f"{eng.profile.get('z_retries', 0)} | launches {launches} | plain {plain_runs}")
+        if any(launches[k] == 0 for k in kk.SEGMENT_KERNELS) or any(plain_runs.values()):
+            raise AssertionError(f"main path missed a kernel: {launches} {plain_runs}")
+        n_rows = 0
+        for o, (sig, read) in zip(outs, bench):
+            if o.error is not None:
+                raise AssertionError(f"read failed: {o.error}")
+            starts, med, N, ks = o.summaries
+            data = summaries_csv_native("r,s,", starts, med, N, read, ks, True, 0, len(sig))
+            if data is None:  # no native library: the byte-identical Python formatter
+                data = format_segments_csv("r", "s", o.segments, 0, len(sig), read,
+                                           model.kmer_size, True)
+            rows = data.decode().strip().split("\n")
+            probs = [float(r.split(",")[8]) for r in rows]
+            if len(rows) < 0.5 * N_BASES or not all(0.0 <= p <= 1.0 for p in probs):
+                raise AssertionError(f"read yields {len(rows)} CSV rows")
+            n_rows += len(rows)
+        log(f"[4] {n_rows} CSV rows from {len(outs)} reads")
+        check = []
+        for s in range(3):  # snapped to the wire's int16 grid, so both see one signal
+            sig, read = make_read(model, n_bases=60, seed=100 + s)
+            dac, scale, offset = dv.quantize_signal(sig)
+            check.append(BatchItem(dac.astype(np.float64) * scale + offset, read))
+        for it, got in zip(check, eng.run(check)):
+            ref = run_nt_banded(it.signal, it.read, model, "rna002", device="cuda")
+            if [s[1:3] for s in got.segments] != [s[1:3] for s in ref.segments]:
+                raise AssertionError("fp32 borders differ from the fp64 rung")
+            dp = max(abs(x[3] - y[3]) for x, y in zip(got.segments, ref.segments))
+            if dp > 2e-3:
+                raise AssertionError(f"fp32 probability off the fp64 rung by {dp}")
+        log("[4] short reads: fp32 borders identical to the fp64 rung, probabilities within 2e-3")
 
     # 5. kernel and plain-version times at each path's bucket shape
     phase.start("5")
-    main_b, nmax = bucket(bench[:BATCH], torch.float32)
-    log(f"[5] timing bucket {(main_b.sig.shape[0], main_b.bstart.shape[1], main_b.B)}")
-    r = torch.arange(BATCH, device="cuda")
-    bM, bE = kk.backward(main_b, lm, le)
-    Zb = bE[r, 0, main_b.bw.long() + 1]
-    ch, LPM, LPE, _ = kk.fwd_vit(main_b, bM, bE, Zb, lm, le)
-    runs = {
-        "banded_bwd": (lambda: kk.backward(main_b, lm, le),
-                       lambda: kk.backward_plain(main_b, lm, le)),
-        "banded_fwd_vit": (lambda: kk.fwd_vit(main_b, bM, bE, Zb, lm, le),
-                           lambda: kk.fwd_vit_plain(main_b, bM, bE, Zb, lm, le)),
-        "banded_walk": (lambda: kk.walk(LPM, LPE, ch, main_b, nmax),
-                        lambda: kk.walk_plain(LPM, LPE, ch, main_b, nmax)),
-    }
-    kids_of = lambda reads: [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
-                             for _, r in reads]
-    train_b = bb.prepare_batch([s for s, _ in bench[:TRAIN_BATCH]], kids_of(bench[:TRAIN_BATCH]),
-                               model, device="cuda", dtype=torch.float32,
-                               t_pad_to=T_PAD_TO)
-    if (train_b.sig.shape[0], train_b.bstart.shape[1], train_b.B) != (TRAIN_BATCH, 16384, 512):
-        raise AssertionError("training bucket shape")
-    fM, fE = kk.forward(train_b, lm, le)
-    del fM
-    runs["banded_fwd"] = (lambda: kk.forward(train_b, lm, le),
-                          lambda: kk.forward_plain(train_b, lm, le))
-    runs["banded_bwd_train"] = (lambda: kk.backward_train(train_b, fE, lm, le),
-                                lambda: kk.backward_train_plain(train_b, fE, lm, le))
-    times = {}
-    for name, (kern, plain) in runs.items():
-        kern()
-        ms = cuda_ms(kern, 3)
-        plain_ms = cuda_ms(plain, 1)
-        log(f"[5] {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        times[name] = (ms, plain_ms)
-    del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs
-    torch.cuda.empty_cache()
+    if want("5"):
+        main_b, nmax = bucket(bench[:BATCH], torch.float32)
+        log(f"[5] timing bucket {(main_b.sig.shape[0], main_b.bstart.shape[1], main_b.B)}")
+        r = torch.arange(BATCH, device="cuda")
+        bM, bE = kk.backward(main_b, lm, le)
+        Zb = bE[r, 0, main_b.bw.long() + 1]
+        ch, LPM, LPE, _ = kk.fwd_vit(main_b, bM, bE, Zb, lm, le)
+        fields = lambda b: list(b[:8])   # the tensors of a BandedBatch
+        cells = lambda b: int(b.T.sum()) * b.B
+        train_b = bb.prepare_batch([s for s, _ in bench[:TRAIN_BATCH]], kids_of(bench[:TRAIN_BATCH]),
+                                   model, device="cuda", dtype=torch.float32,
+                                   t_pad_to=T_PAD_TO)
+        if (train_b.sig.shape[0], train_b.bstart.shape[1], train_b.B) != (TRAIN_BATCH, 16384, 512):
+            raise AssertionError("training bucket shape")
+        fM, fE = kk.forward(train_b, lm, le)
+        del fM
+        # the walk reads LPM, LPE, ch and bstart at one cell of each row
+        walk_reads = int(main_b.T.sum()) * (2 * 4 + 1 + 4)
+        runs = {
+            "banded_bwd": (lambda: kk.backward(main_b, lm, le),
+                           lambda: kk.backward_plain(main_b, lm, le),
+                           fields(main_b), cells(main_b), 0),
+            "banded_fwd_vit": (lambda: kk.fwd_vit(main_b, bM, bE, Zb, lm, le),
+                               lambda: kk.fwd_vit_plain(main_b, bM, bE, Zb, lm, le),
+                               fields(main_b) + [bM, bE, Zb], cells(main_b), 0),
+            "banded_walk": (lambda: kk.walk(LPM, LPE, ch, main_b, nmax),
+                            lambda: kk.walk_plain(LPM, LPE, ch, main_b, nmax),
+                            [main_b.T, main_b.N, main_b.bw], int(main_b.T.sum()), walk_reads),
+            "banded_fwd": (lambda: kk.forward(train_b, lm, le),
+                           lambda: kk.forward_plain(train_b, lm, le),
+                           fields(train_b), cells(train_b), 0),
+            "banded_bwd_train": (lambda: kk.backward_train(train_b, fE, lm, le),
+                                 lambda: kk.backward_train_plain(train_b, fE, lm, le),
+                                 fields(train_b) + [fE], cells(train_b), 0),
+        }
+        for name, (kern, plain, inputs, units, extra) in runs.items():
+            times[name] = timed(name, kern, plain, inputs, units, 3, extra)
+        del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs
+        torch.cuda.empty_cache()
 
     # 6. the training kernels against their plain versions
     phase.start("6")
-    for dtype in (torch.float32, torch.float64):
-        for reads in (small, bench[:2]):
-            b = bb.prepare_batch([s for s, _ in reads], kids_of(reads), model,
-                                 device="cuda", dtype=dtype, t_pad_to=T_PAD_TO)
-            errs = compare_train_kernels(b, lm, le)
-            log(f"[6] bucket {(b.sig.shape[0], b.bstart.shape[1], b.B)} {dtype}: "
-                f"bitwise equal, max abs err {errs}")
-            del b
-        if dtype == torch.float32:
-            max_err.update(errs)
-    torch.cuda.empty_cache()
+    if want("6"):
+        for dtype in (torch.float32, torch.float64):
+            for reads in (small, bench[:2]):
+                b = bb.prepare_batch([s for s, _ in reads], kids_of(reads), model,
+                                     device="cuda", dtype=dtype, t_pad_to=T_PAD_TO)
+                errs = compare_train_kernels(b, lm, le)
+                log(f"[6] bucket {(b.sig.shape[0], b.bstart.shape[1], b.B)} {dtype}: "
+                    f"bitwise equal, max abs err {errs}")
+                del b
+            if dtype == torch.float32:
+                max_err.update(errs)
+        torch.cuda.empty_cache()
 
     # 7. the training path through the CLI
     phase.start("7")
-    with tempfile.TemporaryDirectory(prefix="dynamont_train_") as tmp:
-        tsv = os.path.join(tmp, "train.tsv")
-        write_tsv(tsv, bench[:TRAIN_READS])
-        args = ["--tsv", tsv, "-p", "rna002", "--mode", "basic", "-q", "0",
-                "--batch_size", str(TRAIN_BATCH), "--max_batches", "2",
-                "--precision", "fp32", "--device", "cuda"]
-        outs = []
-        for rep in range(2):
-            out = os.path.join(tmp, f"run{rep}")
-            kk.reset_counts()
-            t0 = time.perf_counter()
-            trainer = train_cli.main(args + ["-o", out])
+    if want("7"):
+        with tempfile.TemporaryDirectory(prefix="dynamont_train_") as tmp:
+            tsv = os.path.join(tmp, "train.tsv")
+            write_tsv(tsv, bench[:TRAIN_READS])
+            args = ["--tsv", tsv, "-p", "rna002", "--mode", "basic", "-q", "0",
+                    "--batch_size", str(TRAIN_BATCH), "--max_batches", "2",
+                    "--precision", "fp32", "--device", "cuda"]
+            outs = []
+            for rep in range(2):
+                out = os.path.join(tmp, f"run{rep}")
+                kk.reset_counts()
+                t0 = time.perf_counter()
+                trainer = train_cli.main(args + ["-o", out])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                train_launches, train_plain = dict(kk.LAUNCHES), dict(kk.PLAIN_RUNS)
+                log(f"[7] CLI run {rep}: {TRAIN_READS} reads in {wall:.2f} s | launches "
+                    f"{train_launches} | plain {train_plain} | fp64 rung {trainer.fp64_reads}")
+                if (train_launches["banded_fwd"] < 4 or train_launches["banded_bwd_train"] < 4
+                        or any(train_plain.values()) or trainer.fp64_reads):
+                    raise AssertionError("training path missed a kernel or fell back")
+                outs.append(files_of(out))
+                if rep == 0:
+                    launches.update({k: train_launches[k] for k in kk.TRAIN_KERNELS})
+            rows = outs[0]["params.csv"].decode().splitlines()
+            log("[7] params.csv: " + " | ".join(rows))
+            if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
+                                         for v in row.split(",")[4:7]):
+                raise AssertionError("params.csv rows")
+            if not {"trained_0_1.model", "trained_0_2.model"} <= set(outs[0]):
+                raise AssertionError(f"checkpoints missing: {sorted(outs[0])}")
+            if outs[0] != outs[1]:
+                raise AssertionError("a repeat run wrote different files")
+            log(f"[7] repeat run: {len(outs[0])} files byte-identical")
+
+            short_tsv = os.path.join(tmp, "short.tsv")
+            write_tsv(short_tsv, [make_read(model, n_bases=30, seed=80 + s) for s in range(4)])
+            jobs = list(readers.generate_tsv_jobs(short_tsv, rna=True))
+            params = {}
+            for prec in ("fp32", "fp64"):
+                t = Trainer("basic", "rna002", os.path.join(tmp, prec),
+                            os.path.join(tmp, "run0", "trained_0_0.model"),
+                            batch_size=4, precision=prec, device="cuda")
+                t.process_batch(jobs, epoch=0)
+                t.close()
+                params[prec] = t.transition_params
+            rel = {p: abs(params["fp32"][p] / params["fp64"][p] - 1) for p in ("m1", "e2")}
+            log(f"[7] fp32 vs fp64 trainer on 4 short reads: m1/e2 rel diff {rel}")
+            if max(rel.values()) > 1e-3:
+                raise AssertionError("fp32 trainer off the fp64 trainer")
+
+        # the training step at (24, 16384, 512): prepare_batch and
+        # banded_batch_train with the results brought to the host, as the
+        # trainer runs them (host clock); then the same stages one by one,
+        # kernels and emission statistics on CUDA events
+        step_reads = bench[:TRAIN_BATCH]
+
+        def prepare():
+            kids = kids_of(step_reads)
+            b = bb.prepare_batch([s for s, _ in step_reads], kids, model, device="cuda",
+                                 dtype=torch.float32, t_pad_to=T_PAD_TO)
+            kid_pad = np.zeros((len(kids), max(len(k) for k in kids)), np.int32)
+            for i, k in enumerate(kids):
+                kid_pad[i, : len(k)] = k
+            return b, kid_pad
+
+        split = {k: [] for k in ("step", "host_prep", "banded_fwd", "banded_bwd_train",
+                                 "emission_stats", "to_host")}
+        torch.cuda.reset_peak_memory_stats()
+        for it in range(STEPS + 1):
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            train_launches, train_plain = dict(kk.LAUNCHES), dict(kk.PLAIN_RUNS)
-            log(f"[7] CLI run {rep}: {TRAIN_READS} reads in {wall:.2f} s | launches "
-                f"{train_launches} | plain {train_plain} | fp64 rung {trainer.fp64_reads}")
-            if (train_launches["banded_fwd"] < 4 or train_launches["banded_bwd_train"] < 4
-                    or any(train_plain.values()) or trainer.fp64_reads):
-                raise AssertionError("training path missed a kernel or fell back")
-            outs.append(files_of(out))
-            if rep == 0:
-                launches.update({k: train_launches[k] for k in kk.TRAIN_KERNELS})
-        rows = outs[0]["params.csv"].decode().splitlines()
-        log("[7] params.csv: " + " | ".join(rows))
-        if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
-                                     for v in row.split(",")[4:7]):
-            raise AssertionError("params.csv rows")
-        if not {"trained_0_1.model", "trained_0_2.model"} <= set(outs[0]):
-            raise AssertionError(f"checkpoints missing: {sorted(outs[0])}")
-        if outs[0] != outs[1]:
-            raise AssertionError("a repeat run wrote different files")
-        log(f"[7] repeat run: {len(outs[0])} files byte-identical")
+            t0 = time.perf_counter()
+            b, kid_pad = prepare()
+            res = nt.banded_batch_train(b, lm, le, kid_pad, model.num_kmers)
+            host = [x.cpu() for x in res]
+            step_ms = (time.perf_counter() - t0) * 1e3
+            del res, host, b
+            t0 = time.perf_counter()
+            b, kid_pad = prepare()
+            plan = nt.stats_plan(b.bstart.cpu().numpy(), b.T.cpu().numpy(),
+                                 b.N.cpu().numpy(), kid_pad, model.num_kmers,
+                                 b.sig.device, b.sig.dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            fM, fE = kk.forward(b, lm, le)
+            ev[1].record()
+            bM, bE, rawM1, rawE2 = kk.backward_train(b, fE, lm, le)
+            ev[2].record()
+            Zb = bE[torch.arange(TRAIN_BATCH, device="cuda"), 0, b.bw.long() + 1]
+            means, stdevs = nt.emission_stats(b, fM, fE, bM, bE, Zb, plan,
+                                              kid_pad.shape[1] + 1)
+            ev[3].record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host = [x.cpu() for x in (rawM1, rawE2, Zb, means, stdevs)]
+            t3 = time.perf_counter()
+            del fM, fE, bM, bE, means, stdevs, host, b
+            if it == 0:
+                continue  # warm-up
+            split["step"].append(step_ms)
+            split["host_prep"].append((t1 - t0) * 1e3)
+            split["banded_fwd"].append(ev[0].elapsed_time(ev[1]))
+            split["banded_bwd_train"].append(ev[1].elapsed_time(ev[2]))
+            split["emission_stats"].append(ev[2].elapsed_time(ev[3]))
+            split["to_host"].append((t3 - t2) * 1e3)
+        med = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
+        log(f"[7] training step (24, 16384, 512) fp32, median of {STEPS}: {med['step']:.2f} ms "
+            f"= {TRAIN_BATCH / (med['step'] / 1e3):.2f} reads/s (all steps ms "
+            f"{[round(x, 2) for x in split['step']]}) | split, medians: host prep "
+            f"{med['host_prep']:.2f} ms, banded_fwd {med['banded_fwd']:.3f} ms, "
+            f"banded_bwd_train {med['banded_bwd_train']:.3f} ms, emission stats "
+            f"{med['emission_stats']:.3f} ms, to host {med['to_host']:.2f} ms | peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del split, step_reads
 
-        short_tsv = os.path.join(tmp, "short.tsv")
-        write_tsv(short_tsv, [make_read(model, n_bases=30, seed=80 + s) for s in range(4)])
-        jobs = list(readers.generate_tsv_jobs(short_tsv, rna=True))
-        params = {}
-        for prec in ("fp32", "fp64"):
-            t = Trainer("basic", "rna002", os.path.join(tmp, prec),
-                        os.path.join(tmp, "run0", "trained_0_0.model"),
-                        batch_size=4, precision=prec, device="cuda")
-            t.process_batch(jobs, epoch=0)
-            t.close()
-            params[prec] = t.transition_params
-        rel = {p: abs(params["fp32"][p] / params["fp64"][p] - 1) for p in ("m1", "e2")}
-        log(f"[7] fp32 vs fp64 trainer on 4 short reads: m1/e2 rel diff {rel}")
-        if max(rel.values()) > 1e-3:
-            raise AssertionError("fp32 trainer off the fp64 trainer")
-
-    # the training step at (24, 16384, 512): prepare_batch and
-    # banded_batch_train with the results brought to the host, as the
-    # trainer runs them (host clock); then the same stages one by one,
-    # kernels and emission statistics on CUDA events
-    step_reads = bench[:TRAIN_BATCH]
-
-    def prepare():
-        kids = kids_of(step_reads)
-        b = bb.prepare_batch([s for s, _ in step_reads], kids, model, device="cuda",
-                             dtype=torch.float32, t_pad_to=T_PAD_TO)
-        kid_pad = np.zeros((len(kids), max(len(k) for k in kids)), np.int32)
-        for i, k in enumerate(kids):
-            kid_pad[i, : len(k)] = k
-        return b, kid_pad
-
-    split = {k: [] for k in ("step", "host_prep", "banded_fwd", "banded_bwd_train",
-                             "emission_stats", "to_host")}
-    torch.cuda.reset_peak_memory_stats()
-    for it in range(STEPS + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        b, kid_pad = prepare()
-        res = nt.banded_batch_train(b, lm, le, kid_pad, model.num_kmers)
-        host = [x.cpu() for x in res]
-        step_ms = (time.perf_counter() - t0) * 1e3
-        del res, host, b
-        t0 = time.perf_counter()
-        b, kid_pad = prepare()
-        plan = nt.stats_plan(b.bstart.cpu().numpy(), b.T.cpu().numpy(),
-                             b.N.cpu().numpy(), kid_pad, model.num_kmers,
-                             b.sig.device, b.sig.dtype)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        fM, fE = kk.forward(b, lm, le)
-        ev[1].record()
-        bM, bE, rawM1, rawE2 = kk.backward_train(b, fE, lm, le)
-        ev[2].record()
-        Zb = bE[torch.arange(TRAIN_BATCH, device="cuda"), 0, b.bw.long() + 1]
-        means, stdevs = nt.emission_stats(b, fM, fE, bM, bE, Zb, plan,
-                                          kid_pad.shape[1] + 1)
-        ev[3].record()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host = [x.cpu() for x in (rawM1, rawE2, Zb, means, stdevs)]
-        t3 = time.perf_counter()
-        del fM, fE, bM, bE, means, stdevs, host, b
-        if it == 0:
-            continue  # warm-up
-        split["step"].append(step_ms)
-        split["host_prep"].append((t1 - t0) * 1e3)
-        split["banded_fwd"].append(ev[0].elapsed_time(ev[1]))
-        split["banded_bwd_train"].append(ev[1].elapsed_time(ev[2]))
-        split["emission_stats"].append(ev[2].elapsed_time(ev[3]))
-        split["to_host"].append((t3 - t2) * 1e3)
-    med = {k: sorted(v)[len(v) // 2] for k, v in split.items()}
-    log(f"[7] training step (24, 16384, 512) fp32, median of {STEPS}: {med['step']:.2f} ms "
-        f"= {TRAIN_BATCH / (med['step'] / 1e3):.2f} reads/s (all steps ms "
-        f"{[round(x, 2) for x in split['step']]}) | split, medians: host prep "
-        f"{med['host_prep']:.2f} ms, banded_fwd {med['banded_fwd']:.3f} ms, "
-        f"banded_bwd_train {med['banded_bwd_train']:.3f} ms, emission stats "
-        f"{med['emission_stats']:.3f} ms, to host {med['to_host']:.2f} ms | peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del split, step_reads
-
-    ntc_times = phases_ntc(phase, model, bench, lm, le, max_err, launches)
+    ntc_times, long_ref = phases_ntc(phase, model, bench, lm, le, max_err, launches, want)
     times.update(ntc_times)
+    # 11. the lattice kernels against their plain versions
+    phase.start("11")
+    if want("11"):
+        phase_11(model, max_err)
+    # 12. the resquiggle engine at full width
+    phase.start("12")
+    if want("12"):
+        times.update(phase_12(model, bench, launches, long_ref))
     phase.end()
 
     kernels = []
-    for name, (ms, plain_ms) in times.items():
+    for name, t in times.items():
+        if name not in launches or name not in max_err:
+            continue  # a subset run (--phases) measured it without its path
         kernels.append({"name": name, "route": "cuda", "source": SOURCE[name],
                         "replaces": REPLACES[name], "launches": launches[name],
-                        "max_abs_err": max_err[name], "ms": ms,
-                        "plain_ms": plain_ms})
+                        "max_abs_err": max_err[name], **t})
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log(card)

@@ -15,8 +15,15 @@ from __future__ import annotations
 import sys
 from argparse import ArgumentParser
 
-from dynamont_tpu.cli.ntc_main import _FLAG_NAMES
-from dynamont_tpu.constants import NTK_PARAM_NAMES
+from dynamont_tpu_torch.constants import NTK_PARAM_NAMES
+
+_FLAG_NAMES = {
+    "a1": "--alignscore1", "a2": "--alignscore2",
+    "p1": "--polishscore1", "p2": "--polishscore2", "p3": "--polishscore3",
+    "s1": "--sequencescore1", "s2": "--sequencescore2", "s3": "--sequencescore3",
+    "e1": "--extendscore1", "e2": "--extendscore2", "e3": "--extendscore3",
+    "e4": "--extendscore4", "i1": "--insertionscore1", "i2": "--insertionscore2",
+}
 
 # the protocol's codes: 1/2 pre-pass Z mismatch, 3 Z mismatch, 4-11 input
 # and model errors (cli/_protocol.py, models/nt.py); this one is the port's
@@ -55,10 +62,10 @@ def main(argv=None):
 
     import torch
 
-    from dynamont_tpu.cli._protocol import (
+    from dynamont_tpu_torch.cli._protocol import (
         fmt, load_model_or_exit, print_train_output, read_stdin_pair,
     )
-    from dynamont_tpu.constants import is_rna
+    from dynamont_tpu_torch.constants import is_rna
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -1,13 +1,14 @@
-"""dynamont-resquiggle on PyTorch + CUDA, basic mode (counterpart of
+"""dynamont-resquiggle on PyTorch + CUDA (counterpart of
 dynamont_tpu/cli/resquiggle.py).
 
 Reads come from a plain TSV (--tsv) or a dorado BAM + raw directory; they
-are bucketed and segmented by the banded engine on one device, and the
+are bucketed and segmented on one device by the banded engine (--mode
+basic) or the NTC engine (--mode resquiggle, models/ntc_batch), and the
 results stream to a zstd CSV with the reference's columns and `.errors`
-sidecar. Resquiggle (NTC) mode is not ported yet.
+sidecar. --ntc-native-9mer is not ported yet.
 
     python -m dynamont_tpu_torch.cli.resquiggle --tsv reads.tsv \\
-        -o out.csv.zst --mode basic -p rna002 [--device cuda]
+        -o out.csv.zst --mode basic|resquiggle -p rna002 [--device cuda]
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import sys
 from argparse import ArgumentParser
 from collections import deque
 
-from dynamont_tpu.constants import PORES
+from dynamont_tpu_torch.constants import PORES
 
 
 def build_parser() -> ArgumentParser:
@@ -33,8 +34,9 @@ def build_parser() -> ArgumentParser:
     p.add_argument("-p", "--pore", required=True, choices=list(PORES))
     p.add_argument("--model_path", default=None)
     p.add_argument("-q", "--qscore", type=float, default=0.0)
-    p.add_argument("--batch_size", type=int, default=32,
-                   help="reads per device bucket")
+    p.add_argument("--batch_size", type=int, default=None,
+                   help="reads per device bucket (default 32 basic, 16 "
+                        "resquiggle)")
     p.add_argument("-t", "--processes", type=int, default=None,
                    help="accepted for reference compatibility; device "
                         "batching replaces the process pool")
@@ -44,30 +46,37 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted run: reads already in the "
                         "output CSV are skipped, new results are appended")
+    p.add_argument("--ntc-native-9mer", action="store_true",
+                   help="resquiggle mode with a >5-mer model at native K "
+                        "(not yet ported; such models run reduced to 5-mer)")
     p.add_argument("--profile", action="store_true",
                    help="print engine wall-clock accounting to stderr")
     return p
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Runs the CLI; returns the engine (for in-process callers)."""
     args = build_parser().parse_args(argv)
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
         raise SystemExit(2)
-    if args.mode != "basic":
-        print("--mode resquiggle (NTC) is not yet ported to the PyTorch "
-              "package; use dynamont_tpu's dynamont-resquiggle", file=sys.stderr)
+    if args.ntc_native_9mer:
+        print("--ntc-native-9mer is not yet ported to the PyTorch package; "
+              "use dynamont_tpu's dynamont-resquiggle", file=sys.stderr)
         raise SystemExit(2)
+    if args.batch_size is None:
+        args.batch_size = 32 if args.mode == "basic" else 16
 
     import os
 
     import torch
 
-    from dynamont_tpu.constants import is_rna
-    from dynamont_tpu.io import output as out_io
-    from dynamont_tpu.io import readers
-    from dynamont_tpu.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.constants import is_rna
+    from dynamont_tpu_torch.io import output as out_io
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
     from dynamont_tpu_torch.models.batch import BandedBatchEngine
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -102,25 +111,39 @@ def main(argv=None) -> None:
                     f"error: raw read failed, {e}\tRid: {raw[6]}\tSid: {raw[7]}")
 
     try:
-        eng = BandedBatchEngine(model, args.pore, device=device,
-                                batch_size=args.batch_size)
-        _pump_engine(args, eng, jobs(), writer, rna, model)
+        if args.mode == "basic":
+            eng = BandedBatchEngine(model, args.pore, device=device,
+                                    batch_size=args.batch_size)
+            _pump_engine(args, eng, jobs(), writer, rna, model, "error: 3, ")
+        else:
+            # cap-overflow reads re-run inside the engine (wide rung, then
+            # the exact per-read path)
+            eng = NTCBatchEngine(model, args.pore, device=device,
+                                 batch_size=args.batch_size)
+            _pump_engine(args, eng, jobs(), writer, rna, model, "error: ")
     finally:
         writer.close()
     if args.profile:
         pr = eng.profile
         wall = max(1e-9, pr["dispatch_s"] + pr["collect_s"])
-        print(f"profile: {pr['reads']} reads in {pr['buckets']} buckets | "
-              f"dispatch {pr['dispatch_s']:.2f}s | device-wait+collect "
-              f"{pr['collect_s']:.2f}s | {pr['reads'] / wall:.1f} reads/s "
-              f"| fp64 retries {pr.get('z_retries', 0)}", file=sys.stderr)
+        line = (f"profile: {pr['reads']} reads in {pr['buckets']} buckets | "
+                f"dispatch {pr['dispatch_s']:.2f}s | device-wait+collect "
+                f"{pr['collect_s']:.2f}s | {pr['reads'] / wall:.1f} reads/s")
+        if args.mode == "basic":
+            line += f" | fp64 retries {pr.get('z_retries', 0)}"
+        else:
+            line += (f" | wide-rung retries {pr['wide_retries']} "
+                     f"({pr['wide_s']:.2f}s) | exact-path retries "
+                     f"{pr['exact_retries']} ({pr['exact_s']:.2f}s)")
+        print(line, file=sys.stderr)
+    return eng
 
 
 def _emit(writer, job, out, model, rna) -> None:
     """CSV bytes of one read: the native formatter straight from the
     device summaries, else the Python one (byte-identical)."""
-    from dynamont_tpu.io import output as out_io
-    from dynamont_tpu.native import summaries_csv_native
+    from dynamont_tpu_torch.io import output as out_io
+    from dynamont_tpu_torch.native import summaries_csv_native
 
     last = len(job.signal) + job.sig_offset
     if out.summaries is not None:
@@ -136,10 +159,11 @@ def _emit(writer, job, out, model, rna) -> None:
         job.read, model.kmer_size, rna))
 
 
-def _pump_engine(args, eng, jobs, writer, rna, model) -> None:
+def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
     """Stream jobs through the engine, dispatching chunk i+1 before
     collecting chunk i. A chunk whose run raises is re-run read by read,
-    so one bad read costs only itself a sidecar line."""
+    so one bad read costs only itself a sidecar line. A chunk is four
+    buckets of the mode's batch size."""
     from dynamont_tpu_torch.models.batch import BatchItem
 
     chunk_size = args.batch_size * 4
@@ -150,7 +174,7 @@ def _pump_engine(args, eng, jobs, writer, rna, model) -> None:
             job = o.item.meta
             if o.error is not None:
                 writer.put_error(
-                    f"error: 3, {o.error}\tT: {len(job.signal)}"
+                    f"{err_prefix}{o.error}\tT: {len(job.signal)}"
                     f"\tN: {len(job.read)}\tRid: {job.readid}"
                     f"\tSid: {job.signalid}")
             else:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import sys
 from argparse import ArgumentParser
 
-from dynamont_tpu.constants import PORES
+from dynamont_tpu_torch.constants import PORES
 
 
 def build_parser() -> ArgumentParser:
@@ -69,9 +69,9 @@ def main(argv=None):
 
     import torch
 
-    from dynamont_tpu.constants import is_rna
-    from dynamont_tpu.io import readers
-    from dynamont_tpu.models.registry import get_model_path
+    from dynamont_tpu_torch.constants import is_rna
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.registry import get_model_path
     from dynamont_tpu_torch.training.trainer import Trainer, read_passes_filters
 
     device = torch.device(args.device)

@@ -56,4 +56,52 @@ __device__ __forceinline__ bool in_band(int j, int bs, int bw, int N,
   return j >= ns - bs + 1 && j < ne - bs + 1;
 }
 
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Sum over the B threads' values in a fixed order: pairwise within each
+// warp (lane i gets lane i + h for h = 16, ..., 1, as __shfl_down_sync
+// gives it), then pairwise over the warp sums in the same way (B <= MAXT).
+// A block of at most 32 threads (one warp, possibly partial, so block
+// barriers) is one pairwise tree over its B lanes. The plain version
+// (ops/ntc_pre_kernels._tree_sum) adds in the same order. Every thread
+// gets the total; red holds B values.
+template <int MAXT, typename S>
+__device__ S block_sum(S v, S* red, int tid, int B) {
+  if (B <= 32) {
+    red[tid] = v;
+    __syncthreads();
+    for (int h = B >> 1; h > 0; h >>= 1) {
+      if (tid < h) red[tid] = red[tid] + red[tid + h];
+      __syncthreads();
+    }
+    return red[0];
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = v + __shfl_down_sync(FULL_MASK, v, off);
+  const int nw = B >> 5;
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  __syncthreads();
+  S a[MAXT / 32];
+#pragma unroll
+  for (int w = 0; w < MAXT / 32; ++w) a[w] = w < nw ? red[w] : S(0);
+#pragma unroll
+  for (int h = MAXT / 64; h > 0; h >>= 1) {
+    if (h < nw) {
+#pragma unroll
+      for (int w = 0; w < MAXT / 64; ++w) {
+        if (w < h) a[w] = a[w] + a[w + h];
+      }
+    }
+  }
+  return a[0];
+}
+
+// Dynamic shared memory above the 48 KB default needs the attribute.
+template <typename F>
+cudaError_t launch_smem(F* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 }  // namespace dynamont

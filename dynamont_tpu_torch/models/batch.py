@@ -19,9 +19,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dynamont_tpu.constants import NT_TRANSITIONS
-from dynamont_tpu.models.packing import pack_buckets, t_pad_ladder
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu_torch.constants import NT_TRANSITIONS
+from dynamont_tpu_torch.models.packing import pack_buckets, t_pad_ladder
+from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
 from dynamont_tpu_torch.models.nt import ZConsistencyError, _validate
 from dynamont_tpu_torch.models.nt_banded import run_nt_banded
 from dynamont_tpu_torch.models.params import params_from_numpy

@@ -8,7 +8,7 @@ import math
 import sys
 from dataclasses import dataclass
 
-from dynamont_tpu.utils.kmer import int2kmer
+from dynamont_tpu_torch.utils.kmer import int2kmer
 
 
 class ZConsistencyError(RuntimeError):

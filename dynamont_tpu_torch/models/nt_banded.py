@@ -10,9 +10,9 @@ import math
 
 import torch
 
-from dynamont_tpu.constants import NT_TRANSITIONS, resolve_transitions
-from dynamont_tpu.ops.geometry import effective_bandwidth
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu_torch.constants import NT_TRANSITIONS, resolve_transitions
+from dynamont_tpu_torch.ops.geometry import effective_bandwidth
+from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
 from dynamont_tpu_torch.models.nt import (
     NTResult, ZConsistencyError, _emissions_to_dict, _validate,
 )

@@ -16,10 +16,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dynamont_tpu.constants import (
+from dynamont_tpu_torch.constants import (
     EPSILON, NT_TRANSITIONS, NTK_TRANSITIONS, resolve_transitions,
 )
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
 from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.ops import nt_full, ntc_dp, ntc_pre
 

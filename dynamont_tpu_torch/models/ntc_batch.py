@@ -1,0 +1,368 @@
+"""Batched NTC (resquiggle) engine on one torch device (counterpart of
+dynamont_tpu/models/ntc_batch.py): reads are bucketed into padded shapes and
+each bucket runs the whole 5-state error-correcting pipeline, the mode
+`dynamont-resquiggle` is named for (ref: NTC_main.cpp:8-235 +
+segment.py:292-317).
+
+The bucket program (ntc_bucket_program): TN and TK pre-pass (K7-K10) ->
+plan -> K11 parameter gathers -> K13 backward -> Zb -> K15 forward,
+posteriors and Viterbi -> Zf -> start slots -> K16 walk -> segment
+summaries. On CUDA tensors every kernel runs on the card; on CPU tensors
+their plain versions run (ops/ntc_kernels).
+
+Escalation, as in the JAX engine: a read whose 95%-mass columns overflow the
+candidate caps (or whose walk overflows) re-runs in a wide rung at (16, 240)
+caps, at most 8 reads per bucket; what still fails goes to the exact
+per-read fp64 path (models/ntc.run_ntc), which escalates its own CAP_LADDER.
+The JAX engine runs its wide rung with the checkpointed backward kernel #14
+because the full store does not fit a TPU v5e's HBM next to the rest; the
+port runs K13 with a full store there too.
+
+What differs from the JAX engine: one device, given explicitly; the read
+axis is padded to the bucket's own size, not to the TPU geometry's 16; the
+caps are the JAX kernel route's on every device; train() (NTC training,
+kernels #17 and #18) and native 9-mer NTC are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+import time
+
+import numpy as np
+import torch
+
+from dynamont_tpu_torch.constants import (
+    EPSILON, NT_TRANSITIONS, NTK_TRANSITIONS, resolve_transitions,
+)
+from dynamont_tpu_torch.models.batch import BatchItem, BatchOutput, _to_host
+from dynamont_tpu_torch.models.nt import _validate
+from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
+from dynamont_tpu_torch.ops import ntc_batch as nb
+from dynamont_tpu_torch.ops import ntc_kernels as kern
+from dynamont_tpu_torch.ops import ntc_walk as nw
+from dynamont_tpu_torch.utils.kmer import int2kmers_batch, seq_to_kmer_ids
+
+FP32_EPSILON = 1e-6   # per-cell Z tolerance of the fp32 gates (BASELINE.md)
+WIDE_CAPS = (16, 240)  # the wide rung's (cap_n, cap_k): CK = 256
+WIDE_READS = 8         # reads per wide-rung bucket
+
+
+def ntc_bucket_program(sig, kid, N_r, T_r, tensors: dict, *, A: int, S: int,
+                       log_ppm: float, log_ppe: float, trans_log: dict,
+                       CN: int, CK0: int, S_max: int, dtype,
+                       keep: dict | None = None) -> dict:
+    """One bucket through the whole NTC pipeline: sig (R, T_pad-1), kid
+    (R, N2-1) int32, N_r/T_r (R,) int32, all on one device; `tensors` the
+    model's means, stdevs, c1, c2 and K11's table there. Returns the
+    per-read Z values, flags and segment summaries as device tensors.
+
+    `keep`, when given, receives each lattice kernel's inputs and outputs
+    (plan, dims, ks, table, prm, sig, bwd, Zb, N_r, T_r, trans_log,
+    walk_dims, lp, choices, slots, apEf, fwdEf, start, rec, fin), so that
+    each kernel can be held against its plain version on the bucket the
+    engine ran; `bwd` is then a copy of the backward store taken before lp
+    is written over it."""
+    means, stdevs = tensors["means"], tensors["stdevs"]
+    K = means.shape[0]
+    pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, log_ppm, log_ppe,
+                         CN, dtype)
+    pk = nb.pre_tk_batch(sig, T_r, means, tensors["c1"], tensors["c2"],
+                         log_ppm, log_ppe, A, CK0, dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid,
+                                     N_r, K, A, S, pn.kn1, pn.kn2)
+    ks = nb.gather_index(plan)
+    prm = kern.tab_gather(ks, tensors["table"], dims)
+    sigd = sig.to(dtype).contiguous()
+    bwd = kern.bwd(plan, dims, prm, sigd, trans_log, N_r, T_r)
+    Zb = nb.ntc_zb_batch(plan, bwd[0])
+    if keep is not None:
+        keep.update(plan=plan, dims=dims, ks=ks, table=tensors["table"],
+                    prm=prm, sig=sigd, bwd=bwd.clone(), Zb=Zb, N_r=N_r,
+                    T_r=T_r, trans_log=trans_log, walk_dims=(K, A, S, S_max))
+    # lp is written over the backward store (row t read before written)
+    lp, choices, slots, apEf, fwdEf = kern.pv(plan, dims, prm, sigd, bwd, Zb,
+                                              trans_log, T_r, out=bwd)
+    Zf = nb.ntc_zf_batch(plan, fwdEf, N_r, T_r)
+    i0, j0, k0, valid = nw.start_slots(plan, apEf, N_r, T_r)
+    rec, fin = kern.walk(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
+                         T_r, K, A, S, S_max)
+    if keep is not None:
+        keep.update(lp=lp, choices=choices, slots=slots, apEf=apEf,
+                    fwdEf=fwdEf, start=(i0, j0, k0, valid), rec=rec, fin=fin)
+    seg_cnt, st_a, bp_a, start_a, k_a, med, seg_ovf = nw.finish_records(
+        rec, fin, S_max)
+    return dict(
+        Zf_tn=pn.Zf, Zb_tn=pn.Zb, ovf_tn=pn.overflow,
+        Zf_tk=pk.Zf, Zb_tk=pk.Zb, ovf_tk=pk.overflow,
+        Zf=Zf, Zb=Zb, valid_start=valid,
+        seg_cnt=seg_cnt, seg_state=st_a, seg_bp=bp_a, seg_start=start_a,
+        seg_k=k_a, seg_med=med, seg_ovf=seg_ovf,
+    )
+
+
+class NTCBatchEngine:
+    """NTC segmentation over arbitrary read lists on one device (bucketed,
+    fp32 by default). Interface as models.batch.BandedBatchEngine."""
+
+    def __init__(self, model, pore: str, *, device,
+                 transition_overrides: dict | None = None,
+                 dtype=torch.float32, batch_size: int = 16,
+                 max_batch_samples: int = 2_000_000, t_pad_to: int = 2048,
+                 n_pad_to: int = 256, cap_n: int = 8, cap_k: int = 120,
+                 fallback: bool = True, wide_retry: bool = True,
+                 native_kmer: bool = False):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"dtype must be float32 or float64, not {dtype}")
+        if model.kmer_size > 5:
+            if native_kmer:
+                raise NotImplementedError(
+                    "native 9-mer NTC is not yet ported to the PyTorch package")
+            from dynamont_tpu_torch.utils.pore_model import reduce_model_to_5mer
+
+            print(f"NTC: reducing {model.kmer_size}-mer model to 5-mer "
+                  "(ref: models/9merTo5mer.py)", file=sys.stderr)
+            model = reduce_model_to_5mer(model)
+        self.model = model
+        self.pore = pore
+        self.overrides = transition_overrides
+        self.dtype = dtype
+        self.batch_size = batch_size
+        self.max_batch_samples = max_batch_samples
+        self.t_pad_to = t_pad_to
+        self.n_pad_to = n_pad_to
+        self.cap_n = cap_n
+        self.cap_k = cap_k
+        self.fallback = fallback
+        self.wide_retry = wide_retry
+        self._eps = EPSILON if dtype == torch.float64 else FP32_EPSILON
+        ntk = resolve_transitions(NTK_TRANSITIONS[pore], transition_overrides)
+        self.trans_log = {k: math.log(v) for k, v in ntk.items()}
+        nt = NT_TRANSITIONS[pore]
+        self.log_ppm, self.log_ppe = math.log(nt["m1"]), math.log(nt["e2"])
+        means, c1, c2 = model.score_params()
+        put = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+        self.tensors = dict(means=put(means), stdevs=put(model.stdevs),
+                            c1=put(c1), c2=put(c2))
+        self.tensors["table"] = nb.combined_tables(
+            self.tensors["means"], self.tensors["c1"], self.tensors["c2"],
+            model.alphabet_size, dtype)
+        # wall-clock accounting across run() calls (see --profile)
+        self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
+                        "collect_s": 0.0, "wide_retries": 0, "wide_s": 0.0,
+                        "exact_retries": 0, "exact_s": 0.0}
+
+    # -- batching ----------------------------------------------------------
+    def _buckets(self, idxs, items, batch_size: int):
+        """Row-optimal packing (models/packing.py); one thread block per
+        read, so group 1."""
+        idxs = list(idxs)
+        for b in pack_buckets([len(items[i].signal) for i in idxs],
+                              batch_size=batch_size,
+                              max_batch_samples=self.max_batch_samples,
+                              t_pad_to=self.t_pad_to, group=1):
+            yield [idxs[p] for p in b]
+
+    def _pad_bucket(self, gidx, items):
+        T_arr = np.array([len(items[i].signal) + 1 for i in gidx], np.int32)
+        kmer_ids = [np.asarray(seq_to_kmer_ids(items[i].read, self.model.kmer_size,
+                                               self.model.alphabet_size), np.int32)
+                    for i in gidx]
+        N_arr = np.array([len(k) + 1 for k in kmer_ids], np.int32)
+        T_pad = t_pad_ladder(int(T_arr.max()), self.t_pad_to)
+        N2 = round_up(int(N_arr.max()), self.n_pad_to)
+        # the bucket carries the signal in fp32 in both precisions, as the
+        # JAX engine's does (the exact per-read path reads it in fp64)
+        sig = np.zeros((len(gidx), T_pad - 1), np.float32)
+        kid = np.zeros((len(gidx), N2 - 1), np.int32)
+        for j, i in enumerate(gidx):
+            sig[j, : T_arr[j] - 1] = items[i].signal
+            kid[j, : N_arr[j] - 1] = kmer_ids[j]
+        return T_arr, N_arr, sig, kid, N2
+
+    # -- execution ---------------------------------------------------------
+    def dispatch(self, items: list[BatchItem]):
+        """Validate and queue every bucket on the device, starting the
+        results' copies to the host; returns a handle for collect()."""
+        outputs: list[BatchOutput | None] = [None] * len(items)
+        valid: list[int] = []
+        for i, it in enumerate(items):
+            try:
+                _validate(len(it.signal), len(it.read), self.model.kmer_size)
+            except SystemExit as e:
+                outputs[i] = BatchOutput(
+                    it, None, math.nan,
+                    f"input validation failed (reference exit {e.code})")
+                continue
+            valid.append(i)
+        t0 = time.perf_counter()
+        pending = [self._dispatch(gidx, items, self.cap_n, self.cap_k)
+                   for gidx in self._buckets(valid, items, self.batch_size)]
+        self.profile["dispatch_s"] += time.perf_counter() - t0
+        return items, outputs, valid, pending
+
+    def collect(self, handle) -> list[BatchOutput]:
+        """Wait for the handle's buckets, build outputs, and run the
+        escalation ladder on the reads that need it."""
+        items, outputs, valid, pending = handle
+        t1 = time.perf_counter()
+        retry: list[int] = []
+        for bucket in pending:
+            retry += self._collect(bucket, items, outputs)
+        t2 = time.perf_counter()
+        use_wide = bool(retry) and self.fallback and self.wide_retry
+        exact = self._run_wide(retry, items, outputs) if use_wide else retry
+        t3 = time.perf_counter()
+        for i in exact:
+            outputs[i] = self._run_exact(items[i])
+        pr = self.profile
+        pr["buckets"] += len(pending)
+        pr["reads"] += len(valid)
+        pr["collect_s"] += t2 - t1
+        pr["wide_retries"] += len(retry) if use_wide else 0
+        pr["wide_s"] += t3 - t2
+        pr["exact_retries"] += len(exact)
+        pr["exact_s"] += time.perf_counter() - t3
+        return outputs  # type: ignore[return-value]
+
+    def run(self, items: list[BatchItem]) -> list[BatchOutput]:
+        return self.collect(self.dispatch(items))
+
+    def train(self, items):
+        raise NotImplementedError(
+            "NTC training (kernels #17 and #18) is not yet ported to the "
+            "PyTorch package")
+
+    def _dispatch(self, gidx, items, cap_n: int, cap_k: int,
+                  keep: dict | None = None):
+        T_arr, N_arr, sig, kid, N2 = self._pad_bucket(gidx, items)
+        # segment cap: one per base plus polish slack (overflow -> ladder)
+        S_max = round_up(N2 + N2 // 4 + 64, 128)
+        put = lambda a: torch.from_numpy(a).to(self.device)
+        res = ntc_bucket_program(
+            put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
+            self.tensors, A=self.model.alphabet_size, S=self.model.kmer_size,
+            log_ppm=self.log_ppm, log_ppe=self.log_ppe,
+            trans_log=self.trans_log, CN=cap_n, CK0=cap_k, S_max=S_max,
+            dtype=self.dtype, keep=keep)
+        host = {k: _to_host(v) for k, v in res.items()}
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return gidx, T_arr, N_arr, host, done, (cap_n, cap_k)
+
+    def _collect(self, bucket, items, outputs) -> list[int]:
+        gidx, T_arr, N_arr, host, done, caps = bucket
+        if done is not None:
+            done.synchronize()
+        host = {k: v.numpy() for k, v in host.items()}
+        K = self.model.num_kmers
+        retry: list[int] = []
+        for j, i in enumerate(gidx):
+            it = items[i]
+            T, N = int(T_arr[j]), int(N_arr[j])
+            flags = [f for f in ("ovf_tn", "ovf_tk", "seg_ovf") if host[f][j]]
+            if not host["valid_start"][j]:
+                flags.append("no_valid_start")
+            if flags:
+                if not self.fallback:
+                    print(f"ntc fallback[{i}]: {','.join(flags)}", file=sys.stderr)
+                retry.append(i)
+                continue
+            err = self._z_errors(host, j, T, N, K, caps)
+            if err is not None:
+                outputs[i] = BatchOutput(it, None, float(host["Zf"][j]), err)
+                continue
+            segs = self._renormalize_medians(host, j, self._format_segments(host, j))
+            outputs[i] = BatchOutput(it, segs, float(host["Zf"][j]))
+        return retry
+
+    def _z_errors(self, host, j, T, N, K, caps):
+        # "matrices" counts the sparse lattice actually evaluated (T x 5
+        # states x CN x CK slots): T*N*K would let the per-cell tolerance
+        # admit 1000+ nats of divergence at T=16k
+        cap_n, cap_k = caps
+        checks = (
+            ("preProcTN", host["Zf_tn"][j], host["Zb_tn"][j], T * N),
+            ("preProcTK", host["Zf_tk"][j], host["Zb_tk"][j], T * K),
+            ("matrices", host["Zf"][j], host["Zb"][j],
+             T * 5 * cap_n * (cap_k + cap_n)),
+        )
+        for name, zf, zb, cells in checks:
+            zf, zb = float(zf), float(zb)
+            if math.isinf(zf) or math.isinf(zb) or abs(zf - zb) / cells > self._eps:
+                if name == "matrices":
+                    return (f"Z values between matrices do not match! forZ: {zf}, "
+                            f"backZ: {zb}")
+                return f"Z values of {name} do not match! Zf: {zf}, Zb: {zb}"
+        return None
+
+    def _format_segments(self, host, j):
+        """Summaries -> (state, basepos, start_t, prob, polish_kmer) in read
+        order, as models/ntc.run_ntc gives them."""
+        cnt = int(host["seg_cnt"][j])
+        if cnt <= 0:
+            return []
+        m = self.model
+        rev = slice(cnt - 1, None, -1)
+        polish = int2kmers_batch(host["seg_k"][j, rev], m.alphabet_size,
+                                 m.kmer_size, m.rna)
+        return [("P" if st else "M", int(bp), int(t0), float(p), pk)
+                for st, bp, t0, p, pk in zip(
+                    host["seg_state"][j, rev].tolist(), host["seg_bp"][j, rev].tolist(),
+                    host["seg_start"][j, rev].tolist(), host["seg_med"][j, rev].tolist(),
+                    polish)]
+
+    def _renormalize_medians(self, host, j, segs):
+        """fp32 posteriors are normalized by each column's own logsumexp
+        and need nothing; fp64 ones by Zb, so the medians are rescaled to
+        the reference's Zf (a uniform log-shift, exact because the grouped
+        median is monotone in the probabilities)."""
+        if self.dtype != torch.float64:
+            return segs
+        diff = float(host["Zb"][j]) - float(host["Zf"][j])
+        if diff == 0.0:
+            return segs
+        # reads with |Zb-Zf| this large fail _z_errors first
+        scale = math.exp(min(diff, 700.0))
+        return [(st, bp, t0, p * scale, pk) for st, bp, t0, p, pk in segs]
+
+    def _run_wide(self, idxs: list[int], items, outputs) -> list[int]:
+        """The wide rung: overflowing reads re-run at WIDE_CAPS in buckets of
+        at most WIDE_READS. Returns the reads that still overflow or fail
+        their Z gates (a wide-rung Z failure is not terminal: the exact
+        path may succeed)."""
+        still: list[int] = []
+        for gidx in self._buckets(idxs, items, min(self.batch_size, WIDE_READS)):
+            bucket = self._dispatch(gidx, items, *WIDE_CAPS)
+            still += self._collect(bucket, items, outputs)
+            for i in gidx:
+                if (i not in still and outputs[i] is not None
+                        and outputs[i].error is not None):
+                    outputs[i] = None
+                    still.append(i)
+        if still:
+            print(f"ntc wide-cap rung: {len(still)}/{len(idxs)} reads still "
+                  "overflow; falling to exact fp64", file=sys.stderr)
+        return still
+
+    def _run_exact(self, it: BatchItem) -> BatchOutput:
+        """The exact per-read fp64 path, on the engine's device."""
+        if not self.fallback:
+            return BatchOutput(it, None, math.nan,
+                               "candidate cap overflow (no fallback)")
+        from dynamont_tpu_torch.models.ntc import (
+            NTCPreprocessError, NTCZError, run_ntc,
+        )
+
+        try:
+            res = run_ntc(it.signal, it.read, self.model, self.pore,
+                          self.overrides, device=self.device, validate=False)
+            return BatchOutput(it, res.segments, res.Z)
+        except (NTCPreprocessError, NTCZError) as e:
+            return BatchOutput(it, None, math.nan, str(e))

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamont_tpu.constants import EPSILON
-from dynamont_tpu.ops.geometry import band_geometry, effective_bandwidth
+from dynamont_tpu_torch.constants import EPSILON
+from dynamont_tpu_torch.ops.geometry import band_geometry, effective_bandwidth
 from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c
 
 NEG_INF = float("-inf")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamont_tpu.ops.geometry import band_geometry, effective_bandwidth
+from dynamont_tpu_torch.ops.geometry import band_geometry, effective_bandwidth
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_kernels as kk
 

@@ -15,7 +15,7 @@ import math
 import numpy as np
 import torch
 
-from dynamont_tpu.constants import EPSILON
+from dynamont_tpu_torch.constants import EPSILON
 from dynamont_tpu_torch.utils.logmath import log_normal_pdf
 
 NEG_INF = -math.inf

@@ -1,12 +1,17 @@
-"""Batched NTC pre-pass (counterpart of the pre-pass part of
-dynamont_tpu/ops/ntc_batch.py, lines 44-441): the TN and TK 2-state passes
-over a padded bucket of reads, and the per-column candidate selection.
+"""The batched NTC pipeline's device ops (counterpart of
+dynamont_tpu/ops/ntc_batch.py): the TN and TK 2-state pre-passes over a
+padded bucket of reads with the per-column candidate selection (lines
+44-441 of the JAX module), the plan that merges the candidates into the
+sparse 5-state lattice (582-907), and the lattice itself (913-1445).
 
-One function serves fp32 and fp64. The recurrences run in the kernels of
-ops/ntc_pre_kernels (K7-K10) on CUDA tensors and in their plain versions
-on CPU tensors; what the JAX package leaves to XLA around its kernels runs
-here as torch ops: the 95%-mass crossing, the stable co-sort of the TN
-candidates with their k-mer values, and the TK top-cap.
+One function serves fp32 and fp64. The recurrences run in kernels on CUDA
+tensors and in their plain versions on CPU tensors: the pre-pass in
+ops/ntc_pre_kernels (K7-K10), the lattice in ops/ntc_kernels (K11, K13,
+K15; the plain K13 and K15 are ntc_backward_batch and
+ntc_posterior_viterbi_batch here). What the JAX package leaves to XLA
+around its kernels runs here as torch ops: the 95%-mass crossing, the
+co-sort of the TN candidates with their k-mer values, the TK top-cap, the
+plan, and the Z reductions.
 
 The selection tests each column against its own mass (ref:
 NTC.cpp:260-270, 328-341 test against the global Z; equal by the
@@ -15,8 +20,8 @@ sums in fp32 over ~16k steps). The per-read rung (ops/ntc_pre) keeps the
 reference's global Z; the two round differently.
 
 Not ported here: the native 9-mer (K = 4^9) branches — the two-stage
-top-cap of select_topk and pre_tk_batch_ckpt — which belong to the native
-9-mer slice.
+top-cap of select_topk, pre_tk_batch_ckpt and the big-K plan — which
+belong to the native 9-mer slice.
 """
 
 from __future__ import annotations
@@ -167,3 +172,552 @@ def tk_select(U, T_r, cap: int):
                                  _col_live(T_pad, T_r), K)
     return dict(cand=cand.reshape(T_pad, R, cap), cnt=cnt.reshape(T_pad, R),
                 overflow=ovf.reshape(T_pad, R).any(dim=0))
+
+
+# ---------------------------------------------------------------------------
+# the batched plan (counterpart of ops/ntc_batch.py:582-907)
+# ---------------------------------------------------------------------------
+
+# state indices (ref: NTC.cpp:699-703)
+A_ST, P_ST, S_ST, E_ST, I_ST = 0, 1, 2, 3, 4
+# the 13 log transitions, in the order the kernels take them
+TL_KEYS = ("a1", "a2", "p1", "p2", "p3", "s1", "s2", "s3",
+           "e2", "e3", "e4", "i1", "i2")
+NTAB = 3 + 3 * 4   # K11's table rows: mu, c1, c2, then A successors of each
+
+
+class NTCPlan(NamedTuple):
+    """The sparse lattice of a bucket, every field (T_pad, R, ...).
+
+    Per (t, read): CN n-slots (the TN candidates, ascending, sentinel N2)
+    and CK = CK0 + CN k-slots (the TK candidates in selection order, then
+    the read's own k-mer of each n-slot, sentinel K). A k-slot is dead if
+    its value is K or an earlier slot holds the same value; slot maps find
+    a value's FIRST slot in the neighbouring column (-1 if absent).
+    """
+
+    cand_n: torch.Tensor     # (T, R, CN) int32
+    cnt_n: torch.Tensor      # (T, R) int32
+    ks: torch.Tensor         # (T, R, CK) int32
+    live: torch.Tensor       # (T, R, CK) bool
+    from_tk: torch.Tensor    # (T, R, CK) bool: value among the TK candidates
+    allowed: torch.Tensor    # (T, R, CN, CK) bool cell mask
+    kN: torch.Tensor         # (T, R, CN) int32 kmer_seq[n-1], 0 if invalid
+    kN2: torch.Tensor        # (T, R, CN) int32 kmer_seq[n], 0 if invalid
+    hd: torch.Tensor         # (T, R, CN, CK) int16 hd1 | hd2<<4 | hd1s<<8 | hd2s<<12
+    d01: torch.Tensor        # (T, R, CN) int8 first digit of kN
+    d02: torch.Tensor        # (T, R, CN) int8 first digit of kN2
+    row_same: torch.Tensor   # (T, R, CN) int32 slot of n in cand_n[t-1]
+    row_prev: torch.Tensor   # (T, R, CN) slot of n-1 in cand_n[t-1]
+    brow_same: torch.Tensor  # (T, R, CN) slot of n in cand_n[t+1]
+    brow_next: torch.Tensor  # (T, R, CN) slot of n+1 in cand_n[t+1]
+    col_same: torch.Tensor   # (T, R, CK) int32 slot of k in ks[t-1]
+    col_prec: torch.Tensor   # (T, R, A, CK) slot of prec_a(k) in ks[t-1]
+    bcol_same: torch.Tensor  # (T, R, CK) slot of k in ks[t+1]
+    bcol_suc: torch.Tensor   # (T, R, A, CK) slot of suc_a(k) in ks[t+1]
+
+
+class PlanDims(NamedTuple):
+    R: int
+    CN: int
+    CK: int
+    A: int
+
+
+class NTCParams(NamedTuple):
+    """Model parameters gathered into the plan's slots (kernel K11):
+    dead k-slots (ks = K) read 0."""
+
+    mu_k: torch.Tensor   # (T, R, CK)
+    c1_k: torch.Tensor
+    c2_k: torch.Tensor
+    suc: torch.Tensor    # (T, 3, R, A*CK): mu, c1, c2 of suc_a(k), A-major
+    nsl: torch.Tensor    # (T, 3, 2*R*CN): mu, c1, c2 at kN | at kN2
+
+    def n_side(self, dims: PlanDims):
+        """(mu_n, c1_n, c2_n, mu_n2, c1_n2, c2_n2), each (T, R, CN)."""
+        T = self.nsl.shape[0]
+        RC = dims.R * dims.CN
+        sh = (T, dims.R, dims.CN)
+        return tuple(self.nsl[:, s, o:o + RC].reshape(sh)
+                     for o in (0, RC) for s in range(3))
+
+    def suc_of(self, dims: PlanDims):
+        """(mu_suc, c1_suc, c2_suc), each (T, R, A, CK)."""
+        T = self.suc.shape[0]
+        sh = (T, dims.R, dims.A, dims.CK)
+        return tuple(self.suc[:, s].reshape(sh) for s in range(3))
+
+
+def _first_slots(table, values, K: int):
+    """First slot of each value in its row of `table` (T, R, W), -1 where
+    absent or where the value is the sentinel K: the scatter-min inverse
+    table of the JAX plan, by a stable sort and a binary search."""
+    W = table.shape[-1]
+    srt, order = torch.sort(table, dim=-1, stable=True)
+    v = values.reshape(*values.shape[:2], -1).contiguous()
+    pos = torch.searchsorted(srt.contiguous(), v)
+    posc = pos.clamp(max=W - 1)
+    hit = (pos < W) & (torch.gather(srt, -1, posc) == v) & (v < K)
+    slot = torch.where(hit, torch.gather(order, -1, posc), -1)
+    return slot.to(torch.int32).reshape(values.shape)
+
+
+def _slot2(values, table):
+    """First slot of each value in the (short) per-column table, -1 if
+    absent: values (..., CN), table (..., CN)."""
+    eq = values[..., :, None] == table[..., None, :]
+    found = eq.any(-1)
+    return torch.where(found, eq.to(torch.uint8).argmax(-1), -1).to(torch.int32)
+
+
+def _hamming_lut(bits: int, ndigits: int, device):
+    """Number of nonzero `bits`-wide digits of z, for z < 2^(bits*ndigits):
+    the Hamming distance of two k-mers with a power-of-two alphabet is
+    lut[a ^ b]."""
+    z = torch.arange(1 << (bits * ndigits), device=device)
+    cnt = torch.zeros_like(z)
+    for p in range(ndigits):
+        cnt += ((z >> (bits * p)) & ((1 << bits) - 1)) != 0
+    return cnt
+
+
+def build_plan_batch(cand_n, cnt_n, cand_k0, cnt_k, kmer_ids, N_r, K: int,
+                     alphabet_size: int, kmer_size: int, kn1, kn2):
+    """(NTCPlan, PlanDims) from the pre-pass candidates: cand_n (T, R, CN)
+    ascending with sentinel N2, cand_k0 (T, R, CK0) in selection order with
+    sentinel K, kmer_ids (R, N2-1), N_r (R,), kn1/kn2 (T, R, CN) the k-mer
+    values at cand-1 and cand that the TN pass extracted. The fields equal
+    the JAX scan path's plan (its `lite=False` build)."""
+    A = alphabet_size
+    if A & (A - 1):
+        raise ValueError(f"the batched plan needs a power-of-two alphabet, not {A}")
+    dev = cand_n.device
+    i32 = torch.int32
+    cand_n = cand_n.to(i32)
+    cand_k0 = cand_k0.to(i32)
+    T, R, CN = cand_n.shape
+    N2 = kmer_ids.shape[1] + 1
+    step = K // A
+    Nr = N_r.to(i32)[None, :, None]
+
+    n_valid = (torch.arange(CN, device=dev) < cnt_n[..., None]) & (cand_n < Nr)
+    n_pos = n_valid & (cand_n >= 1)
+    kN = torch.where(n_pos, kn1, 0).to(i32)
+    base_k = torch.where(n_pos, kN, K)
+
+    # the TK block holds distinct values (sentinels K are dead): only the
+    # base slots can repeat a value, of the TK block or of an earlier base
+    ks = torch.cat([cand_k0, base_k], dim=2)
+    dup_tk = (base_k[..., :, None] == cand_k0[..., None, :]).any(-1)
+    sl = torch.arange(CN, device=dev)
+    dup_b = ((base_k[..., :, None] == base_k[..., None, :])
+             & (sl[:, None] < sl[None, :])).any(-2)
+    live = torch.cat([cand_k0 < K, (base_k < K) & ~dup_tk & ~dup_b], dim=2)
+    from_tk = torch.cat([cand_k0 < K, dup_tk & (base_k < K)], dim=2)
+    allowed = (live[:, :, None, :] & n_valid[..., None]
+               & (from_tk[:, :, None, :]
+                  | ((ks[:, :, None, :] == kN[..., None])
+                     & (cand_n >= 1)[..., None])))
+
+    kN2 = torch.where(n_valid & (cand_n < Nr - 1), kn2, 0).to(i32)
+    ks_safe = ks.clamp(0, K - 1)
+    bits = A.bit_length() - 1
+    lut = _hamming_lut(bits, kmer_size, dev)
+    low = (1 << (bits * (kmer_size - 1))) - 1
+    kc = ks_safe[:, :, None, :]
+    hd = (lut[(kN[..., None] ^ kc).long()]
+          | (lut[(kN2[..., None] ^ kc).long()] << 4)
+          | (lut[((kN[..., None] >> bits) ^ kc).long() & low] << 8)
+          | (lut[((kN2[..., None] >> bits) ^ kc).long() & low] << 12)
+          ).to(torch.int16)
+
+    a = torch.arange(A, device=dev, dtype=i32)
+    suc = (ks_safe % step)[:, :, None, :] * A + a[:, None]
+    prec = (ks_safe // A)[:, :, None, :] + (a * step)[:, None]
+    prev_n = torch.cat([torch.full_like(cand_n[:1], N2), cand_n[:-1]])
+    next_n = torch.cat([cand_n[1:], torch.full_like(cand_n[:1], N2)])
+    none_k = torch.full_like(ks[:1], K)
+    prev_k = torch.cat([none_k, ks[:-1]])
+    next_k = torch.cat([ks[1:], none_k])
+    plan = NTCPlan(
+        cand_n=cand_n, cnt_n=cnt_n.to(i32), ks=ks, live=live,
+        from_tk=from_tk, allowed=allowed, kN=kN, kN2=kN2, hd=hd,
+        d01=(kN % A).to(torch.int8), d02=(kN2 % A).to(torch.int8),
+        row_same=_slot2(cand_n, prev_n), row_prev=_slot2(cand_n - 1, prev_n),
+        brow_same=_slot2(cand_n, next_n), brow_next=_slot2(cand_n + 1, next_n),
+        col_same=_first_slots(prev_k, ks, K),
+        col_prec=_first_slots(prev_k, prec, K),
+        bcol_same=_first_slots(next_k, ks, K),
+        bcol_suc=_first_slots(next_k, suc, K),
+    )
+    return plan, PlanDims(R, CN, ks.shape[2], A)
+
+
+def combined_tables(means, c1, c2, alphabet_size: int, dtype):
+    """(NTAB, K) table K11 gathers from: rows mu, c1, c2 at k, then for
+    tab in (mu, c1, c2) and a < A the row tab[(k % (K/A))*A + a] — the
+    A-th successor's parameter, so successor gathers index by k itself."""
+    K = means.shape[0]
+    A = alphabet_size
+    idx = (torch.arange(K, device=means.device) % (K // A)) * A
+    rows = [means, c1, c2] + [tab[idx + a] for tab in (means, c1, c2)
+                              for a in range(A)]
+    return torch.stack(rows).to(dtype).contiguous()
+
+
+def gather_index(plan: NTCPlan):
+    """(T, R*CK + 2*R*CN) int32 k-mer index rows for K11: the k-slot
+    values, then kN, then kN2."""
+    T = plan.ks.shape[0]
+    return torch.cat([plan.ks.reshape(T, -1), plan.kN.reshape(T, -1),
+                      plan.kN2.reshape(T, -1)], dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the 5-state lattice, plain versions of K13 and K15 (counterpart of
+# ops/ntc_batch.py:913-1445, the scan path)
+# ---------------------------------------------------------------------------
+#
+# The JAX scan gathers by one-hot matmuls (bit-identical to indexing) and
+# runs the in-column I chains as associative scans; here the gathers index
+# and each chain is a sequential fold over the n-slots, ascending in the
+# forward and descending in the backward, which kernels K13 and K15 repeat
+# op for op. Every logsumexp of a term list takes the max, then the
+# exponentials summed in list order, then log(sum) + max.
+
+def _lse(terms):
+    m = terms[0]
+    for x in terms[1:]:
+        m = torch.maximum(m, x)
+    fin = torch.isfinite(m)
+    ms = torch.where(fin, m, 0.0)
+    s = torch.exp(terms[0] - ms)
+    for x in terms[1:]:
+        s = s + torch.exp(x - ms)
+    return torch.where(fin, torch.log(s) + ms, m)
+
+
+def _first_match(cands):
+    """(max, index of the first candidate attaining it) over an ordered
+    list: the reference walk's check order becomes the stored choice."""
+    m = cands[0]
+    code = torch.zeros(m.shape, dtype=torch.int32, device=m.device)
+    for idx, c in enumerate(cands[1:], 1):
+        code = torch.where(c > m, idx, code)
+        m = torch.maximum(m, c)
+    return m, code
+
+
+def _cell_index(rows, cols):
+    """(flat index (R, 1, CN*CK), mask (R, 1, CN, CK)) of the cells at rows
+    (R, CN) x cols (R, CK) of a column; the mask is False where either
+    index is -1."""
+    R, CN = rows.shape
+    CK = cols.shape[1]
+    flat = rows.clamp(min=0).long()[:, :, None] * CK + cols.clamp(min=0).long()[:, None, :]
+    ok = (rows >= 0)[:, :, None] & (cols >= 0)[:, None, :]
+    return flat.reshape(R, 1, CN * CK), ok[:, None]
+
+
+def _take(col, index):
+    """col (R, S, CN, CK) gathered at a _cell_index, every state at once:
+    (R, S, CN, CK), -inf off the mask."""
+    flat, ok = index
+    R, S = col.shape[:2]
+    g = torch.gather(col.reshape(R, S, -1), 2, flat.expand(R, S, -1))
+    return torch.where(ok, g.reshape(col.shape), NEG_INF)
+
+
+def _cell(x, rows, cols):
+    """x (R, CN, CK) gathered at rows (R, CN) x cols (R, CK): (R, CN, CK),
+    -inf where either index is -1."""
+    flat, ok = _cell_index(rows, cols)
+    g = torch.gather(x.reshape(x.shape[0], -1), 1, flat[:, 0])
+    return torch.where(ok[:, 0], g.reshape(x.shape), NEG_INF)
+
+
+def _score(x, mu, c1, c2):
+    d = x - mu
+    return c1 - c2 * d * d
+
+
+def _hd_parts(hd, dtype):
+    h = hd.to(torch.int32)
+    return tuple(((h >> s) & 15).to(dtype) for s in (0, 4, 8, 12))
+
+
+def ntc_backward_batch(plan: NTCPlan, dims: PlanDims, prm: NTCParams, sig,
+                       trans_log: dict, N_r, T_r):
+    """The backward lattice (T_pad, R, 5, CN, CK), every row (ref:
+    NTC.cpp:500-578); row T_r-1 is the terminal column (E = 0 at n = N_r-1),
+    rows past it are -inf. sig (R, T_pad-1) in the working dtype."""
+    R, CN, CK, A = dims
+    T_pad = plan.cand_n.shape[0]
+    dtype, dev = sig.dtype, sig.device
+    tl = trans_log
+    mu_n, c1_n, c2_n, mu_n2, c1_n2, c2_n2 = prm.n_side(dims)
+    mu_s, c1_s, c2_s = prm.suc_of(dims)
+    zero = torch.zeros((R, 1), dtype=dtype, device=dev)
+    sig_pad = torch.cat([sig, zero], 1)          # row t: sig[t]
+    sig_prev = torch.cat([zero, sig], 1)         # row t: sig[t-1]
+    Nm1 = (N_r.long() - 1)[:, None]
+    out = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
+    nxt = torch.full((R, 5, CN, CK), NEG_INF, dtype=dtype, device=dev)
+    w = lambda c, v: torch.where(c, v, NEG_INF)
+    for t in range(T_pad - 1, -1, -1):
+        x = sig_pad[:, t:t + 1]
+        xm = sig_prev[:, t:t + 1]
+        cn = plan.cand_n[t].long()
+        n_pos = (cn >= 1)[:, :, None]
+        n_lt = (cn < Nm1)[:, :, None]
+        hd1, hd2, hd1s, hd2s = _hd_parts(plan.hd[t], dtype)
+        hd1, hd2 = -2.0 * hd1, -2.0 * hd2
+        scn = _score(x, mu_n[t], c1_n[t], c2_n[t])[:, :, None]
+        scn2 = _score(x, mu_n2[t], c1_n2[t], c2_n2[t])[:, :, None]
+        sck = _score(x, prm.mu_k[t], prm.c1_k[t], prm.c2_k[t])[:, None, :]
+        sc1 = scn + sck + hd1
+        sc2 = scn2 + sck + hd2
+        bs, bn = plan.brow_same[t], plan.brow_next[t]
+        cs = plan.bcol_same[t]
+        gskE = _cell(nxt[:, E_ST], bs, cs)
+        gnkS = _cell(nxt[:, S_ST], bn, cs)
+        a_new = w(n_pos, gskE + sc1)
+        p_new = torch.logaddexp(w(n_pos, gskE + tl["e2"] + sc1),
+                                w(n_lt, gnkS + tl["s1"] + sc2))
+        s_terms = [w(n_pos, gskE + tl["e3"] + sc1)]
+        e_terms = [w(n_pos, gskE + tl["e4"] + sc1)]
+        i_terms = []
+        d01 = plan.d01[t][:, :, None]
+        d02 = plan.d02[t][:, :, None]
+        for ai in range(A):
+            cu = plan.bcol_suc[t][:, ai]
+            scs = _score(x, mu_s[t][:, ai], c1_s[t][:, ai], c2_s[t][:, ai])[:, None, :]
+            m1 = (d01 != ai).to(dtype)
+            m2 = (d02 != ai).to(dtype)
+            sc1s = scn + scs - 2.0 * (hd1s + m1)
+            sc2s = scn2 + scs - 2.0 * (hd2s + m2)
+            gspP = w(n_pos, _cell(nxt[:, P_ST], bs, cu) + sc1s)
+            gnaA = w(n_lt, _cell(nxt[:, A_ST], bn, cu) + sc2s)
+            s_terms.append(gspP + tl["p1"])
+            e_terms += [gspP + tl["p2"], gnaA + tl["a1"]]
+            i_terms += [gspP + tl["p3"], gnaA + tl["a2"]]
+        gnkS2 = gnkS + sc2
+        e_terms.append(w(n_lt, gnkS2 + tl["s2"]))
+        i_terms.append(w(n_lt, gnkS2 + tl["s3"]))
+        s_new = _lse(s_terms)
+        e_new = _lse(e_terms)
+        i_new = _lse(i_terms)
+
+        # same-t I chain (ref: NTC.cpp:565-572), folded from the last
+        # n-slot down: slot i takes slot i+1 where cand_n continues
+        scm = _score(xm, mu_n2[t], c1_n2[t], c2_n2[t])[:, :, None] \
+            + _score(xm, prm.mu_k[t], prm.c1_k[t], prm.c2_k[t])[:, None, :]
+        sc_i = scm + hd2
+        ok_i = torch.zeros((R, CN), dtype=torch.bool, device=dev)
+        if t > 0:
+            ok_i[:, :-1] = (cn[:, 1:] == cn[:, :-1] + 1) & (cn[:, :-1] < Nm1)
+        iB = torch.where(ok_i[:, :, None], tl["i2"] + sc_i, NEG_INF)
+        for i in range(CN - 2, -1, -1):
+            below = i_new[:, i + 1]
+            i_new[:, i] = torch.logaddexp(i_new[:, i], below + iB[:, i])
+            e_new[:, i] = torch.logaddexp(
+                e_new[:, i], w(ok_i[:, i, None], below + tl["i1"] + sc_i[:, i]))
+
+        al = plan.allowed[t]
+        col = torch.stack([a_new, p_new, s_new, e_new, i_new], dim=1)
+        col = torch.where(al[:, None], col, NEG_INF)
+        term = torch.full_like(col, NEG_INF)
+        term[:, E_ST] = torch.where((cn == Nm1)[:, :, None] & al, 0.0, NEG_INF)
+        is_term = (t == T_r - 1)[:, None, None, None]
+        dead = (t > T_r - 1)[:, None, None, None]
+        nxt = torch.where(is_term, term, torch.where(dead, NEG_INF, col))
+        out[t] = nxt
+    return out
+
+
+def _init_column(plan: NTCPlan, dims: PlanDims, dtype):
+    """t = 0: E = 0 at allowed cells of rows with n == 0."""
+    R, CN, CK, _ = dims
+    col = torch.full((R, 5, CN, CK), NEG_INF, dtype=dtype,
+                     device=plan.cand_n.device)
+    row0 = (plan.cand_n[0] == 0)[:, :, None] & plan.allowed[0]
+    col[:, E_ST] = torch.where(row0, 0.0, NEG_INF)
+    return col
+
+
+def slot_bits(CK: int) -> int:
+    """Width of one field of the predecessor-slot word (slots + 1 reach CK)."""
+    return CK.bit_length()
+
+
+def ntc_posterior_viterbi_batch(plan: NTCPlan, dims: PlanDims,
+                                prm: NTCParams, sig, bwd, Z_norm,
+                                trans_log: dict, T_r, out=None):
+    """The forward pass with posteriors and the 5-state Viterbi (ref:
+    getBorders, NTC.cpp:595-669). Returns (lp (T_pad, R, 5, CN, CK),
+    choices (T_pad, R, CN, CK) int16, slots (T_pad, R, CN, CK) int32,
+    apE_final, fwdE_final (R, CN, CK)).
+
+    lp = fwd + bwd normalized by each column's own logsumexp in fp32 (the
+    sum of exp(ap - max) taken in ntc_pre_kernels._tree_sum's order over
+    the flat (5, CN, CK) column with threads(CN*CK) threads) — equal to Z
+    by the forward-backward identity but free of Z's fp32 drift over 16k
+    steps — and by Z_norm (Zb) in fp64. The Viterbi runs on fwd + bwd -
+    Z_norm in both. Choice word: E 2 bits | A 3 << 2 | P 4 << 5 | S 2 << 9 |
+    I 1 << 11 (the walk's check order); slot word: col_same + 1 | A's
+    col_prec + 1 << b | P's col_prec + 1 << 2b, b = slot_bits(CK).
+    `out`, if given, receives lp (it may be `bwd` itself: row t of bwd is
+    read before row t of lp is written)."""
+    from dynamont_tpu_torch.ops.ntc_pre_kernels import _tree_sum, threads
+
+    R, CN, CK, A = dims
+    T_pad = plan.cand_n.shape[0]
+    dtype, dev = sig.dtype, sig.device
+    tl = trans_log
+    fp32 = dtype == torch.float32
+    B = threads(CN * CK)
+    mu_n, c1_n, c2_n = prm.n_side(dims)[:3]
+    zero = torch.zeros((R, 1), dtype=dtype, device=dev)
+    sig_f = torch.cat([zero, sig], 1)                  # row t: sig[t-1]
+    Zc = Z_norm.to(dtype)[:, None, None, None]
+    lp_out = out if out is not None else torch.empty_like(bwd)
+    choices = torch.empty((T_pad, R, CN, CK), dtype=torch.int16, device=dev)
+    init = _init_column(plan, dims, dtype)
+    f_prev, v_prev = init, init
+    apEf = torch.full((R, CN, CK), NEG_INF, dtype=dtype, device=dev)
+    fwdEf = apEf.clone()
+    w = lambda c, v: torch.where(c, v, NEG_INF)
+    for t in range(T_pad):
+        cn = plan.cand_n[t].long()
+        ok = plan.allowed[t] & (cn >= 1)[:, :, None]
+        chain = torch.zeros((R, CN), dtype=torch.bool, device=dev)
+        chain[:, 1:] = cn[:, :-1] == cn[:, 1:] - 1
+        cond = chain[:, :, None] & ok
+        if t == 0:
+            fwd = init
+        else:
+            # the four predecessor cell sets, every state gathered at once:
+            # rows same/prev x cols same/preceding (one per digit)
+            rs, rp = plan.row_same[t], plan.row_prev[t]
+            cs = plan.col_same[t]
+            cp = [plan.col_prec[t][:, a] for a in range(A)]
+            ix_rs_cs, ix_rp_cs = _cell_index(rs, cs), _cell_index(rp, cs)
+            ix_rs_cp = [_cell_index(rs, c) for c in cp]
+            ix_rp_cp = [_cell_index(rp, c) for c in cp]
+            x = sig_f[:, t:t + 1]
+            sc = (_score(x, mu_n[t], c1_n[t], c2_n[t])[:, :, None]
+                  + _score(x, prm.mu_k[t], prm.c1_k[t], prm.c2_k[t])[:, None, :]
+                  + -2.0 * _hd_parts(plan.hd[t], dtype)[0])
+            f_ss, f_ps = _take(f_prev, ix_rs_cs), _take(f_prev, ix_rp_cs)
+            a_terms, p_terms = [], []
+            for ai in range(A):
+                f_pp, f_sp = _take(f_prev, ix_rp_cp[ai]), _take(f_prev, ix_rs_cp[ai])
+                a_terms += [f_pp[:, E_ST] + tl["a1"], f_pp[:, I_ST] + tl["a2"]]
+                p_terms += [f_sp[:, S_ST] + tl["p1"], f_sp[:, E_ST] + tl["p2"],
+                            f_sp[:, I_ST] + tl["p3"]]
+            a_new = w(ok, _lse(a_terms) + sc)
+            p_new = w(ok, _lse(p_terms) + sc)
+            s_new = w(ok, _lse([f_ps[:, P_ST] + tl["s1"], f_ps[:, E_ST] + tl["s2"],
+                                f_ps[:, I_ST] + tl["s3"]]) + sc)
+            e_new = w(ok, _lse([f_ss[:, A_ST], f_ss[:, P_ST] + tl["e2"],
+                                f_ss[:, S_ST] + tl["e3"],
+                                f_ss[:, E_ST] + tl["e4"]]) + sc)
+            # I: in-column chain over the n-slots (ref: NTC.cpp:474-477)
+            i_new = torch.full_like(e_new, NEG_INF)
+            for i in range(1, CN):
+                iA = w(cond[:, i], e_new[:, i - 1] + tl["i1"] + sc[:, i])
+                iB = w(cond[:, i], tl["i2"] + sc[:, i])
+                i_new[:, i] = torch.logaddexp(iA, i_new[:, i - 1] + iB)
+            fwd = torch.stack([a_new, p_new, s_new, e_new, i_new], dim=1)
+
+        ap = fwd + bwd[t]
+        lp = ap - Zc
+        if fp32:
+            m = torch.amax(ap.reshape(R, -1), dim=1)
+            fin = torch.isfinite(m)
+            ms = torch.where(fin, m, 0.0)
+            tot = _tree_sum(torch.exp(ap.reshape(R, -1) - ms[:, None]), B)
+            colZ = (ms + torch.log(tot))[:, None, None, None]
+            lp_out[t] = torch.where(fin[:, None, None, None], ap - colZ, NEG_INF)
+        else:
+            lp_out[t] = lp
+
+        if t == 0:
+            vit = init
+            packed = torch.zeros((R, CN, CK), dtype=torch.int32, device=dev)
+        else:
+            v_ss, v_ps = _take(v_prev, ix_rs_cs), _take(v_prev, ix_rp_cs)
+            a_c, p_c = [], []
+            for ai in range(A):
+                v_pp, v_sp = _take(v_prev, ix_rp_cp[ai]), _take(v_prev, ix_rs_cp[ai])
+                a_c += [v_pp[:, E_ST], v_pp[:, I_ST]]
+                p_c += [v_sp[:, E_ST], v_sp[:, S_ST], v_sp[:, I_ST]]
+            a_max, ch_a = _first_match(a_c)
+            p_max, ch_p = _first_match(p_c)
+            s_max, ch_s = _first_match([v_ps[:, E_ST], v_ps[:, P_ST], v_ps[:, I_ST]])
+            e_max, ch_e = _first_match([v_ss[:, E_ST], v_ss[:, A_ST], v_ss[:, S_ST],
+                                        v_ss[:, P_ST]])
+            va = w(ok, a_max + lp[:, A_ST])
+            vpp = w(ok, p_max + lp[:, P_ST])
+            vs = w(ok, s_max + lp[:, S_ST])
+            ve = w(ok, e_max + lp[:, E_ST])
+            lpI = lp[:, I_ST]
+            vi = torch.full_like(ve, NEG_INF)
+            ch_i = torch.zeros_like(ch_e)
+            for i in range(1, CN):
+                viA = w(cond[:, i], ve[:, i - 1] + lpI[:, i])
+                viB = w(cond[:, i], lpI[:, i])
+                # E overrides I on ties (ref: NTC.cpp:884-893)
+                ch_i[:, i] = torch.where(ve[:, i - 1] >= vi[:, i - 1], 0, 1)
+                vi[:, i] = torch.maximum(viA, vi[:, i - 1] + viB)
+            vit = torch.stack([va, vpp, vs, ve, vi], dim=1)
+            packed = (ch_e | (ch_a << 2) | (ch_p << 5) | (ch_s << 9)
+                      | (ch_i << 11))
+        choices[t] = packed.to(torch.int16)
+        is_term = (t == T_r - 1)[:, None, None]
+        apEf = torch.where(is_term, vit[:, E_ST], apEf)
+        fwdEf = torch.where(is_term, fwd[:, E_ST], fwdEf)
+        f_prev, v_prev = fwd, vit
+    return lp_out, choices, pred_slots(plan, choices), apEf, fwdEf
+
+
+def pred_slots(plan: NTCPlan, choices):
+    """The predecessor-slot word of every cell (T_pad, R, CN, CK) int32
+    from the choice words: col_same + 1 | col_prec of A's chosen digit + 1
+    << b | col_prec of P's chosen digit + 1 << 2b, b = slot_bits(CK)."""
+    T, R, A, CK = plan.col_prec.shape
+    CN = choices.shape[2]
+    SLB = slot_bits(CK)
+    ch = choices.to(torch.int64)
+    cpt = plan.col_prec[:, :, :, None, :].expand(T, R, A, CN, CK)
+    cpa = lambda ai: torch.gather(cpt, 2, ai[:, :, None])[:, :, 0].long()
+    return ((plan.col_same[:, :, None, :].long() + 1)
+            | ((cpa((ch >> 3) & 3) + 1) << SLB)
+            | ((cpa(((ch >> 5) & 15) // 3) + 1) << (2 * SLB))).to(torch.int32)
+
+
+def _final_row_masks(plan: NTCPlan, N_r, T_r):
+    """(cand_last (R, CN), mask (R, CN, CK)) of the terminal column t = T_r-1:
+    cells at n = N_r-1, allowed and live."""
+    R = plan.cand_n.shape[1]
+    r = torch.arange(R, device=plan.cand_n.device)
+    tm1 = T_r.long() - 1
+    cand_last = plan.cand_n[tm1, r]
+    mask = ((cand_last == (N_r.long() - 1)[:, None])[:, :, None]
+            & plan.allowed[tm1, r] & plan.live[tm1, r][:, None, :])
+    return cand_last, mask
+
+
+def ntc_zf_batch(plan: NTCPlan, fwdE_final, N_r, T_r):
+    """Zf from the forward terminal E column (ref: NTC_main.cpp:159-165)."""
+    _, mask = _final_row_masks(plan, N_r, T_r)
+    return logsumexp(torch.where(mask, fwdE_final, NEG_INF).flatten(1), dim=1)
+
+
+def ntc_zb_batch(plan: NTCPlan, bwd0):
+    """Zb over E at (t = 0, n == 0) (ref: NTC_main.cpp:152-158); bwd0 is
+    the backward store's row 0, (R, 5, CN, CK)."""
+    row0 = ((plan.cand_n[0] == 0)[:, :, None] & plan.allowed[0]
+            & plan.live[0][:, None, :])
+    return logsumexp(torch.where(row0, bwd0[:, E_ST], NEG_INF).flatten(1), dim=1)

@@ -1,0 +1,290 @@
+"""Wrappers of the NTC lattice CUDA kernels (counterpart of
+dynamont_tpu/ops/ntc_pallas.py, its segmentation kernels) and their plain
+versions:
+
+  tab_gather / tab_gather_plain  K11 ntc_tab_gather  replaces _tab_gather_packs_kernel
+  bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
+  pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
+  walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
+
+The kernels are in csrc/ntc_lattice.cu, in float and double. As in
+ops/ntc_pre_kernels.py, a wrapper runs its plain version for tensors on the
+CPU, launches its kernel for CUDA tensors, and raises for anything else or
+when the launch fails; LAUNCHES and PLAIN_RUNS count one per call. The
+plain versions are ops/ntc_batch.ntc_backward_batch,
+ntc_posterior_viterbi_batch and ops/ntc_walk.walk_records_plain; the
+kernels repeat their arithmetic op for op.
+
+Layouts (one bucket of R reads, T_pad rows, CN n-slots, CK k-slots, A = 4):
+
+  plan        ops/ntc_batch.NTCPlan, every field (T_pad, R, ...)
+  ks          (T_pad, R*CK + 2*R*CN) int32  k-slot values | kN | kN2
+  table       (3 + 3A, K)               mu, c1, c2, then the A successors' mu, c1, c2
+  prm         ops/ntc_batch.NTCParams   K11's outputs
+  sig         (R, T_pad-1)              signal
+  tl          (13,)                     log transitions in ntc_batch.TL_KEYS order
+  bwd, lp     (T_pad, R, 5, CN, CK)     backward store; posteriors (may share bwd's buffer)
+  choices     (T_pad, R, CN, CK) int16  Viterbi choice word
+  slots       (T_pad, R, CN, CK) int32  predecessor-slot word
+  apEf, fwdEf (R, CN, CK)               Viterbi and forward E at row T_r-1
+  rec         (T_pad, N_MICRO, R, 8)    walk records (ops/ntc_walk.NREC fields)
+  fin         (R, 2) int32              segments emitted, stuck
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dynamont_tpu_torch import _build
+from dynamont_tpu_torch.ops import ntc_batch as nb
+from dynamont_tpu_torch.ops import ntc_walk as nw
+from dynamont_tpu_torch.ops.nt_banded_kernels import (
+    _check, _on_cpu, _ptr, _raise_on, _stream,
+)
+from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
+
+KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_pv", "ntc_walk")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_RUNS[k] = 0
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "ntc_tab_gather": [_P] * 7 + [_I] * 6 + [_P],
+    "ntc_bwd": [_P] * 19 + [_I] * 6 + [_P],
+    "ntc_pv": [_P] * 22 + [_I] * 7 + [_P],
+    "ntc_walk": [_P] * 13 + [_I] * 10 + [_P],
+}
+_bound: dict = {}
+
+
+def _entry(name: str, dtype):
+    key = f"{name}_{'f32' if dtype == torch.float32 else 'f64'}"
+    fn = _bound.get(key)
+    if fn is None:
+        fn = getattr(_build.load(), key)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _bound[key] = fn
+    return fn
+
+
+def tl_tensor(trans_log: dict, dtype, device):
+    return torch.tensor([trans_log[k] for k in nb.TL_KEYS], dtype=dtype,
+                        device=device)
+
+
+def _check_dims(name: str, dims: nb.PlanDims) -> None:
+    if dims.A != 4:
+        raise ValueError(f"{name}: the kernels take an alphabet of 4, not {dims.A}")
+
+
+def _check_plan(name: str, plan: nb.NTCPlan, T_pad: int, dims: nb.PlanDims,
+                device) -> None:
+    R, CN, CK, A = dims
+    shapes = {"cand_n": (R, CN), "allowed": (R, CN, CK), "hd": (R, CN, CK),
+              "d01": (R, CN), "d02": (R, CN), "row_same": (R, CN),
+              "row_prev": (R, CN), "brow_same": (R, CN), "brow_next": (R, CN),
+              "col_same": (R, CK), "bcol_same": (R, CK),
+              "col_prec": (R, A, CK), "bcol_suc": (R, A, CK)}
+    dtypes = {"allowed": torch.bool, "hd": torch.int16, "d01": torch.int8,
+              "d02": torch.int8}
+    for f, sh in shapes.items():
+        x = getattr(plan, f)
+        if tuple(x.shape) != (T_pad, *sh):
+            raise ValueError(f"{name}: plan.{f} {tuple(x.shape)} is not {(T_pad, *sh)}")
+        if x.dtype != dtypes.get(f, torch.int32):
+            raise TypeError(f"{name}: plan.{f} is {x.dtype}")
+        if x.device != device or not x.is_contiguous():
+            raise ValueError(f"{name}: plan.{f} must be contiguous on {device}")
+
+
+# ---------------------------------------------------------------------------
+# K11: model parameters into the plan's slots
+# ---------------------------------------------------------------------------
+
+def tab_gather_plain(ks, table, dims: nb.PlanDims) -> nb.NTCParams:
+    PLAIN_RUNS["ntc_tab_gather"] += 1
+    R, CN, CK, A = dims
+    T = ks.shape[0]
+    K = table.shape[1]
+    live = (ks >= 0) & (ks < K)
+    g = torch.where(live, table[:, ks.clamp(0, K - 1).long()], 0.0)
+    k_part = g[:, :, :R * CK].reshape(-1, T, R, CK)
+    suc = torch.stack([
+        torch.cat([k_part[3 + s * A + a] for a in range(A)], dim=2)
+        for s in range(3)], dim=1)
+    return nb.NTCParams(
+        mu_k=k_part[0].contiguous(), c1_k=k_part[1].contiguous(),
+        c2_k=k_part[2].contiguous(), suc=suc.contiguous(),
+        nsl=g[:3, :, R * CK:].permute(1, 0, 2).contiguous())
+
+
+def tab_gather(ks, table, dims: nb.PlanDims) -> nb.NTCParams:
+    """NTCParams from the index rows `ks` (ntc_batch.gather_index) and the
+    table (ntc_batch.combined_tables); dead slots (ks = K) read 0."""
+    if _on_cpu(ks):
+        return tab_gather_plain(ks, table, dims)
+    name = "ntc_tab_gather"
+    dtype = table.dtype
+    _check(name, dtype, ks.device, ks=ks, table=table)
+    _check_ints(name, ks=ks)
+    _check_dims(name, dims)
+    R, CN, CK, A = dims
+    T, J = ks.shape
+    K = table.shape[1]
+    if J != R * CK + 2 * R * CN or table.shape[0] != 3 + 3 * A:
+        raise ValueError(f"{name}: ks {tuple(ks.shape)} / table "
+                         f"{tuple(table.shape)} do not match {dims}")
+    e = lambda *sh: torch.empty(sh, dtype=dtype, device=ks.device)
+    prm = nb.NTCParams(mu_k=e(T, R, CK), c1_k=e(T, R, CK), c2_k=e(T, R, CK),
+                       suc=e(T, 3, R, A * CK), nsl=e(T, 3, 2 * R * CN))
+    rc = _entry(name, dtype)(
+        _ptr(ks), _ptr(table), *(_ptr(x) for x in prm), T, R, CN, CK, A, K,
+        _stream(ks.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return prm
+
+
+# ---------------------------------------------------------------------------
+# K13: the backward lattice
+# ---------------------------------------------------------------------------
+
+def bwd_plain(plan, dims, prm, sig, trans_log: dict, N_r, T_r):
+    PLAIN_RUNS["ntc_bwd"] += 1
+    return nb.ntc_backward_batch(plan, dims, prm, sig, trans_log, N_r, T_r)
+
+
+def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
+        trans_log: dict, N_r, T_r):
+    """The backward store (T_pad, R, 5, CN, CK)."""
+    if _on_cpu(sig):
+        return bwd_plain(plan, dims, prm, sig, trans_log, N_r, T_r)
+    name = "ntc_bwd"
+    dtype, dev = sig.dtype, sig.device
+    R, CN, CK, A = dims
+    T_pad = sig.shape[1] + 1
+    _check(name, dtype, dev, sig=sig, N_r=N_r, T_r=T_r, **prm._asdict())
+    _check_ints(name, N_r=N_r, T_r=T_r)
+    _check_dims(name, dims)
+    _check_plan(name, plan, T_pad, dims, dev)
+    if any(x.dtype != dtype for x in prm):
+        raise TypeError(f"{name}: the gathered parameters are not {dtype}")
+    out = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
+    tl = tl_tensor(trans_log, dtype, dev)
+    p = plan
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd), _ptr(p.d01),
+        _ptr(p.d02), _ptr(p.brow_same), _ptr(p.brow_next), _ptr(p.bcol_same),
+        _ptr(p.bcol_suc), _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k),
+        _ptr(prm.suc), _ptr(prm.nsl), _ptr(tl), _ptr(N_r), _ptr(T_r),
+        _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK), _stream(dev))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K15: forward, posteriors, Viterbi choices and predecessor slots
+# ---------------------------------------------------------------------------
+
+def pv_plain(plan, dims, prm, sig, bwd_store, Z_norm, trans_log: dict, T_r,
+             out=None):
+    PLAIN_RUNS["ntc_pv"] += 1
+    return nb.ntc_posterior_viterbi_batch(plan, dims, prm, sig, bwd_store,
+                                          Z_norm, trans_log, T_r, out=out)
+
+
+def pv(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
+       bwd_store, Z_norm, trans_log: dict, T_r, out=None):
+    """(lp, choices, slots, apE_final, fwdE_final); lp goes into `out`
+    when given, which may be bwd_store itself (lp written over it)."""
+    if _on_cpu(sig):
+        return pv_plain(plan, dims, prm, sig, bwd_store, Z_norm, trans_log,
+                        T_r, out=out)
+    name = "ntc_pv"
+    dtype, dev = sig.dtype, sig.device
+    R, CN, CK, A = dims
+    T_pad = sig.shape[1] + 1
+    _check(name, dtype, dev, sig=sig, bwd_store=bwd_store, Z_norm=Z_norm,
+           T_r=T_r, **prm._asdict())
+    _check_ints(name, T_r=T_r)
+    _check_dims(name, dims)
+    _check_plan(name, plan, T_pad, dims, dev)
+    if bwd_store.shape != (T_pad, R, 5, CN, CK) or Z_norm.shape != (R,):
+        raise ValueError(f"{name}: bwd_store/Z_norm do not match {dims}")
+    if any(x.dtype != dtype for x in (*prm, bwd_store, Z_norm)):
+        raise TypeError(f"{name}: every float input must be {dtype}")
+    lp = torch.empty_like(bwd_store) if out is None else out
+    if lp.shape != bwd_store.shape or lp.dtype != dtype or not lp.is_contiguous():
+        raise ValueError(f"{name}: out must be a contiguous {dtype} like bwd_store")
+    choices = torch.empty((T_pad, R, CN, CK), dtype=torch.int16, device=dev)
+    slots = torch.empty((T_pad, R, CN, CK), dtype=torch.int32, device=dev)
+    apEf = torch.empty((R, CN, CK), dtype=dtype, device=dev)
+    fwdEf = torch.empty_like(apEf)
+    scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
+    tl = tl_tensor(trans_log, dtype, dev)
+    p = plan
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
+        _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
+        _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
+        _ptr(tl), _ptr(Z_norm), _ptr(T_r), _ptr(bwd_store), _ptr(lp),
+        _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf), _ptr(scratch),
+        R, T_pad, CN, CK, A, threads(CN * CK), nb.slot_bits(CK), _stream(dev))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return lp, choices, slots, apEf, fwdEf
+
+
+# ---------------------------------------------------------------------------
+# K16: the traceback walk
+# ---------------------------------------------------------------------------
+
+def walk_plain(lp, choices, slots, plan, i0, j0, k0, valid, N_r, T_r, K: int,
+               A: int, kmer_size: int, S_max: int):
+    PLAIN_RUNS["ntc_walk"] += 1
+    return nw.walk_records_plain(lp, choices, slots, plan.row_same,
+                                 plan.row_prev, i0, j0, k0, valid, N_r, T_r,
+                                 K, A, kmer_size, S_max)
+
+
+def walk(lp, choices, slots, plan: nb.NTCPlan, i0, j0, k0, valid, N_r, T_r,
+         K: int, A: int, kmer_size: int, S_max: int):
+    """(rec (T_pad, N_MICRO, R, 8), fin (R, 2) int32): the walk's records,
+    for ops/ntc_walk.finish_records."""
+    if _on_cpu(lp):
+        return walk_plain(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
+                          T_r, K, A, kmer_size, S_max)
+    name = "ntc_walk"
+    dtype, dev = lp.dtype, lp.device
+    T_pad, R, _, CN, CK = lp.shape
+    _check(name, dtype, dev, lp=lp, choices=choices, slots=slots,
+           row_same=plan.row_same, row_prev=plan.row_prev, i0=i0, j0=j0,
+           k0=k0, valid=valid, N_r=N_r, T_r=T_r)
+    _check_ints(name, slots=slots, row_same=plan.row_same,
+                row_prev=plan.row_prev, i0=i0, j0=j0, k0=k0, N_r=N_r, T_r=T_r)
+    if (choices.dtype != torch.int16 or valid.dtype != torch.bool
+            or choices.shape != (T_pad, R, CN, CK) or slots.shape != choices.shape
+            or plan.row_same.shape != (T_pad, R, CN) or A != 4):
+        raise ValueError(f"{name}: inputs do not match lp {tuple(lp.shape)}")
+    NM = nw.n_micro(CN)
+    rec = torch.empty((T_pad, NM, R, nw.NREC), dtype=dtype, device=dev)
+    fin = torch.empty((R, 2), dtype=torch.int32, device=dev)
+    rc = _entry(name, dtype)(
+        _ptr(lp), _ptr(choices), _ptr(slots), _ptr(plan.row_same),
+        _ptr(plan.row_prev), _ptr(i0), _ptr(j0), _ptr(k0), _ptr(valid),
+        _ptr(N_r), _ptr(T_r), _ptr(rec), _ptr(fin), R, T_pad, CN, CK, A, K,
+        kmer_size // 2, S_max, NM, nb.slot_bits(CK), _stream(dev))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return rec, fin

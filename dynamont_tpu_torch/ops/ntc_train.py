@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from dynamont_tpu.utils.kmer import int2kmer
+from dynamont_tpu_torch.utils.kmer import int2kmer
 from dynamont_tpu_torch.ops.ntc_dp import A, E, I, NEG_INF, P, S, NTCPlan, hamming2
 from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c, logsumexp
 

@@ -5,7 +5,7 @@ k-mer) output (ref: src/cpp/NTC.cpp:595-904).
 The max-DP shares the candidate layout and slot maps of the forward pass
 (torch, a loop over t). The walk runs on the host over numpy copies and
 replicates the reference's equality checks in their exact order; it calls
-the shared native walker (dynamont_tpu.native, no JAX) and falls back to
+the native walker (the port's copy, dynamont_tpu_torch/native.py) and falls back to
 the Python walk when the library is missing or reports an inconsistency,
 as the JAX package does.
 """
@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from dynamont_tpu.utils.kmer import int2kmer
+from dynamont_tpu_torch.utils.kmer import int2kmer
 from dynamont_tpu_torch.ops.ntc_dp import (
     A, E, I, NEG_INF, P, S, NTCPlan, _Chains, _column0, _Gather,
     _gather_cols, _gather_rows,
@@ -137,7 +137,7 @@ def ntc_traceback(plan: NTCPlan, apsei, logp, T: int, N: int, K: int, model):
     if best_k is None:
         return []
 
-    from dynamont_tpu import native as _native
+    from dynamont_tpu_torch import native as _native
 
     nat = _native.ntc_traceback_native(
         apsei, logp, cand_n, ks, allowed, T, N, K, alphabet_size,

@@ -5,8 +5,9 @@ src/python/segmentation/train.py).
 The pooling (ManagedList sliding windows), the polyA skip, the per-batch
 checkpoints and the params.csv rows with the post-update Z change follow
 the JAX Trainer line for line, so both packages write the same files; the
-pieces without JAX (ManagedList, find_resume_state, read_passes_filters,
-the k-mer model reader and writer) are imported from it. What differs:
+pieces without JAX (ManagedList, find_resume_state, read_passes_filters)
+are copied from it, the k-mer model reader and writer come from the
+port's copy of utils/pore_model. What differs:
 
   * the device is explicit, and precision "auto" means fp32 on CUDA and
     fp64 on the CPU;
@@ -28,18 +29,16 @@ from __future__ import annotations
 import math
 import os
 import sys
+from collections import deque
 from datetime import datetime
 from os.path import join
 
 import numpy as np
 import torch
 
-from dynamont_tpu.constants import TRAIN_INIT_NT, is_rna
-from dynamont_tpu.training.trainer import (  # noqa: F401  (re-exported)
-    ManagedList, find_resume_state, read_passes_filters,
-)
-from dynamont_tpu.utils.kmer import int2kmer, seq_to_kmer_ids
-from dynamont_tpu.utils.pore_model import (
+from dynamont_tpu_torch.constants import TRAIN_INIT_NT, is_rna
+from dynamont_tpu_torch.utils.kmer import int2kmer, seq_to_kmer_ids
+from dynamont_tpu_torch.utils.pore_model import (
     pore_model_from_dict, read_kmer_models, write_kmer_models,
 )
 from dynamont_tpu_torch.models.nt import ZConsistencyError, _validate
@@ -48,6 +47,84 @@ from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
 
 T_PAD_TO = 512
+
+
+class ManagedList:
+    """Sliding-window estimator (ref: train.py:19-46)."""
+
+    def __init__(self, values, max_size: int = 100):
+        self.values = deque(values, maxlen=max_size)
+
+    def add(self, value):
+        self.values.append(value)
+
+    def get_list(self):
+        return list(self.values)
+
+    def mean(self):
+        if not self.values:
+            return None
+        return float(np.mean(self.values))
+
+    def median(self):
+        if not self.values:
+            return None
+        return float(np.median(self.values))
+
+    def __repr__(self):
+        return f"ManagedList({list(self.values)})"
+
+
+def nucleotide_ratios(seq: str) -> dict:
+    """Fraction of each base (ref: FileIO.py countNucleotides + ratio)."""
+    L = max(1, len(seq))
+    return {b: seq.count(b) / L for b in "ACGT"}
+
+
+def find_resume_state(outdir: str, param_names) -> dict | None:
+    """Last trainable position recorded under outdir, or None.
+
+    Parses params.csv (tolerating a final partial line from an interrupted
+    run — the checkpoint model and the transition values are flushed before
+    the post-update Z re-evaluation appends Zchange) and returns the last
+    epoch/batch, the reads count, the transition values, and how many
+    batches of the last epoch are already done."""
+    csv_path = join(outdir, "params.csv")
+    if not os.path.exists(csv_path):
+        return None
+    n_params = len(param_names)
+    last = None
+    per_epoch: dict = {}
+    with open(csv_path) as f:
+        next(f, None)  # header
+        for line in f:
+            fields = line.rstrip("\n").split(",")
+            if len(fields) < 3 + n_params:
+                continue
+            try:
+                e, b, r = int(fields[0]), int(fields[1]), int(fields[2])
+                vals = [float(v) for v in fields[3:3 + n_params]]
+            except ValueError:
+                continue
+            per_epoch[e] = per_epoch.get(e, 0) + 1
+            last = (e, b, r, vals)
+    if last is None:
+        return None
+    e, b, r, vals = last
+    ckpt = join(outdir, f"trained_{e}_{b}.model")
+    if not os.path.exists(ckpt):
+        return None
+    return {
+        "epoch": e, "batch": b, "reads": r, "ckpt": ckpt,
+        "transitions": dict(zip(param_names, vals)),
+        "batches_done_in_epoch": per_epoch[e],
+    }
+
+
+def read_passes_filters(seq: str) -> bool:
+    """Repeat-artifact filter: skip reads >=60% one nucleotide
+    (ref: train.py:139-146)."""
+    return not any(v >= 0.6 for v in nucleotide_ratios(seq).values())
 
 
 class Trainer:

@@ -63,9 +63,11 @@ def test_port_cli_matches_jax_cli(tsv, tmp_path):
 
 
 def test_port_cli_refuses_resquiggle_mode(tsv, tmp_path, capsys):
+    """Resquiggle mode at native 9-mer K is not ported yet."""
     with pytest.raises(SystemExit) as e:
         torch_cli.main(["--tsv", str(tsv), "-o", str(tmp_path / "o.csv.zst"),
-                        "--mode", "resquiggle", "-p", "rna002"])
+                        "--mode", "resquiggle", "-p", "rna002",
+                        "--ntc-native-9mer"])
     assert e.value.code == 2
     assert "not yet ported" in capsys.readouterr().err
     assert not (tmp_path / "o.csv.zst").exists()

@@ -6,8 +6,8 @@ card. JAX-free, so it runs where the port runs:
 (--noconftest: tests/conftest.py configures JAX). Cases marked `cuda`
 skip without a CUDA device. Kernel and plain version compute the same
 float operations in the same order on the same device inputs, so band
-cells agree to 1e-5 (the training kernels' and the NTC pre-pass kernels'
-bit for bit), choice bits and walked paths exactly.
+cells agree to 1e-5 (the training kernels', the NTC pre-pass and lattice
+kernels' bit for bit), choice bits and walked paths exactly.
 """
 
 import math
@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from dynamont_tpu.models.registry import load_model_for_pore
-from dynamont_tpu.utils.kmer import seq_to_kmer_ids
-from dynamont_tpu.utils.synthetic import make_read
+from dynamont_tpu_torch.models.registry import load_model_for_pore
+from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+from dynamont_tpu_torch.utils.synthetic import make_read
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_kernels as kk
 from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
@@ -206,3 +206,60 @@ def test_ntc_per_read_cuda_matches_cpu(card):
     assert abs(got.Z - want.Z) <= 1e-12 * abs(want.Z)
     assert [s[:3] + s[4:] for s in got.segments] == [s[:3] + s[4:] for s in want.segments]
     assert max(abs(g[3] - w[3]) for g, w in zip(got.segments, want.segments)) <= 1e-9
+
+
+def test_lattice_wrappers_refuse_other_devices():
+    """The NTC lattice wrappers take the plain version only for CPU
+    tensors; any other non-CUDA device raises."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    runs = dict(kern.PLAIN_RUNS)
+    ks = torch.zeros((4, 2 * 8 + 2 * 2), dtype=torch.int32, device="meta")
+    table = torch.zeros((15, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kern.tab_gather(ks, table, nb.PlanDims(1, 2, 8, 4))
+    assert kern.PLAIN_RUNS == runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
+    """K11, K13, K15 (lp written over the store) and K16 against their plain
+    versions on the short reads: every output bit for bit."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_walk as nw
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype)
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    table = nb.combined_tables(means, c1, c2, 4, dtype)
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    launches = dict(kern.LAUNCHES)
+    ks = nb.gather_index(plan)
+    prm = kern.tab_gather_plain(ks, table, dims)
+    for g, w in zip(kern.tab_gather(ks, table, dims), prm):
+        same(g, w)
+    bwd = kern.bwd_plain(plan, dims, prm, sig, tl, N, T)
+    same(kern.bwd(plan, dims, prm, sig, tl, N, T), bwd)
+    Zb = nb.ntc_zb_batch(plan, bwd[0])
+    store = bwd.clone()
+    got = kern.pv(plan, dims, prm, sig, store, Zb, tl, T, out=store)
+    want = kern.pv_plain(plan, dims, prm, sig, bwd, Zb, tl, T)
+    for g, w in zip(got, want):
+        same(g, w)
+    lp, ch, slots, apE, _ = want
+    args = (lp, ch, slots, plan, *nw.start_slots(plan, apE, N, T), N, T, 1024, 4, 5, 128)
+    torch.cuda.synchronize()
+    for g, w in zip(kern.walk(*args), kern.walk_plain(*args)):
+        same(g, w)
+    assert all(kern.LAUNCHES[k] == launches[k] + 1 for k in kern.KERNELS)
