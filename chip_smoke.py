@@ -6,10 +6,11 @@ result line):
   1. the card, its name and power limit, torch / CUDA / nvcc versions;
   2. a fresh nvcc build of the kernels from dynamont_tpu_torch/csrc/;
   3. each kernel against its plain-torch version on the card, on the CPU
-     tests' three short reads and on one (2, 16384, 512) bucket, in fp32
-     and fp64: band cells within 1e-5, Z within rtol 1e-6, choice bits,
-     walked paths and segment starts identical, walk probabilities within
-     1e-6 (both compute the same float operations in the same order);
+     tests' three short reads in fp32 and fp64 and on one (2, 16384, 512)
+     bucket in fp64 (fp32 at full width is phase 5's): band cells within
+     1e-5, Z within rtol 1e-6, choice bits, walked paths and segment
+     starts identical, walk probabilities within 1e-6 (both compute the
+     same float operations in the same order);
   4. the main path: 64 reads of 1800 bases (mean dwell 9, T trimmed to
      16000, rna002) through BandedBatchEngine on the card, batch 32, run
      RUNS times after a warm-up, with the launch counters reset right
@@ -17,12 +18,13 @@ result line):
      read must yield CSV rows, every kernel must have launched and no
      plain version run; three short reads are held against the exact fp64
      rung (borders identical, probabilities within 2e-3);
-  5. CUDA-event times of each kernel beside its plain version at its
-     path's bucket shape: (32, 16384, 512) for the segmentation kernels,
-     (24, 16384, 512) for the training kernels;
+  5. each kernel against its plain version at its path's bucket shape,
+     fp32, as phases 3 and 6 hold them: (32, 16384, 512) for the
+     segmentation kernels, (24, 16384, 512) for the training kernels; then
+     CUDA-event times of each kernel beside its plain version's run;
   6. the training kernels (banded_fwd, banded_bwd_train) against their
-     plain versions on the short reads and on one (2, 16384, 512) bucket,
-     fp32 and fp64: every output bit for bit;
+     plain versions on the short reads in fp32 and fp64 and on one
+     (2, 16384, 512) bucket in fp64: every output bit for bit;
   7. the training path: 48 reads of the phase-4 shape through
      dynamont_tpu_torch.cli.train.main in-process (batch 24, 2 batches,
      fp32, cuda), launch counters reset right before and read right
@@ -33,17 +35,19 @@ result line):
      training step's reads/s at (24, 16384, 512), split into host prep,
      banded_fwd, banded_bwd_train, emission statistics and transfer back;
   8. the NTC pre-pass kernels (ntc_tn_fwd, ntc_tn_bwd_sel, ntc_tk_bwd,
-     ntc_tk_fwd_u) against their plain versions, fp32 and fp64, on the CPU
-     tests' three short reads and on one (2, 16384) bucket at N2 2048 and
-     K 1024: every output bit for bit (both stores, the TN pack, E0, U,
-     finalE), then identical candidates, counts and overflow flags;
+     ntc_tk_fwd_u) against their plain versions on the CPU tests' three
+     short reads in fp32 and fp64, and on one (2, 16384) bucket at N2 2048
+     and K 1024 in fp64 (fp32 at full width is phase 9's): every output bit
+     for bit (both stores, the TN pack, E0, U, finalE), then identical
+     candidates, counts and overflow flags;
   9. the batched pre-pass at the resquiggle engine's bucket shape: 16
      reads of the phase-4 shape, (16, 16384), N2 2048, K 1024, CN 8,
      CK0 120, fp32, through pre_tn_batch and pre_tk_batch with the launch
      counters reset right before and read right after (all four kernels,
      no plain version); the preProcTN/TK Z gates per read (at most one may
      fail); overflowing reads and the share of columns at the cap; each
-     kernel's CUDA-event time beside its plain version's; peak memory;
+     kernel against its plain version there, every output bit for bit,
+     and its CUDA-event time beside the plain version's; peak memory;
  10. the exact per-read NTC through dynamont_tpu_torch.cli.ntc_main.main in
      process: three short reads in segment, calcZ and train mode on cuda
      against cpu (borders and polish k-mers identical, probabilities and
@@ -55,28 +59,47 @@ result line):
      per-read pre-pass's. The long read's signal is Hampel-filtered as the
      TSV reader delivers it, so that phase 12 can hold the engine to it;
  11. the NTC lattice kernels (ntc_tab_gather, ntc_bwd, ntc_pv, ntc_walk)
+     and the training kernels (ntc_fwd_store, ntc_train: phase 13(a))
      against their plain versions on the CPU tests' three short reads, in
      fp32 and fp64, at the engine's caps (8, 120) and at its wide rung's
-     (16, 240): the bucket runs through the engine's own bucket program,
-     which keeps each kernel's inputs and outputs, and each plain version
-     runs on the same inputs; every output bit for bit (gathered tables,
-     store, lp written over the store, choices, slots, both finals, walk
-     records, segment summaries);
+     (16, 240): the bucket runs through the engine's own resquiggle and
+     training bucket programs, which keep each kernel's inputs and
+     outputs, and each plain version runs on the same inputs, shared as in
+     phase 12; every output bit for bit (gathered tables, stores, lp
+     written over the store, choices, slots, both finals, walk records,
+     segment summaries, tacc, em, b0);
  12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
      and read right after: K7-K11, K13, K15, K16 all launched, no plain
      version; at most 2 reads on the exact rung; the engine's profile,
      reads/s and peak memory; read 0 against phase 10's exact fp64 run
-     (at most max(1, segments/50) borders differ, Z within rel 1e-3). Then
-     the engine's (16, 16384) bucket again, fp32, N2 2048, with its
-     kernels' inputs kept: each lattice kernel against its plain version
-     there, bit for bit as in phase 11, and its CUDA-event time beside the
-     plain version's (and, for ntc_tab_gather, the indexing call's). Then
+     (at most max(1, segments/50) borders differ, Z within rel 1e-3); no
+     training kernel launched. Then the engine's (16, 16384) bucket again,
+     fp32, N2 2048, through the resquiggle and the training bucket
+     programs with their kernels' inputs kept (phase 13's full-width part):
+     K11, K13, K15, K16, K17 and K18 against their plain versions there,
+     bit for bit as in phase 11, K17's row T_r-1 E bit for bit K15's fwdEf
+     and K18's b0 K13's row 0; plain K13 and K18 are one run of
+     ntc_train_batch, which keeps the backward store, and plain K15 and
+     K17 one run of ntc_posterior_viterbi_batch, which keeps the forward
+     store, so each pair reports that run's time; each kernel's CUDA-event
+     time beside it (and, for ntc_tab_gather, the indexing call's). Then
      the wide rung at full width: 8 of the reads at caps (2, 2), which all
      overflow and re-run in one bucket at (16, 240); every NTC kernel
      launched twice, no plain version, no exact retry, each read within
-     the bounds above of its main-rung result; wall time and peak memory.
+     the bounds above of its main-rung result; wall time and peak memory;
+ 13. NTC training: (a) the short reads, in phase 11; (b) the full-width
+     bucket, in phase 12; (c) the training path: the 48 phase-7 reads
+     through dynamont_tpu_torch.cli.train.main --mode resquiggle in process
+     (batch 24, 2 batches, fp32, cuda), every launch counter reset right
+     before and read right after: K7-K11, K17, K18 launched, K13, K15, K16
+     not, no plain version, at most one read on the exact rung, 2 finite
+     params.csv rows and 2 checkpoints; a second run writes byte-identical
+     files; fp32 and fp64 trainers on the three short reads agree on the
+     13 transitions within rel 1e-3; the training step's reads/s on a
+     (24, 16384) batch, split into pre-pass, plan + K11, K17, K18 and host
+     post-processing, with its peak memory.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
@@ -91,6 +114,7 @@ import contextlib
 import io
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -113,6 +137,8 @@ SOURCE = {
     "ntc_bwd": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_pv": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_walk": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_fwd_store": "dynamont_tpu_torch/csrc/ntc_train.cu",
+    "ntc_train": "dynamont_tpu_torch/csrc/ntc_train.cu",
 }
 REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
@@ -128,18 +154,22 @@ REPLACES = {
     "ntc_bwd": "dynamont_tpu/ops/ntc_pallas.py:839",
     "ntc_pv": "dynamont_tpu/ops/ntc_pallas.py:984",
     "ntc_walk": "dynamont_tpu/ops/ntc_pallas.py:1298",
+    "ntc_fwd_store": "dynamont_tpu/ops/ntc_pallas.py:1564",
+    "ntc_train": "dynamont_tpu/ops/ntc_pallas.py:1681",
 }
 # floors of the operations per unit of work, counted as the kernels are
 # written: each add, multiply, compare, max and each exp, log, log1p is one
 # operation. Unit: a live band cell (banded kernels), a live (row, column)
-# of both states (TN/TK pre-pass), a live lattice cell (ntc_bwd, ntc_pv),
-# a walk step (banded_walk, ntc_walk); ntc_tab_gather only moves bytes
+# of both states (TN/TK pre-pass), a live lattice cell (ntc_bwd, ntc_pv,
+# ntc_fwd_store, ntc_train: K15's forward half; K13 plus 13 term
+# logaddexps and the moments), a walk step (banded_walk, ntc_walk);
+# ntc_tab_gather only moves bytes
 OPS_PER_UNIT = {
     "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10,
     "banded_fwd": 16, "banded_bwd_train": 30,
     "ntc_tn_fwd": 16, "ntc_tn_bwd_sel": 30, "ntc_tk_bwd": 25,
     "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_bwd": 130, "ntc_pv": 150,
-    "ntc_walk": 40,
+    "ntc_walk": 40, "ntc_fwd_store": 100, "ntc_train": 190,
 }
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM peak HBM3 bandwidth
 FP32_OPS_PER_S = 67e12     # H100 SXM peak fp32 rate outside the tensor cores
@@ -181,9 +211,18 @@ def band_err(got, want, T):
     return err
 
 
-def compare_kernels(batch, N_max, lm, le):
+def plain_run(name: str, fn, plain_ms: dict | None):
+    """fn(), its CUDA-event time put into plain_ms[name] when given."""
+    if plain_ms is None:
+        return fn()
+    out, plain_ms[name] = timed_once(fn)
+    return out
+
+
+def compare_kernels(batch, N_max, lm, le, plain_ms: dict | None = None):
     """Run each kernel and its plain version on one batch; returns the max
-    abs error per kernel and raises on disagreement."""
+    abs error per kernel and raises on disagreement. plain_ms, if given,
+    receives each plain version's CUDA-event time."""
     import torch
 
     from dynamont_tpu_torch.ops import nt_banded_batch as bb
@@ -192,13 +231,14 @@ def compare_kernels(batch, N_max, lm, le):
     T = batch.T.cpu()
     errs = {}
     bM, bE = kk.backward(batch, lm, le)
-    pM, pE = kk.backward_plain(batch, lm, le)
+    pM, pE = plain_run("banded_bwd", lambda: kk.backward_plain(batch, lm, le), plain_ms)
     errs["banded_bwd"] = max(band_err(bM, pM, T), band_err(bE, pE, T))
     del bM, bE
     r = torch.arange(T.numel(), device=pE.device)
     Zb = pE[r, 0, batch.bw.long() + 1]
     ch, LPM, LPE, Zf = kk.fwd_vit(batch, pM, pE, Zb, lm, le)
-    pch, pLPM, pLPE, pZf = kk.fwd_vit_plain(batch, pM, pE, Zb, lm, le)
+    pch, pLPM, pLPE, pZf = plain_run(
+        "banded_fwd_vit", lambda: kk.fwd_vit_plain(batch, pM, pE, Zb, lm, le), plain_ms)
     del pM, pE
     if not torch.equal(ch, pch):
         raise AssertionError(f"fwd_vit: {(ch != pch).sum().item()} choice bits differ")
@@ -208,7 +248,8 @@ def compare_kernels(batch, N_max, lm, le):
                                  (Zf - pZf).abs().max().item())
     del ch, LPM, LPE
     walked = kk.walk(pLPM, pLPE, pch, batch, N_max)
-    plain = kk.walk_plain(pLPM, pLPE, pch, batch, N_max)
+    plain = plain_run("banded_walk", lambda: kk.walk_plain(pLPM, pLPE, pch, batch, N_max),
+                      plain_ms)
     if not (torch.equal(walked[0], plain[0]) and torch.equal(walked[2], plain[2])):
         raise AssertionError("walk: paths differ")
     torch.testing.assert_close(walked[1], plain[1], rtol=0, atol=1e-6)
@@ -219,6 +260,18 @@ def compare_kernels(batch, N_max, lm, le):
         raise AssertionError("walk: segment starts differ")
     torch.cuda.synchronize()
     return errs
+
+
+def timed_once(fn):
+    """(fn(), its CUDA-event time in ms)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return out, ev[0].elapsed_time(ev[1])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -287,22 +340,24 @@ class Phases:
         self.name = None
 
 
-def compare_train_kernels(batch, lm, le):
+def compare_train_kernels(batch, lm, le, plain_ms: dict | None = None):
     """banded_fwd and banded_bwd_train against their plain versions on one
     batch: every output bit for bit. Returns the max abs error per kernel
-    (0.0) and raises on any difference."""
+    (0.0) and raises on any difference. plain_ms, if given, receives each
+    plain version's CUDA-event time."""
     import torch
 
     from dynamont_tpu_torch.ops import nt_banded_kernels as kk
 
     fM, fE = kk.forward(batch, lm, le)
-    pfM, pfE = kk.forward_plain(batch, lm, le)
+    pfM, pfE = plain_run("banded_fwd", lambda: kk.forward_plain(batch, lm, le), plain_ms)
     torch.cuda.synchronize()
     if not (torch.equal(fM, pfM) and torch.equal(fE, pfE)):
         raise AssertionError("banded_fwd differs from its plain version")
     del fM, fE, pfM
     got = kk.backward_train(batch, pfE, lm, le)
-    want = kk.backward_train_plain(batch, pfE, lm, le)
+    want = plain_run("banded_bwd_train",
+                     lambda: kk.backward_train_plain(batch, pfE, lm, le), plain_ms)
     torch.cuda.synchronize()
     for name, g, w in zip(("bM", "bE", "rawM1", "rawE2"), got, want):
         if not torch.equal(g, w):
@@ -496,7 +551,10 @@ def phases_ntc(phase, model, bench, lm, le, max_err: dict, launches: dict, want)
     # 8. the pre-pass kernels against their plain versions
     phase.start("8")
     for dtype in (torch.float32, torch.float64) if want("8") else ():
-        for reads, t_pad, n2 in ((short, t_short, n_short), (bench[:2], t_full, n_full)):
+        buckets = [(short, t_short, n_short)]
+        if dtype == torch.float64:  # fp32 at full width: phase 9
+            buckets.append((bench[:2], t_full, n_full))
+        for reads, t_pad, n2 in buckets:
             errs = compare_pre_kernels(model, pre_bucket(model, reads, t_pad, n2),
                                        dtype, lm, le)
             log(f"[8] bucket {(len(reads), t_pad, n2)} K {model.num_kmers} {dtype}: "
@@ -584,9 +642,14 @@ def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
                          [sig, tabk, T_r, bwd], tk_units),
     }
     times = {}
-    log(f"[9] times at ({NTC_READS}, {t_full}):")
+    log(f"[9] each kernel bit for bit with its plain version at ({NTC_READS}, {t_full}), "
+        "and times:")
     for name, (kern, plain, inputs, units) in runs.items():
-        times[name] = timed(name, kern, plain, inputs, units, 2)
+        want, plain_ms = timed_once(plain)
+        for i, (g, w) in enumerate(zip(tensors_of(kern()), tensors_of(want))):
+            same(f"{name} output {i}", g, w)
+        del want
+        times[name] = timed(name, kern, plain_ms, inputs, units, 2)
     del fwd, bwd, runs, tab, tabk, sig
     torch.cuda.empty_cache()
     return times
@@ -646,43 +709,93 @@ def s_max_of(n2: int) -> int:
     return -(-(n2 + n2 // 4 + 64) // 128) * 128  # models/ntc_batch._dispatch
 
 
-def compare_lattice_kernels(k: dict, plain_ms: dict) -> int:
+def compare_lattice_kernels(k: dict, plain_ms: dict, kt: dict | None = None) -> int:
     """K11, K13, K15 and K16 against their plain versions on the inputs each
     kernel had in one engine bucket (`k`, ntc_bucket_program's keep; K15
     wrote lp over the store there, as the engine runs it): every output
-    bit for bit, then the segment summaries. Raises otherwise. Fills
-    plain_ms with each plain version's CUDA-event time; returns the number
-    of reads walked."""
+    bit for bit, then the segment summaries. Given `kt`, the training
+    program's keep on the same bucket (bucket_keeps), K17 and K18 too
+    (compare_backward, compare_forward). Raises otherwise. Fills plain_ms with each plain
+    version's CUDA-event time; returns the number of reads walked."""
+    compare_tab_gather(k, plain_ms)
+    compare_backward(k, plain_ms, kt)
+    compare_forward(k, plain_ms, kt)
+    return compare_walk(k, plain_ms)
+
+
+def compare_tab_gather(k: dict, plain_ms: dict) -> None:
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    want, plain_ms["ntc_tab_gather"] = timed_once(
+        lambda: kern.tab_gather_plain(k["ks"], k["table"], k["dims"]))
+    for f, g, w in zip(want._fields, k["prm"], want):
+        same(f"ntc_tab_gather {f}", g, w)
+
+
+def compare_backward(k: dict, plain_ms: dict, kt: dict | None = None) -> None:
+    """K13's store against plain; given kt (from bucket_keeps), plain K13
+    and K18 are one run of ntc_train_batch, which keeps the backward store
+    on the way, and K18's b0 must be K13's row 0."""
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
+    N_r, T_r = k["N_r"], k["T_r"]
+    if kt is None:
+        want, plain_ms["ntc_bwd"] = timed_once(
+            lambda: kern.bwd_plain(plan, dims, prm, sig, tl, N_r, T_r))
+        same("ntc_bwd store", k["bwd"], want)
+        return
+    bwd_p = torch.empty_like(k["bwd"])
+    want, ms = timed_once(lambda: tk.train_plain(
+        plan, dims, prm, sig, kt["fwd"], kt["Zf"], tl, N_r, T_r, kt["K"], bwd_out=bwd_p))
+    plain_ms["ntc_bwd"] = plain_ms["ntc_train"] = ms
+    same("ntc_bwd store", k["bwd"], bwd_p)
+    del bwd_p
+    for f, w in zip(("tacc", "em", "b0"), want):
+        same(f"ntc_train {f}", kt[f], w)
+    same("ntc_train b0 against ntc_bwd's row 0", kt["b0"], k["bwd"][0])
+
+
+def compare_forward(k: dict, plain_ms: dict, kt: dict | None = None) -> None:
+    """K15's outputs against plain; given kt, plain K15 and K17 are one run
+    of ntc_posterior_viterbi_batch, which keeps the forward store, and
+    K17's row T_r-1 E must be K15's fwdEf."""
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
+    T_r = k["T_r"]
+    fwd_out = None if kt is None else torch.empty_like(kt["fwd"])
+    want, plain_ms["ntc_pv"] = timed_once(lambda: kern.pv_plain(
+        plan, dims, prm, sig, k["bwd"], k["Zb"], tl, T_r, fwd_out=fwd_out))
+    for f, w in zip(("lp", "choices", "slots", "apEf", "fwdEf"), want):
+        same(f"ntc_pv {f}", k[f], w)
+    del want
+    if kt is not None:
+        plain_ms["ntc_fwd_store"] = plain_ms["ntc_pv"]
+        same("ntc_fwd_store store", kt["fwd"], fwd_out)
+        del fwd_out
+        r = torch.arange(dims.R, device=sig.device)
+        same("ntc_fwd_store row T_r-1 E against ntc_pv's fwdEf",
+             kt["fwd"][T_r.long() - 1, r, 3], k["fwdEf"])
+
+
+def compare_walk(k: dict, plain_ms: dict) -> int:
+    """K16's records against plain, then the segment summaries; returns
+    the number of reads walked."""
     import torch
 
     from dynamont_tpu_torch.ops import ntc_kernels as kern
     from dynamont_tpu_torch.ops import ntc_walk as nw
 
-    def plain(name, fn):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = fn()
-        ev[1].record()
-        ev[1].synchronize()
-        plain_ms[name] = ev[0].elapsed_time(ev[1])
-        return out
-
-    plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
-    N_r, T_r = k["N_r"], k["T_r"]
-    want = plain("ntc_tab_gather", lambda: kern.tab_gather_plain(k["ks"], k["table"], dims))
-    for f, g, w in zip(want._fields, prm, want):
-        same(f"ntc_tab_gather {f}", g, w)
-    want = plain("ntc_bwd", lambda: kern.bwd_plain(plan, dims, prm, sig, tl, N_r, T_r))
-    same("ntc_bwd store", k["bwd"], want)
-    del want
-    want = plain("ntc_pv", lambda: kern.pv_plain(plan, dims, prm, sig, k["bwd"], k["Zb"],
-                                                 tl, T_r))
-    for f, w in zip(("lp", "choices", "slots", "apEf", "fwdEf"), want):
-        same(f"ntc_pv {f}", k[f], w)
-    del want
     S_max = k["walk_dims"][-1]
-    rec, fin = plain("ntc_walk", lambda: kern.walk_plain(
-        k["lp"], k["choices"], k["slots"], plan, *k["start"], N_r, T_r, *k["walk_dims"]))
+    (rec, fin), plain_ms["ntc_walk"] = timed_once(lambda: kern.walk_plain(
+        k["lp"], k["choices"], k["slots"], k["plan"], *k["start"], k["N_r"], k["T_r"],
+        *k["walk_dims"]))
     same("ntc_walk records", k["rec"], rec)
     same("ntc_walk fin", k["fin"], fin)
     segs = [nw.finish_records(r, f, S_max) for r, f in ((k["rec"], k["fin"]), (rec, fin))]
@@ -692,34 +805,80 @@ def compare_lattice_kernels(k: dict, plain_ms: dict) -> int:
     return int((segs[0][0] > 0).sum())
 
 
+def bucket_keeps(eng, items) -> tuple[dict, dict]:
+    """The resquiggle and the training bucket programs' keeps of `items`
+    as one bucket at the engine's caps. The two programs' plans, gathered
+    parameters and signals must be equal; kt then shares k's."""
+    k, kt = {}, {}
+    gidx = list(range(len(items)))
+    eng._dispatch(gidx, items, eng.cap_n, eng.cap_k, keep=k)
+    eng._train_bucket(gidx, items, keep=kt)
+    for f in k["plan"]._fields:
+        same(f"training program plan {f}", getattr(kt["plan"], f), getattr(k["plan"], f))
+    for f, a, b in zip(k["prm"]._fields, kt["prm"], k["prm"]):
+        same(f"training program {f}", a, b)
+    same("training program sig", kt["sig"], k["sig"])
+    kt.update(plan=k["plan"], prm=k["prm"], sig=k["sig"])
+    return k, kt
+
+
+def phase_12_child(reads: list) -> tuple[dict, int]:
+    """Phase 12's plain K13 + K18 and K16 runs, in a spawned process while
+    the parent runs plain K15 + K17 (the plain versions are host-bound
+    loops over 16384 rows): the engine's bucket of `reads`, (signal,
+    read) pairs, rebuilt here by the same kernels, each kernel held to its
+    plain version as compare_backward and compare_walk do. Returns the
+    plain runs' CUDA-event ms and the reads walked."""
+    # set before torch starts CUDA here: expandable segments keep this
+    # process's caching allocator from stranding memory the parent needs
+    # (not in the parent, whose cold allocations the CLI timings include)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+
+    eng = NTCBatchEngine(load_model_for_pore("rna002"), "rna002", device="cuda")
+    k, kt = bucket_keeps(eng, [BatchItem(s, r) for s, r in reads])
+    torch.cuda.empty_cache()  # the card is shared with the parent
+    plain_ms = {}
+    compare_backward(k, plain_ms, kt)
+    del kt
+    torch.cuda.empty_cache()
+    return plain_ms, compare_walk(k, plain_ms)
+
+
 def phase_11(model, max_err: dict):
-    """The lattice kernels against their plain versions on the short reads
-    (module docstring)."""
+    """The lattice kernels, and the training kernels (phase 13(a)), against
+    their plain versions on the short reads (module docstring)."""
     import torch
 
     from dynamont_tpu_torch.models.batch import BatchItem
     from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, NTCBatchEngine
     from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
     from dynamont_tpu_torch.utils.synthetic import make_read
 
     items = [BatchItem(*make_read(model, n_bases=n, seed=s))
              for s, n in ((0, 25), (1, 31), (2, 18))]
     for dtype in (torch.float32, torch.float64):
-        # the CPU tests' engine padding
-        eng = NTCBatchEngine(model, "rna002", device="cuda", dtype=dtype, t_pad_to=64,
-                             n_pad_to=16)
         for caps in ((CN, CK0), WIDE_CAPS):
             t0 = time.perf_counter()
-            keep, plain_ms = {}, {}
-            eng._dispatch(list(range(len(items))), items, *caps, keep=keep)
-            walked = compare_lattice_kernels(keep, plain_ms)
+            # the CPU tests' engine padding
+            eng = NTCBatchEngine(model, "rna002", device="cuda", dtype=dtype, t_pad_to=64,
+                                 n_pad_to=16, cap_n=caps[0], cap_k=caps[1])
+            keep, kt = bucket_keeps(eng, items)
+            plain_ms = {}
+            walked = compare_lattice_kernels(keep, plain_ms, kt)
             R, t_pad = keep["sig"].shape[0], keep["sig"].shape[1] + 1
-            log(f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: every output bit for bit, {walked}/{len(items)} reads "
+            log(f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: K11, K13, K15, K16 and "
+                f"(13a) K17, K18 every output bit for bit, {walked}/{len(items)} reads "
                 f"walked ({time.perf_counter() - t0:.1f} s); plain versions ms "
                 + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
-            del keep
+            del keep, kt
         torch.cuda.empty_cache()
-    max_err.update(dict.fromkeys(kern.KERNELS, 0.0))
+    max_err.update(dict.fromkeys((*kern.KERNELS, *tk.KERNELS), 0.0))
 
 
 def zstd_stand_in() -> bool:
@@ -785,6 +944,7 @@ def phase_12(model, bench, launches: dict, long_ref):
     from dynamont_tpu_torch.ops import nt_banded_kernels as kk
     from dynamont_tpu_torch.ops import ntc_kernels as kern
     from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
 
     reads = bench[:NTC_READS]
     plain_csv = zstd_stand_in()
@@ -797,7 +957,7 @@ def phase_12(model, bench, launches: dict, long_ref):
         write_tsv(tsv, reads)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for mod in (kk, kn, kern):
+        for mod in (kk, kn, kern, tk):
             mod.reset_counts()
         t0 = time.perf_counter()
         eng = resquiggle.main(["--tsv", tsv, "-o", out, "--mode", "resquiggle", "-p",
@@ -816,8 +976,9 @@ def phase_12(model, bench, launches: dict, long_ref):
             f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat} | "
             f"plain {plain} | peak device memory {peak:.2f} GiB")
         if (any(v == 0 for v in (*lat.values(), *pre.values())) or any(plain.values())
-                or any(kk.LAUNCHES.values())):
-            raise AssertionError("the engine missed a kernel or ran a plain version")
+                or any(kk.LAUNCHES.values()) or any(tk.LAUNCHES.values())):
+            raise AssertionError("the engine missed a kernel, ran a plain version or a "
+                                 "training kernel")
         if pr["exact_retries"] > 2:
             raise AssertionError(f"{pr['exact_retries']} reads reached the exact rung")
         errors = os.path.join(tmp, "out.errors")
@@ -851,20 +1012,34 @@ def phase_12(model, bench, launches: dict, long_ref):
         if bad > max(1, n // 50) or dz > 1e-3:
             raise AssertionError("the engine's read 0 is off the exact rung")
 
-    # each lattice kernel against its plain version on the bucket the engine
-    # ran, then timed there
+    # each lattice kernel, and the training kernels (phase 13's full-width
+    # part), against its plain version on the bucket the engine ran, then
+    # timed there
     t0 = time.perf_counter()
-    k, plain_ms = {}, {}
-    eng._dispatch(list(range(NTC_READS)), items, CN, CK0, keep=k)
-    shape = (k["sig"].shape[0], k["sig"].shape[1] + 1, k["walk_dims"][-1])
-    if shape != (NTC_READS, 16384, s_max_of(2048)):
-        raise AssertionError(f"engine bucket (R, T_pad, S_max) {shape}")
-    walked = compare_lattice_kernels(k, plain_ms)
-    log(f"[12] bucket {shape[:2]} N2 2048 {k['dims']} fp32: K11, K13, K15, K16 every output "
-        f"bit for bit with their plain versions, {walked}/{NTC_READS} reads walked "
-        f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()  # the card is shared with the child
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        child = pool.apply_async(phase_12_child,
+                                 ([(it.signal, it.read) for it in items[:NTC_READS]],))
+        k, kt = bucket_keeps(eng, items[:NTC_READS])
+        torch.cuda.empty_cache()
+        shape = (k["sig"].shape[0], k["sig"].shape[1] + 1, k["walk_dims"][-1])
+        if shape != (NTC_READS, 16384, s_max_of(2048)):
+            raise AssertionError(f"engine bucket (R, T_pad, S_max) {shape}")
+        plain_ms = {}
+        compare_tab_gather(k, plain_ms)
+        compare_forward(k, plain_ms, kt)
+        t1 = time.perf_counter()
+        child_ms, walked = child.get()
+    plain_ms.update(child_ms)
+    log(f"[12] bucket {shape[:2]} N2 2048 {k['dims']} fp32: K11, K13, K15, K16, K17, K18 "
+        f"every output bit for bit with their plain versions, K17's row T_r-1 E with "
+        f"K15's fwdEf and K18's b0 with K13's row 0, {walked}/{NTC_READS} reads walked "
+        f"({t1 - t0:.1f} s here for K11, K15 and K17; {time.perf_counter() - t0:.1f} s with "
+        "the spawned process's K13, K18 and K16)")
     times = lattice_times(k, plain_ms)
     del k
+    times.update(train_times(kt, plain_ms))
+    del kt
     torch.cuda.empty_cache()
     wide_rung(model, eng, items)
     return times
@@ -917,6 +1092,31 @@ def lattice_times(k: dict, plain_ms: dict) -> dict:
         "ntc_walk": timed(
             "ntc_walk", lambda: kern.walk(*walk_args), plain_ms["ntc_walk"],
             [k["start"][-1], N_r, T_r], steps, 2, walk_reads),
+    }
+
+
+def train_times(kt: dict, plain_ms: dict) -> dict:
+    """K17's and K18's timing entries on the inputs they had in the
+    engine's training bucket `kt`, beside their plain runs' times."""
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    plan, dims, prm, sig, tl = kt["plan"], kt["dims"], kt["prm"], kt["sig"], kt["trans_log"]
+    N_r, T_r, fwd, Zf, K = kt["N_r"], kt["T_r"], kt["fwd"], kt["Zf"], kt["K"]
+    cells = int(T_r.sum()) * dims.CN * dims.CK
+    p = plan
+    fwd_in = [sig, p.cand_n, p.allowed, p.hd, p.row_same, p.row_prev, p.col_same,
+              p.col_prec, prm.mu_k, prm.c1_k, prm.c2_k, prm.nsl]
+    train_in = [sig, p.cand_n, p.allowed, p.hd, p.d01, p.d02, p.brow_same, p.brow_next,
+                p.bcol_same, p.bcol_suc, p.live, p.ks, *prm, N_r, T_r, fwd, Zf]
+    log(f"[12] training kernels at {(sig.shape[0], sig.shape[1] + 1)} N2 2048 {dims} fp32 "
+        "(plain: the shared runs above, ntc_fwd_store = ntc_pv's, ntc_train = ntc_bwd's):")
+    return {
+        "ntc_fwd_store": timed(
+            "ntc_fwd_store", lambda: tk.fwd_store(plan, dims, prm, sig, tl),
+            plain_ms["ntc_fwd_store"], fwd_in, cells, 2),
+        "ntc_train": timed(
+            "ntc_train", lambda: tk.train(plan, dims, prm, sig, fwd, Zf, tl, N_r, T_r, K),
+            plain_ms["ntc_train"], train_in, cells, 2),
     }
 
 
@@ -973,6 +1173,160 @@ def wide_rung(model, eng, items) -> None:
         f"read, Z rel at most {worst[1]:.2e}, probabilities within {worst[2]:.2e}")
     del weng, outs
     torch.cuda.empty_cache()
+
+
+def phase_13(model, bench, launches: dict) -> None:
+    """NTC training: the training kernels on the short reads, then the
+    training path through its CLI at full width and the training step's
+    split (module docstring; the full-width kernel checks are phase 12's)."""
+    import torch
+
+    from dynamont_tpu_torch.cli import train as train_cli
+    from dynamont_tpu_torch.constants import TRAIN_INIT_NTK
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+    from dynamont_tpu_torch.training.trainer import Trainer
+    from dynamont_tpu_torch.utils.synthetic import make_read
+
+    # (c) the training path through its CLI (a and b: phases 11 and 12)
+    short = [make_read(model, n_bases=n, seed=s) for s, n in ((0, 25), (1, 31), (2, 18))]
+    path_kernels = (*kn.KERNELS, "ntc_tab_gather", *tk.KERNELS)
+    with tempfile.TemporaryDirectory(prefix="dynamont_ntc_train_") as tmp:
+        tsv = os.path.join(tmp, "train.tsv")
+        write_tsv(tsv, bench[:TRAIN_READS])
+        args = ["--tsv", tsv, "-p", "rna002", "--mode", "resquiggle", "-q", "0",
+                "--batch_size", str(TRAIN_BATCH), "--max_batches", "2",
+                "--precision", "fp32", "--device", "cuda"]
+        outs = []
+        for rep in range(2):
+            out = os.path.join(tmp, f"run{rep}")
+            for mod in (kk, kn, kern, tk):
+                mod.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(args + ["-o", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = {**kn.LAUNCHES, **kern.LAUNCHES, **tk.LAUNCHES}
+            plain = {**kn.PLAIN_RUNS, **kern.PLAIN_RUNS, **tk.PLAIN_RUNS}
+            log(f"[13] CLI --mode resquiggle run {rep}: {TRAIN_READS} reads in {wall:.2f} s | "
+                f"launches {used} | plain {plain} | exact rung {trainer.fp64_reads} | peak "
+                f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if (any(used[k] == 0 for k in path_kernels)
+                    or any(used[k] for k in ("ntc_bwd", "ntc_pv", "ntc_walk"))
+                    or any(plain.values()) or any(kk.LAUNCHES.values())
+                    or trainer.fp64_reads > 1):
+                raise AssertionError("the NTC training path missed a kernel, ran one off "
+                                     "its path or a plain version, or fell back")
+            outs.append(files_of(out))
+            if rep == 0:
+                launches.update({k: used[k] for k in tk.KERNELS})
+        rows = outs[0]["params.csv"].decode().splitlines()
+        log("[13] params.csv: " + " | ".join(rows))
+        if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
+                                     for v in row.split(",")[3:]):
+            raise AssertionError("params.csv rows")
+        if not {"trained_0_1.model", "trained_0_2.model"} <= set(outs[0]):
+            raise AssertionError(f"checkpoints missing: {sorted(outs[0])}")
+        if outs[0] != outs[1]:
+            raise AssertionError("a repeat run wrote different files")
+        log(f"[13] repeat run: {len(outs[0])} files byte-identical")
+
+        short_tsv = os.path.join(tmp, "short.tsv")
+        write_tsv(short_tsv, short)
+        jobs = list(readers.generate_tsv_jobs(short_tsv, rna=True))
+        params = {}
+        for prec in ("fp32", "fp64"):
+            t = Trainer("resquiggle", "rna002", os.path.join(tmp, prec),
+                        os.path.join(tmp, "run0", "trained_0_0.model"),
+                        batch_size=len(jobs), precision=prec, device="cuda")
+            t.process_batch(jobs, epoch=0)
+            t.close()
+            params[prec] = t.transition_params
+        rel = max(abs(params["fp32"][p] / params["fp64"][p] - 1) for p in nb.TL_KEYS)
+        log(f"[13] fp32 vs fp64 trainer on the 3 short reads: the 13 transitions within "
+            f"rel {rel:.2e}")
+        if rel > 1e-3:
+            raise AssertionError("fp32 NTC trainer off the fp64 trainer")
+
+    # the training step at (24, 16384): NTCBatchEngine.train as the trainer
+    # runs it (host clock), then its stages on CUDA events
+    items = [BatchItem(s, r) for s, r in bench[:TRAIN_BATCH]]
+    eng = NTCBatchEngine(model, "rna002", device="cuda", transition_overrides=TRAIN_INIT_NTK,
+                         batch_size=TRAIN_BATCH)
+    eng.train(items)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        res = eng.train(items)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if sum(isinstance(r, Exception) for r in res) or eng.profile["exact_retries"] > 1:
+        raise AssertionError(f"training step: {eng.profile}")
+    split = ntc_train_split(eng, items)
+    step = sorted(walls)[len(walls) // 2]
+    log(f"[13] training step ({TRAIN_BATCH}, 16384) fp32, median of {STEPS}: {step:.1f} ms = "
+        f"{TRAIN_BATCH / (step / 1e3):.2f} reads/s (all ms {[round(w, 1) for w in walls]}) | "
+        f"split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+        + f" | peak device memory {peak:.2f} GiB | exact rung {eng.profile['exact_retries']} "
+        f"reads in {STEPS + 1} steps")
+
+
+def ntc_train_split(eng, items) -> dict:
+    """ms of each stage of one training bucket as ntc_train_bucket_program
+    runs it (CUDA events), and of the host post-processing (host clock)."""
+    import torch
+
+    from dynamont_tpu_torch.models import ntc_batch as mb
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+    from dynamont_tpu_torch.utils.logmath import logsumexp
+
+    T_arr, N_arr, sig, kid, _ = eng._pad_bucket(list(range(len(items))), items)
+    sig, kid, N_r, T_r = (torch.from_numpy(a).cuda() for a in (sig, kid, N_arr, T_arr))
+    sig = sig.to(eng.dtype)
+    te, A, K = eng.tensors, eng.model.alphabet_size, eng.model.num_kmers
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    pn = nb.pre_tn_batch(sig, kid, N_r, T_r, te["means"], te["stdevs"], eng.log_ppm,
+                         eng.log_ppe, eng.cap_n, eng.dtype)
+    pk = nb.pre_tk_batch(sig, T_r, te["means"], te["c1"], te["c2"], eng.log_ppm,
+                         eng.log_ppe, A, eng.cap_k, eng.dtype)
+    ev[1].record()
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N_r, K, A,
+                                     eng.model.kmer_size, pn.kn1, pn.kn2)
+    prm = kern.tab_gather(nb.gather_index(plan), te["table"], dims)
+    ev[2].record()
+    fwd = tk.fwd_store(plan, dims, prm, sig, eng.trans_log)
+    r = torch.arange(dims.R, device=sig.device)
+    Zf = nb.ntc_zf_batch(plan, fwd[T_r.long() - 1, r, nb.E_ST], N_r, T_r)
+    ev[3].record()
+    tacc, em, b0 = tk.train(plan, dims, prm, sig, fwd, Zf, eng.trans_log, N_r, T_r, K)
+    Zb = nb.ntc_zb_batch(plan, b0)
+    term_lse = logsumexp(tacc.reshape(len(nb.TERMS), dims.R, -1), dim=2)
+    ev[4].record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = [x.cpu().numpy() for x in (term_lse, em, Zf, Zb)]
+    for j in range(dims.R):
+        mb.trans_from_terms(host[0][:, j])
+        mb.emissions_from_moments(host[1][j], eng.model)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    names = ("pre-pass K7-K10", "plan + K11", "K17 + Zf", "K18 + Zb + term sums")
+    out = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+    out["host post-processing"] = host_ms
+    return out
 
 
 def main(argv=None) -> int:
@@ -1062,17 +1416,18 @@ def main(argv=None) -> int:
     phase.start("3")
     if want("3"):
         for dtype in (torch.float32, torch.float64):
-            for reads in (small, bench[:2]):
+            # fp32 at full width: phase 5, on its plain runs
+            for reads in (small,) if dtype == torch.float32 else (small, bench[:2]):
                 b, nmax = bucket(reads, dtype)
                 shape = (b.sig.shape[0], b.bstart.shape[1], b.B)
                 errs = compare_kernels(b, nmax, lm, le)
                 log(f"[3] bucket {shape} {dtype}: max abs err {errs}")
                 del b
-            if shape != (2, 16384, 512):
-                raise AssertionError(f"production bucket shape {shape}")
             if dtype == torch.float32:
                 max_err.update(errs)
             torch.cuda.empty_cache()
+        if shape != (2, 16384, 512):
+            raise AssertionError(f"production bucket shape {shape}")
 
     # 4. the main path
     phase.start("4")
@@ -1146,29 +1501,33 @@ def main(argv=None) -> int:
                                    t_pad_to=T_PAD_TO)
         if (train_b.sig.shape[0], train_b.bstart.shape[1], train_b.B) != (TRAIN_BATCH, 16384, 512):
             raise AssertionError("training bucket shape")
+        # each kernel against its plain version here (fp32 at full width),
+        # the plain runs timed
+        plain_ms = {}
+        errs = compare_kernels(main_b, nmax, lm, le, plain_ms)
+        log(f"[5] bucket {(BATCH, 16384, 512)} fp32: max abs err {errs}")
+        max_err.update(errs)
+        errs = compare_train_kernels(train_b, lm, le, plain_ms)
+        log(f"[5] bucket {(TRAIN_BATCH, 16384, 512)} fp32: bitwise equal, max abs err {errs}")
+        max_err.update(errs)
         fM, fE = kk.forward(train_b, lm, le)
         del fM
         # the walk reads LPM, LPE, ch and bstart at one cell of each row
         walk_reads = int(main_b.T.sum()) * (2 * 4 + 1 + 4)
         runs = {
             "banded_bwd": (lambda: kk.backward(main_b, lm, le),
-                           lambda: kk.backward_plain(main_b, lm, le),
                            fields(main_b), cells(main_b), 0),
             "banded_fwd_vit": (lambda: kk.fwd_vit(main_b, bM, bE, Zb, lm, le),
-                               lambda: kk.fwd_vit_plain(main_b, bM, bE, Zb, lm, le),
                                fields(main_b) + [bM, bE, Zb], cells(main_b), 0),
             "banded_walk": (lambda: kk.walk(LPM, LPE, ch, main_b, nmax),
-                            lambda: kk.walk_plain(LPM, LPE, ch, main_b, nmax),
                             [main_b.T, main_b.N, main_b.bw], int(main_b.T.sum()), walk_reads),
             "banded_fwd": (lambda: kk.forward(train_b, lm, le),
-                           lambda: kk.forward_plain(train_b, lm, le),
                            fields(train_b), cells(train_b), 0),
             "banded_bwd_train": (lambda: kk.backward_train(train_b, fE, lm, le),
-                                 lambda: kk.backward_train_plain(train_b, fE, lm, le),
                                  fields(train_b) + [fE], cells(train_b), 0),
         }
-        for name, (kern, plain, inputs, units, extra) in runs.items():
-            times[name] = timed(name, kern, plain, inputs, units, 3, extra)
+        for name, (kern, inputs, units, extra) in runs.items():
+            times[name] = timed(name, kern, plain_ms[name], inputs, units, 3, extra)
         del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs
         torch.cuda.empty_cache()
 
@@ -1176,7 +1535,8 @@ def main(argv=None) -> int:
     phase.start("6")
     if want("6"):
         for dtype in (torch.float32, torch.float64):
-            for reads in (small, bench[:2]):
+            # fp32 at full width: phase 5, on its plain runs
+            for reads in (small,) if dtype == torch.float32 else (small, bench[:2]):
                 b = bb.prepare_batch([s for s, _ in reads], kids_of(reads), model,
                                      device="cuda", dtype=dtype, t_pad_to=T_PAD_TO)
                 errs = compare_train_kernels(b, lm, le)
@@ -1316,6 +1676,10 @@ def main(argv=None) -> int:
     phase.start("12")
     if want("12"):
         times.update(phase_12(model, bench, launches, long_ref))
+    # 13. NTC training
+    phase.start("13")
+    if want("13"):
+        phase_13(model, bench, launches)
     phase.end()
 
     kernels = []

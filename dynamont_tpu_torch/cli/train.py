@@ -1,12 +1,13 @@
-"""dynamont-train on PyTorch + CUDA, basic mode (counterpart of
-dynamont_tpu/cli/train.py; ref: src/python/segmentation/train.py).
+"""dynamont-train on PyTorch + CUDA, basic and resquiggle (NTC) mode
+(counterpart of dynamont_tpu/cli/train.py; ref:
+src/python/segmentation/train.py).
 
 Same flags and defaults (batch_size 24, epochs 1, qscore 10), same
 trained_{epoch}_{batch}.model checkpoints and params.csv, on one torch
-device. Resquiggle (NTC) mode and --distributed are not ported yet.
+device. --distributed is not ported yet.
 
     python -m dynamont_tpu_torch.cli.train --tsv reads.tsv -o outdir \\
-        -p rna002 --mode basic [--device cuda]
+        -p rna002 --mode basic|resquiggle [--device cuda]
 """
 
 from __future__ import annotations
@@ -56,11 +57,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
-        raise SystemExit(2)
-    if args.mode != "basic":
-        print("--mode resquiggle (NTC) training is not yet ported to the "
-              "PyTorch package; use dynamont_tpu's dynamont-train",
-              file=sys.stderr)
         raise SystemExit(2)
     if args.distributed:
         print("--distributed training is not yet ported to the PyTorch "

@@ -60,38 +60,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "nt_banded_common.cuh"
+#include "ntc_lattice_common.cuh"
 
 namespace {
 
 using namespace dynamont;
 
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_A = 4;
+constexpr int MAX_THREADS = NTC_MAX_THREADS;
 constexpr int NREC = 8;
-enum { ST_A, ST_P, ST_S, ST_E, ST_I };
-// log transitions, in ops/ntc_batch.TL_KEYS order
-enum { TA1, TA2, TP1, TP2, TP3, TS1, TS2, TS3, TE2, TE3, TE4, TI1, TI2, NTL };
-
-template <typename S>
-__device__ __forceinline__ S sc_(S x, S mu, S c1, S c2) {
-  const S d = x - mu;
-  const S c2d = c2 * d;
-  return c1 - c2d * d;
-}
-
-// logsumexp of a term list: max, exp summed in list order, log(sum) + max.
-template <typename S, int N>
-__device__ __forceinline__ S lse(const S (&v)[N]) {
-  S m = v[0];
-#pragma unroll
-  for (int q = 1; q < N; ++q) m = max_nan(m, v[q]);
-  if (!isfinite(m)) return m;
-  S s = exp_(v[0] - m);
-#pragma unroll
-  for (int q = 1; q < N; ++q) s = s + exp_(v[q] - m);
-  return log_(s) + m;
-}
 
 // max and the first index attaining it over an ordered candidate list.
 template <typename S, int N>
@@ -104,14 +80,6 @@ __device__ __forceinline__ S first_match(const S (&v)[N], int& code) {
     m = max_nan(m, v[q]);
   }
   return m;
-}
-
-// state st of a column (5, CN, CK) at (row, col); -inf where either is -1.
-template <typename S>
-__device__ __forceinline__ S gat(const S* colp, int st, int row, int col,
-                                 int CN, int CK) {
-  if (row < 0 || col < 0) return neg_inf<S>();
-  return colp[((size_t)st * CN + row) * CK + col];
 }
 
 // Block-wide max (exact in any order): warp butterflies, then the warps.

@@ -18,10 +18,20 @@ The JAX engine runs its wide rung with the checkpointed backward kernel #14
 because the full store does not fit a TPU v5e's HBM next to the rest; the
 port runs K13 with a full store there too.
 
+Training (train(), ref: NTC.cpp:923-1130) runs ntc_train_bucket_program
+per bucket: the pre-pass and the plan as above, then K17 forward store ->
+Zf -> K18 backward with the 13 term sums, the k-mer moments and row 0 ->
+Zb; the host turns the sums into per-read transitions and k-mer tables
+(trans_from_terms, emissions_from_moments). A read that overflows the caps
+or fails a Z gate trains on the exact per-read path; training has no wide
+rung, in the JAX engine either.
+
 What differs from the JAX engine: one device, given explicitly; the read
 axis is padded to the bucket's own size, not to the TPU geometry's 16; the
-caps are the JAX kernel route's on every device; train() (NTC training,
-kernels #17 and #18) and native 9-mer NTC are not ported yet.
+caps are the JAX kernel route's on every device, and train() runs the
+batched program in both precisions (the JAX engine runs it only on its
+fp32 kernel route, every read on the exact path elsewhere); native 9-mer
+NTC is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,8 +51,11 @@ from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
 from dynamont_tpu_torch.ops import ntc_batch as nb
 from dynamont_tpu_torch.ops import ntc_kernels as kern
+from dynamont_tpu_torch.ops import ntc_train_kernels as tkern
 from dynamont_tpu_torch.ops import ntc_walk as nw
-from dynamont_tpu_torch.utils.kmer import int2kmers_batch, seq_to_kmer_ids
+from dynamont_tpu_torch.ops.ntc_train import TRAIN_THRESHOLD
+from dynamont_tpu_torch.utils.kmer import int2kmer, int2kmers_batch, seq_to_kmer_ids
+from dynamont_tpu_torch.utils.logmath import logsumexp
 
 FP32_EPSILON = 1e-6   # per-cell Z tolerance of the fp32 gates (BASELINE.md)
 WIDE_CAPS = (16, 240)  # the wide rung's (cap_n, cap_k): CK = 256
@@ -100,6 +113,92 @@ def ntc_bucket_program(sig, kid, N_r, T_r, tensors: dict, *, A: int, S: int,
         seg_cnt=seg_cnt, seg_state=st_a, seg_bp=bp_a, seg_start=start_a,
         seg_k=k_a, seg_med=med, seg_ovf=seg_ovf,
     )
+
+
+def ntc_train_bucket_program(sig, kid, N_r, T_r, tensors: dict, *, A: int,
+                             S: int, log_ppm: float, log_ppe: float,
+                             trans_log: dict, CN: int, CK0: int, dtype,
+                             keep: dict | None = None) -> dict:
+    """One bucket's Baum-Welch sums (inputs as ntc_bucket_program's):
+    pre-pass, plan, K11, K17 forward store, Zf from its row T_r-1, K18,
+    Zb from K18's row 0, and each term's logsumexp over the cells of a
+    read. Returns per-read Z values and flags, term_lse (13, R) in
+    ops/ntc_batch.TERMS order and em (R, 3, K), as device tensors.
+
+    `keep`, when given, receives K17's and K18's inputs and outputs (plan,
+    dims, prm, sig, trans_log, N_r, T_r, K, fwd, Zf, tacc, em, b0)."""
+    means, stdevs = tensors["means"], tensors["stdevs"]
+    K = means.shape[0]
+    pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, log_ppm, log_ppe,
+                         CN, dtype)
+    pk = nb.pre_tk_batch(sig, T_r, means, tensors["c1"], tensors["c2"],
+                         log_ppm, log_ppe, A, CK0, dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid,
+                                     N_r, K, A, S, pn.kn1, pn.kn2)
+    prm = kern.tab_gather(nb.gather_index(plan), tensors["table"], dims)
+    sigd = sig.to(dtype).contiguous()
+    fwd = tkern.fwd_store(plan, dims, prm, sigd, trans_log)
+    r = torch.arange(dims.R, device=sig.device)
+    Zf = nb.ntc_zf_batch(plan, fwd[T_r.long() - 1, r, nb.E_ST], N_r, T_r)
+    tacc, em, b0 = tkern.train(plan, dims, prm, sigd, fwd, Zf, trans_log, N_r,
+                               T_r, K)
+    if keep is not None:
+        keep.update(plan=plan, dims=dims, prm=prm, sig=sigd, trans_log=trans_log,
+                    N_r=N_r, T_r=T_r, K=K, fwd=fwd, Zf=Zf, tacc=tacc, em=em, b0=b0)
+    return dict(
+        Zf_tn=pn.Zf, Zb_tn=pn.Zb, ovf_tn=pn.overflow,
+        Zf_tk=pk.Zf, Zb_tk=pk.Zb, ovf_tk=pk.overflow,
+        Zf=Zf, Zb=nb.ntc_zb_batch(plan, b0),
+        term_lse=logsumexp(tacc.reshape(len(nb.TERMS), dims.R, -1), dim=2),
+        em=em,
+    )
+
+
+def trans_from_terms(term_lse: np.ndarray) -> dict:
+    """Per-read transition probabilities from the 13 raw term logsumexps
+    (normalization groups, ref: NTC.cpp:1003-1030; mirrors the tail of
+    ops/ntc_train.train_transitions)."""
+    acc = {nm: float(v) for nm, v in zip(nb.TERMS, term_lse)}
+
+    def lsum(vals):
+        fin = [v for v in vals if not math.isinf(v)]
+        if not fin:
+            return -math.inf
+        m = max(fin)
+        return m + math.log(
+            sum(math.exp(v - m) for v in vals if not math.isinf(v)))
+
+    out = dict(acc)
+    for group in (("a1", "s2", "e4", "i1", "p2"), ("e3", "p1"),
+                  ("e2", "s1"), ("a2", "i2", "p3", "s3")):
+        g = lsum([acc[k] for k in group])
+        if not math.isinf(g):
+            for k in group:
+                out[k] = acc[k] - g
+    result = {k: math.exp(v) for k, v in out.items()}
+    result["e1"] = 1.0
+    return result
+
+
+def emissions_from_moments(em: np.ndarray, model) -> dict:
+    """Per-read k-mer (mean, stdev) dict from the centered moment sums
+    em (3, K) = [w, w*(s-mu_k), w*(s-mu_k)^2] (trainEmission,
+    ref: NTC.cpp:1059-1130; threshold/selection as ops/ntc_train)."""
+    norm, s1, s2 = em[0], em[1], em[2]
+    nz = norm != 0
+    safe = np.where(nz, norm, 1.0)
+    d = s1 / safe
+    keep = norm >= TRAIN_THRESHOLD
+    var = np.where(keep & nz, np.maximum(s2 / safe - d * d, 0.0), 0.0)
+    means = np.where(nz, np.asarray(model.means) + d, 0.0)
+    stdevs = np.sqrt(var)
+    out = {}
+    for k in range(model.num_kmers):
+        if stdevs[k] != 0.0:
+            kmer = int2kmer(k, model.alphabet_size, model.kmer_size,
+                            model.rna)
+            out[kmer] = (float(means[k]), float(stdevs[k]))
+    return out
 
 
 class NTCBatchEngine:
@@ -232,10 +331,68 @@ class NTCBatchEngine:
     def run(self, items: list[BatchItem]) -> list[BatchOutput]:
         return self.collect(self.dispatch(items))
 
-    def train(self, items):
-        raise NotImplementedError(
-            "NTC training (kernels #17 and #18) is not yet ported to the "
-            "PyTorch package")
+    def train(self, items: list[BatchItem], exact=None) -> list:
+        """Per-read Baum-Welch estimates: each bucket through
+        ntc_train_bucket_program in the engine's dtype; a read that
+        overflows the caps or fails a Z gate goes to `exact(item)`, by
+        default the exact per-read path in train mode (_train_exact).
+        Returns, per read, (trained_transitions, trained_emissions, Z) or
+        an Exception."""
+        exact = exact or self._train_exact
+        outputs: list = [None] * len(items)
+        valid: list[int] = []
+        for i, it in enumerate(items):
+            try:
+                _validate(len(it.signal), len(it.read), self.model.kmer_size)
+                valid.append(i)
+            except SystemExit as e:
+                outputs[i] = RuntimeError(
+                    f"input validation failed (reference exit {e.code})")
+        K = self.model.num_kmers
+        for gidx in self._buckets(valid, items, self.batch_size):
+            T_arr, N_arr, host = self._train_bucket(gidx, items)
+            for j, i in enumerate(gidx):
+                if host["ovf_tn"][j] or host["ovf_tk"][j]:
+                    err = "cap overflow"
+                else:
+                    err = self._z_errors(host, j, int(T_arr[j]), int(N_arr[j]), K,
+                                         (self.cap_n, self.cap_k))
+                if err is not None and not self.fallback:
+                    outputs[i] = RuntimeError(f"{err} (no fallback)")
+                elif err is not None:
+                    self.profile["exact_retries"] += 1
+                    outputs[i] = exact(items[i])
+                else:
+                    outputs[i] = (trans_from_terms(host["term_lse"][:, j]),
+                                  emissions_from_moments(host["em"][j], self.model),
+                                  float(host["Zf"][j]))
+        return outputs
+
+    def _train_bucket(self, gidx, items, keep: dict | None = None):
+        """(T_arr, N_arr, host results) of one bucket's training program."""
+        T_arr, N_arr, sig, kid, _ = self._pad_bucket(gidx, items)
+        put = lambda a: torch.from_numpy(a).to(self.device)
+        res = ntc_train_bucket_program(
+            put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
+            self.tensors, A=self.model.alphabet_size, S=self.model.kmer_size,
+            log_ppm=self.log_ppm, log_ppe=self.log_ppe, trans_log=self.trans_log,
+            CN=self.cap_n, CK0=self.cap_k, dtype=self.dtype, keep=keep)
+        return T_arr, N_arr, {k: v.cpu().numpy() for k, v in res.items()}
+
+    def _train_exact(self, it: BatchItem):
+        """The exact per-read fp64 path in train mode, on the engine's
+        device; its Z-gate errors are the read's result."""
+        from dynamont_tpu_torch.models.ntc import (
+            NTCPreprocessError, NTCZError, run_ntc,
+        )
+
+        try:
+            res = run_ntc(it.signal, it.read, self.model, self.pore,
+                          self.overrides, mode="train", device=self.device,
+                          validate=False)
+        except (NTCPreprocessError, NTCZError) as e:
+            return e
+        return res.trained_transitions, res.trained_emissions, res.Z
 
     def _dispatch(self, gidx, items, cap_n: int, cap_k: int,
                   keep: dict | None = None):

@@ -198,10 +198,11 @@ def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
 # ---------------------------------------------------------------------------
 
 def pv_plain(plan, dims, prm, sig, bwd_store, Z_norm, trans_log: dict, T_r,
-             out=None):
+             out=None, fwd_out=None):
     PLAIN_RUNS["ntc_pv"] += 1
     return nb.ntc_posterior_viterbi_batch(plan, dims, prm, sig, bwd_store,
-                                          Z_norm, trans_log, T_r, out=out)
+                                          Z_norm, trans_log, T_r, out=out,
+                                          fwd_out=fwd_out)
 
 
 def pv(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,

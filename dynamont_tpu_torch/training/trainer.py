@@ -1,5 +1,5 @@
-"""Mini-batch Baum-Welch training driver, basic mode, on one torch device
-(counterpart of dynamont_tpu/training/trainer.py; ref:
+"""Mini-batch Baum-Welch training loop, basic and resquiggle (NTC) mode,
+on one torch device (counterpart of dynamont_tpu/training/trainer.py; ref:
 src/python/segmentation/train.py).
 
 The pooling (ManagedList sliding windows), the polyA skip, the per-batch
@@ -11,17 +11,24 @@ port's copy of utils/pore_model. What differs:
 
   * the device is explicit, and precision "auto" means fp32 on CUDA and
     fp64 on the CPU;
-  * a batch pads T to a multiple of 512 (the JAX fp32 path pads to 2048
-    rows and 256 positions so that XLA can reuse a compile; here nothing
-    is compiled per shape, and the estimates do not depend on the padding);
+  * resquiggle mode trains each batch through a fresh batched NTC engine
+    (models/ntc_batch.NTCBatchEngine.train, kernels K7-K11, K17, K18) on
+    the current k-mer tables and transitions, in both precisions; the JAX
+    Trainer does so only on its TPU and runs every read on the exact path
+    elsewhere;
+  * a basic-mode batch pads T to a multiple of 512 (the JAX fp32 path
+    pads to 2048 rows and 256 positions so that XLA can reuse a compile;
+    here nothing is compiled per shape, and the estimates do not depend on
+    the padding);
   * nothing hides the device: an error to build or launch a kernel ends the
     run. Only per-read data errors take the per-read path — a read failing
-    the fp32 Z gate re-runs on the exact fp64 rung, a read failing the
-    input contract or the fp64 gate is skipped — where the JAX Trainer
-    re-runs a whole batch read by read on any exception;
+    the fp32 Z gate (basic) or any gate or cap (resquiggle) re-runs on the
+    exact fp64 rung, a read failing the input contract or the fp64 gate is
+    skipped — where the JAX Trainer re-runs a whole batch read by read on
+    any exception;
   * the post-update Z of every read comes from one more batched pass in
-    both precisions (the JAX fp64 path re-runs each read alone);
-  * --distributed and resquiggle (NTC) mode are not ported yet.
+    both modes and precisions (the JAX fp64 path re-runs each read alone);
+  * --distributed is not ported yet.
 """
 
 from __future__ import annotations
@@ -36,13 +43,15 @@ from os.path import join
 import numpy as np
 import torch
 
-from dynamont_tpu_torch.constants import TRAIN_INIT_NT, is_rna
+from dynamont_tpu_torch.constants import TRAIN_INIT_NT, TRAIN_INIT_NTK, is_rna
 from dynamont_tpu_torch.utils.kmer import int2kmer, seq_to_kmer_ids
 from dynamont_tpu_torch.utils.pore_model import (
     pore_model_from_dict, read_kmer_models, write_kmer_models,
 )
 from dynamont_tpu_torch.models.nt import ZConsistencyError, _validate
 from dynamont_tpu_torch.models.nt_banded import run_nt_banded
+from dynamont_tpu_torch.models.ntc import NTCPreprocessError, NTCZError, run_ntc
+from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
 
@@ -134,10 +143,8 @@ class Trainer:
                  batch_size: int = 24, epochs: int = 1, resume: bool = False,
                  precision: str = "auto", distributed: bool = False, *,
                  device):
-        if mode != "basic":
-            raise NotImplementedError(
-                f"--mode {mode} (NTC) training is not yet ported to the "
-                "PyTorch package")
+        if mode not in ("basic", "resquiggle"):
+            raise ValueError(f"mode {mode!r}")
         if distributed:
             raise NotImplementedError(
                 "--distributed training is not yet ported to the PyTorch "
@@ -163,7 +170,7 @@ class Trainer:
         self.fp64_reads = 0
         os.makedirs(outdir, exist_ok=True)
 
-        init = TRAIN_INIT_NT
+        init = TRAIN_INIT_NT if mode == "basic" else TRAIN_INIT_NTK
         state = find_resume_state(outdir, list(init)) if resume else None
         self.resume_epoch = 0
         self.resume_skip_batches = 0
@@ -273,17 +280,31 @@ class Trainer:
             out[i] = (trans, emis, float(Zb[r]))
         return out
 
+    def _train_batch_ntc(self, jobs: list, exact) -> list:
+        """All reads of a batch through a fresh batched NTC engine on the
+        current k-mer tables and transitions (NTCBatchEngine.train); a read
+        that overflows its caps or fails a Z gate gets exact(job)."""
+        model = pore_model_from_dict(self.kmer_models, self.rna)
+        eng = NTCBatchEngine(model, self.pore, device=self.device,
+                             transition_overrides=self.transition_params,
+                             dtype=self.dtype, batch_size=max(1, len(jobs)))
+        return eng.train(jobs, exact=exact)
+
     def _rung(self, job, mode: str):
-        """The exact per-read fp64 rung; a ZConsistencyError is the read's
-        result, any other error propagates."""
+        """The exact per-read fp64 rung of the trainer's mode; a Z-gate
+        error is the read's result, any other error propagates."""
         self.fp64_reads += 1
         model = pore_model_from_dict(self.kmer_models, self.rna)
         try:
-            return run_nt_banded(job.signal, job.read, model, self.pore,
-                                 self.transition_params, mode=mode,
-                                 device=self.device, dtype=torch.float64,
-                                 validate=False)
-        except ZConsistencyError as e:
+            if self.mode == "basic":
+                return run_nt_banded(job.signal, job.read, model, self.pore,
+                                     self.transition_params, mode=mode,
+                                     device=self.device, dtype=torch.float64,
+                                     validate=False)
+            return run_ntc(job.signal, job.read, model, self.pore,
+                           self.transition_params, mode=mode,
+                           device=self.device, validate=False)
+        except (ZConsistencyError, NTCPreprocessError, NTCZError) as e:
             return e
 
     def _train_read(self, job):
@@ -301,7 +322,7 @@ class Trainer:
         with --calcZ, train.py:248-257): one more batched pass under the
         updated parameters."""
         post_z = np.zeros(len(jobs))
-        for j, r in enumerate(self._train_batch(jobs, self._calc_z)):
+        for j, r in enumerate(self._batch(jobs, self._calc_z)):
             if isinstance(r, Exception):
                 # Z stays 0, as in the reference
                 print(f"No segmentation calculated for {jobs[j].readid} in "
@@ -309,6 +330,11 @@ class Trainer:
                 continue
             post_z[j] = r[2]
         return post_z
+
+    def _batch(self, jobs: list, exact) -> list:
+        if self.mode == "basic":
+            return self._train_batch(jobs, exact)
+        return self._train_batch_ntc(jobs, exact)
 
     # -- batch update ------------------------------------------------------
     def process_batch(self, jobs: list, epoch: int) -> float | None:
@@ -324,7 +350,7 @@ class Trainer:
         )
         kmer_seen = set()
         pre_z = np.zeros(len(jobs))
-        results = self._train_batch(jobs, self._train_read)
+        results = self._batch(jobs, self._train_read)
         for j, job in enumerate(jobs):
             r = results[j]
             if isinstance(r, Exception):

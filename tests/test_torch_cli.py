@@ -62,7 +62,7 @@ def test_port_cli_matches_jax_cli(tsv, tmp_path):
     assert not (tmp_path / "torch.errors").exists()
 
 
-def test_port_cli_refuses_resquiggle_mode(tsv, tmp_path, capsys):
+def test_port_cli_refuses_native_9mer(tsv, tmp_path, capsys):
     """Resquiggle mode at native 9-mer K is not ported yet."""
     with pytest.raises(SystemExit) as e:
         torch_cli.main(["--tsv", str(tsv), "-o", str(tmp_path / "o.csv.zst"),

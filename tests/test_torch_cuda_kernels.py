@@ -263,3 +263,59 @@ def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
     for g, w in zip(kern.walk(*args), kern.walk_plain(*args)):
         same(g, w)
     assert all(kern.LAUNCHES[k] == launches[k] + 1 for k in kern.KERNELS)
+
+
+def test_train_wrappers_refuse_other_devices():
+    """The NTC training wrappers take the plain version only for CPU
+    tensors; any other non-CUDA device raises."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    runs = dict(tk.PLAIN_RUNS)
+    sig = torch.zeros((1, 7), device="meta")
+    dims = nb.PlanDims(1, 2, 8, 4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tk.fwd_store(None, dims, None, sig, {})
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tk.train(None, dims, None, sig, None, None, {}, None, None, 16)
+    assert tk.PLAIN_RUNS == runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_train_kernels_match_plain_on_cuda(card, dtype, caps):
+    """K17 (forward store) and K18 (training sums) against their plain
+    versions on the short reads: every output bit for bit; K17's row
+    T_r-1 E is K15's fwdEf and K18's b0 K13's row 0."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype)
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    prm = kern.tab_gather(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4, dtype),
+                          dims)
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    launches = dict(tk.LAUNCHES)
+    fwd = tk.fwd_store_plain(plan, dims, prm, sig, tl)
+    same(tk.fwd_store(plan, dims, prm, sig, tl), fwd)
+    r = torch.arange(dims.R, device="cuda")
+    Zf = nb.ntc_zf_batch(plan, fwd[T.long() - 1, r, nb.E_ST], N, T)
+    got = tk.train(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024)
+    for g, w in zip(got, tk.train_plain(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024)):
+        same(g, w)
+    bwd = kern.bwd(plan, dims, prm, sig, tl, N, T)
+    same(got[2], bwd[0])
+    fwdEf = kern.pv(plan, dims, prm, sig, bwd, nb.ntc_zb_batch(plan, bwd[0]), tl, T)[4]
+    same(fwd[T.long() - 1, r, nb.E_ST], fwdEf)
+    torch.cuda.synchronize()
+    assert all(tk.LAUNCHES[k] == launches[k] + 1 for k in tk.KERNELS)

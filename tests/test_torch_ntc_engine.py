@@ -11,7 +11,7 @@ K7-K11, K13, K15, K16).
   the exact per-read path, whose result it then is exactly; with the wide
   rung every read is repaired at (16, 240) and none reaches the exact path.
 * The CLI in resquiggle mode against JAX's on one TSV; --device cuda
-  without a card exits 2.
+  without a card exits 2; native 9-mer NTC is refused.
 
 Both packages pad buckets with t_pad_to 64 and n_pad_to 16 here (the CLI
 runs are patched to it) so that the CPU runs stay short; padding changes no
@@ -34,6 +34,7 @@ from dynamont_tpu_torch.cli import resquiggle as torch_cli
 from dynamont_tpu_torch.models import ntc_batch as torch_ntc_batch
 from dynamont_tpu_torch.models.batch import BatchItem
 from dynamont_tpu_torch.models.ntc import run_ntc
+from dynamont_tpu_torch.utils.pore_model import PoreModel
 
 from tests.synthetic import make_read
 
@@ -155,9 +156,15 @@ def test_bucket_program_keeps_kernel_inputs(model, reads):
 
 
 def test_engine_refuses_what_is_not_ported(model):
-    eng = _engine(model, torch.float32)
+    """Native 9-mer NTC is not ported: a 9-mer model with native_kmer=True
+    is refused. No 9-mer table is in the repo, so a synthetic one stands
+    in (seeded means, one stdev)."""
+    K = 4 ** 9
+    nine = PoreModel(np.random.default_rng(0).normal(90.0, 10.0, K),
+                     np.full(K, 2.0), 4, 9, True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.train([])
+        torch_ntc_batch.NTCBatchEngine(nine, "rna002", device="cpu",
+                                       native_kmer=True)
 
 
 def _rows(path):

@@ -439,7 +439,8 @@ def test_cli_trains_on_cpu_without_jax(tsv, tmp_path):
     assert (out / "trained_0_0.model").exists() and (out / "trained_0_1.model").exists()
 
 
-@pytest.mark.parametrize("flag", [["--mode", "resquiggle"], ["--mode", "basic", "--distributed"]])
+@pytest.mark.parametrize("flag", [["--mode", "resquiggle", "--distributed"],
+                                  ["--mode", "basic", "--distributed"]])
 def test_cli_refuses_what_is_not_ported(tsv, tmp_path, capsys, flag):
     with pytest.raises(SystemExit) as e:
         torch_cli.main(["--tsv", str(tsv), "-o", str(tmp_path / "o"), "-p", "rna002",
@@ -461,9 +462,8 @@ def test_cli_without_cuda_fails(tsv, tmp_path, capsys, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     path = get_model_path("rna002")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_trainer.Trainer("resquiggle", "rna002", str(tmp_path), path, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_trainer.Trainer("basic", "rna002", str(tmp_path), path, device="cpu",
-                              distributed=True)
+    for mode in ("basic", "resquiggle"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            torch_trainer.Trainer(mode, "rna002", str(tmp_path), path, device="cpu",
+                                  distributed=True)
     assert jax.default_backend() == "cpu"
