@@ -67,7 +67,11 @@ result line):
      outputs, and each plain version runs on the same inputs, shared as in
      phase 12; every output bit for bit (gathered tables, stores, lp
      written over the store, choices, slots, both finals, walk records,
-     segment summaries, tacc, em, b0);
+     segment summaries, tacc, em, b0). At (16, 240) the engine's own route
+     is the checkpointed one: ntc_bwd_ckpt and ntc_pv's checkpoint mode
+     (ntc_pv_ckpt) against their plain versions there, and its outputs
+     against the full store's (checkpoints = the store's rows (c+1)*8,
+     row 0, Zb, lp, choices, slots, finals, walk), bit for bit;
  12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
@@ -86,9 +90,17 @@ result line):
      store, so each pair reports that run's time; each kernel's CUDA-event
      time beside it (and, for ntc_tab_gather, the indexing call's). Then
      the wide rung at full width: 8 of the reads at caps (2, 2), which all
-     overflow and re-run in one bucket at (16, 240); every NTC kernel
-     launched twice, no plain version, no exact retry, each read within
-     the bounds above of its main-rung result; wall time and peak memory;
+     overflow and re-run in one bucket at (16, 240) on the checkpointed
+     route; the pre-pass kernels, K11 and K16 launched twice, K13 and K15
+     once (the tiny main bucket), K14 and K15's checkpoint mode once, no
+     plain version, no exact retry, each read within the bounds above of
+     its main-rung result; wall time and peak memory. That wide bucket
+     through both routes: each route's wall time and peak memory, the
+     outputs bit for bit equal, K14's checkpoints and row 0 bit for bit
+     its plain version's (run in the parent beside the spawned processes),
+     K15's checkpoint mode's lp, choices, slots and both finals bit for bit
+     its plain version's (run in a spawned process), and the kernels' times
+     beside their plain versions';
  13. NTC training: (a) the short reads, in phase 11; (b) the full-width
      bucket, in phase 12; (c) the training path: the 48 phase-7 reads
      through dynamont_tpu_torch.cli.train.main --mode resquiggle in process
@@ -99,13 +111,29 @@ result line):
      files; fp32 and fp64 trainers on the three short reads agree on the
      13 transitions within rel 1e-3; the training step's reads/s on a
      (24, 16384) batch, split into pre-pass, plan + K11, K17, K18 and host
-     post-processing, with its peak memory.
+     post-processing, with its peak memory;
+ 14. native 9-mer NTC on a seeded synthetic table of the real shape (K =
+     4^9, means U(-2, 2), stdevs U(0.15, 0.4)): (a) the checkpoint-recompute
+     TK pre-pass (torch ops) against K9 -> K10 on phase 9's 5-mer bucket,
+     cand, cnt, overflow, Zf and Zb bit for bit; (b) K11, K13, K15, K16 at
+     (8, 120) and K11, K13, K14, K15 and its checkpoint mode, K16 at
+     (16, 256) against their plain versions at K = 4^9 on two short reads,
+     fp32 (the native path's dtype), and the two routes against each
+     other; (c) 16 reads of
+     1800 bases drawn from the table (dwell and trim as phase 4's) through
+     dynamont_tpu_torch.cli.resquiggle.main --ntc-native-9mer with the table
+     as --model_path, every counter reset right before and read right
+     after: K7, K8, K11, K13, K15, K16 launched, K9 and K10 not, no plain
+     version, no out-of-memory, every read segmented or on an error line;
+     reads/s, retries, peak memory, and the bucket programs' stages on CUDA
+     events recorded around each stage of that run.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
-Needs no JAX and no network. `--phases 1,2,11` runs a subset (the kernels
-line then lists only what was measured).
+ntc_pv's entry carries its checkpoint mode's time as `ckpt`. Needs no JAX
+and no network. `--phases 1,2,11` runs a subset (the kernels line then
+lists only what was measured).
 """
 
 from __future__ import annotations
@@ -135,6 +163,7 @@ SOURCE = {
     "ntc_tk_fwd_u": "dynamont_tpu_torch/csrc/ntc_pre.cu",
     "ntc_tab_gather": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_bwd": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_bwd_ckpt": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_pv": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_walk": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_fwd_store": "dynamont_tpu_torch/csrc/ntc_train.cu",
@@ -152,6 +181,7 @@ REPLACES = {
     "ntc_tk_fwd_u": "dynamont_tpu/ops/ntc_pre_pallas.py:381",
     "ntc_tab_gather": "dynamont_tpu/ops/ntc_pallas.py:244",
     "ntc_bwd": "dynamont_tpu/ops/ntc_pallas.py:839",
+    "ntc_bwd_ckpt": "dynamont_tpu/ops/ntc_pallas.py:864",
     "ntc_pv": "dynamont_tpu/ops/ntc_pallas.py:984",
     "ntc_walk": "dynamont_tpu/ops/ntc_pallas.py:1298",
     "ntc_fwd_store": "dynamont_tpu/ops/ntc_pallas.py:1564",
@@ -162,7 +192,8 @@ REPLACES = {
 # operation. Unit: a live band cell (banded kernels), a live (row, column)
 # of both states (TN/TK pre-pass), a live lattice cell (ntc_bwd, ntc_pv,
 # ntc_fwd_store, ntc_train: K15's forward half; K13 plus 13 term
-# logaddexps and the moments), a walk step (banded_walk, ntc_walk);
+# logaddexps and the moments; ntc_bwd_ckpt: K13's; ntc_pv_ckpt: K15's plus
+# K13's re-derivation), a walk step (banded_walk, ntc_walk);
 # ntc_tab_gather only moves bytes
 OPS_PER_UNIT = {
     "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10,
@@ -170,11 +201,16 @@ OPS_PER_UNIT = {
     "ntc_tn_fwd": 16, "ntc_tn_bwd_sel": 30, "ntc_tk_bwd": 25,
     "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_bwd": 130, "ntc_pv": 150,
     "ntc_walk": 40, "ntc_fwd_store": 100, "ntc_train": 190,
+    "ntc_bwd_ckpt": 130, "ntc_pv_ckpt": 280,
 }
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM peak HBM3 bandwidth
 FP32_OPS_PER_S = 67e12     # H100 SXM peak fp32 rate outside the tensor cores
 NTC_READS, CN, CK0 = 16, 8, 120  # the resquiggle engine's kernel geometry
 WIDE_CN, WIDE_CK0 = 16, 240  # its wide rung
+K9 = 4 ** 9  # native 9-mer NTC (phase 14), on a seeded synthetic table
+MAIN_RUNG = ("ntc_tab_gather", "ntc_bwd", "ntc_pv", "ntc_walk")  # K11, K13, K15, K16
+CKPT_ROUTE = ("ntc_tab_gather", "ntc_bwd_ckpt", "ntc_pv_ckpt", "ntc_walk")
+PV_OUTS = ("lp", "choices", "slots", "apEf", "fwdEf")  # K15's outputs, in order
 FP32_EPSILON = 1e-6  # per-cell Z tolerance of the fp32 engine gates
 CELL_ATOL = 1e-5
 RUNS = 5
@@ -762,26 +798,28 @@ def compare_backward(k: dict, plain_ms: dict, kt: dict | None = None) -> None:
 def compare_forward(k: dict, plain_ms: dict, kt: dict | None = None) -> None:
     """K15's outputs against plain; given kt, plain K15 and K17 are one run
     of ntc_posterior_viterbi_batch, which keeps the forward store, and
-    K17's row T_r-1 E must be K15's fwdEf."""
+    K17's row T_r-1 E must be K15's fwdEf. The kernels' lp, choices,
+    slots and forward store may lie on the host."""
     import torch
 
     from dynamont_tpu_torch.ops import ntc_kernels as kern
 
     plan, dims, prm, sig, tl = k["plan"], k["dims"], k["prm"], k["sig"], k["trans_log"]
     T_r = k["T_r"]
-    fwd_out = None if kt is None else torch.empty_like(kt["fwd"])
+    fwd = None if kt is None else kt["fwd"]
+    fwd_out = None if fwd is None else torch.empty(fwd.shape, dtype=fwd.dtype, device=sig.device)
     want, plain_ms["ntc_pv"] = timed_once(lambda: kern.pv_plain(
         plan, dims, prm, sig, k["bwd"], k["Zb"], tl, T_r, fwd_out=fwd_out))
-    for f, w in zip(("lp", "choices", "slots", "apEf", "fwdEf"), want):
-        same(f"ntc_pv {f}", k[f], w)
+    for f, w in zip(PV_OUTS, want):
+        same_blocks(f"ntc_pv {f}", k[f], w)
     del want
     if kt is not None:
         plain_ms["ntc_fwd_store"] = plain_ms["ntc_pv"]
-        same("ntc_fwd_store store", kt["fwd"], fwd_out)
+        same_blocks("ntc_fwd_store store", fwd, fwd_out)
         del fwd_out
-        r = torch.arange(dims.R, device=sig.device)
+        r = torch.arange(dims.R, device=fwd.device)
         same("ntc_fwd_store row T_r-1 E against ntc_pv's fwdEf",
-             kt["fwd"][T_r.long() - 1, r, 3], k["fwdEf"])
+             fwd[T_r.long().to(fwd.device) - 1, r, 3].to(sig.device), k["fwdEf"])
 
 
 def compare_walk(k: dict, plain_ms: dict) -> int:
@@ -805,13 +843,64 @@ def compare_walk(k: dict, plain_ms: dict) -> int:
     return int((segs[0][0] > 0).sum())
 
 
-def bucket_keeps(eng, items) -> tuple[dict, dict]:
+def same_blocks(name: str, got, want, rows: int = 1024) -> None:
+    """same() a block of leading rows at a time, each block of `got` moved
+    to `want`'s device: outputs too large to hold twice on the card are
+    kept on the host."""
+    for i in range(0, got.shape[0], rows):
+        same(f"{name} (rows {i}+)", got[i:i + rows].to(want.device), want[i:i + rows])
+
+
+def compare_ckpt(kc: dict, plain_ms: dict, bwd: bool = True, pv: bool = True) -> None:
+    """K14 (if bwd) and K15's checkpoint mode (if pv) against their plain
+    versions on the inputs they had in one engine bucket (`kc`, the
+    checkpointed route's keep; its K15 outputs may lie on the host): every
+    output bit for bit. Fills plain_ms."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    plan, dims, prm, sig, tl = kc["plan"], kc["dims"], kc["prm"], kc["sig"], kc["trans_log"]
+    N_r, T_r = kc["N_r"], kc["T_r"]
+    if bwd:
+        (ckpt, row0), plain_ms["ntc_bwd_ckpt"] = timed_once(
+            lambda: kern.bwd_ckpt_plain(plan, dims, prm, sig, tl, N_r, T_r))
+        same("ntc_bwd_ckpt checkpoints", kc["ckpt"], ckpt)
+        same("ntc_bwd_ckpt row 0", kc["row0"], row0)
+        del ckpt, row0
+    if not pv:
+        return
+    want, plain_ms["ntc_pv_ckpt"] = timed_once(lambda: kern.pv_ckpt_plain(
+        plan, dims, prm, sig, kc["ckpt"], kc["Zb"], tl, N_r, T_r))
+    for f, w in zip(PV_OUTS, want):
+        same_blocks(f"ntc_pv_ckpt {f}", kc[f], w)
+
+
+def same_routes(kc: dict, kf: dict) -> None:
+    """The checkpointed route's keep `kc` against the full-store route's
+    `kf` on one bucket: the checkpoints are the store's rows (c+1)*C (the
+    last -inf), row 0 its row 0, and every later output is equal."""
+    import torch
+
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+
+    C = nb.C_CKPT
+    rows = kf["ckpt_rows"] if "ckpt_rows" in kf else kf["bwd"][C::C]
+    same("checkpoints against the store's rows (c+1)*C", kc["ckpt"][:-1], rows)
+    if not bool(torch.isneginf(kc["ckpt"][-1]).all()):
+        raise AssertionError("the last chunk's checkpoint is not -inf")
+    same("row 0 against the store's", kc["row0"], kf["row0"] if "row0" in kf else kf["bwd"][0])
+    for f in ("Zb", "lp", "choices", "slots", "apEf", "fwdEf", "rec", "fin"):
+        same(f"checkpointed route {f} against the full store's", kc[f], kf[f])
+
+
+def bucket_keeps(eng, items, ckpt: bool | None = None) -> tuple[dict, dict]:
     """The resquiggle and the training bucket programs' keeps of `items`
-    as one bucket at the engine's caps. The two programs' plans, gathered
-    parameters and signals must be equal; kt then shares k's."""
+    as one bucket at the engine's caps (the resquiggle program's lattice
+    route by `ckpt`, as ntc_bucket_program takes it). The two programs'
+    plans, gathered parameters and signals must be equal; kt then shares
+    k's."""
     k, kt = {}, {}
     gidx = list(range(len(items)))
-    eng._dispatch(gidx, items, eng.cap_n, eng.cap_k, keep=k)
+    eng._dispatch(gidx, items, eng.cap_n, eng.cap_k, keep=k, ckpt=ckpt)
     eng._train_bucket(gidx, items, keep=kt)
     for f in k["plan"]._fields:
         same(f"training program plan {f}", getattr(kt["plan"], f), getattr(k["plan"], f))
@@ -822,13 +911,14 @@ def bucket_keeps(eng, items) -> tuple[dict, dict]:
     return k, kt
 
 
-def phase_12_child(reads: list) -> tuple[dict, int]:
-    """Phase 12's plain K13 + K18 and K16 runs, in a spawned process while
-    the parent runs plain K15 + K17 (the plain versions are host-bound
-    loops over 16384 rows): the engine's bucket of `reads`, (signal,
-    read) pairs, rebuilt here by the same kernels, each kernel held to its
-    plain version as compare_backward and compare_walk do. Returns the
-    plain runs' CUDA-event ms and the reads walked."""
+def phase_12_child(reads: list, part: str):
+    """Phase 12's plain K13 + K18 run (`part` "bwd") or plain K16 run
+    ("walk") on the engine's (16, 16384) bucket, in a spawned process
+    beside the parent's plain runs (the plain versions are host-bound
+    loops over 16384 rows): the bucket of `reads`, (signal, read) pairs,
+    rebuilt here by the same kernels, each kernel held to its plain
+    version as compare_backward and compare_walk do. Returns the plain
+    runs' CUDA-event ms, and for "walk" the reads walked too."""
     # set before torch starts CUDA here: expandable segments keep this
     # process's caching allocator from stranding memory the parent needs
     # (not in the parent, whose cold allocations the CLI timings include)
@@ -839,14 +929,55 @@ def phase_12_child(reads: list) -> tuple[dict, int]:
     from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
     from dynamont_tpu_torch.models.registry import load_model_for_pore
 
+    def bwd(eng, items, plain_ms):
+        k, kt = bucket_keeps(eng, items)
+        for f in ("lp", "choices", "slots", "rec"):  # K15's and K16's: not read here
+            del k[f]
+        torch.cuda.empty_cache()  # the card is shared with two more processes
+        compare_backward(k, plain_ms, kt)
+        return plain_ms
+
+    def walk(eng, items, plain_ms):
+        k = {}
+        eng._dispatch(list(range(len(items))), items, eng.cap_n, eng.cap_k, keep=k)
+        del k["bwd"]
+        torch.cuda.empty_cache()
+        return plain_ms, compare_walk(k, plain_ms)
+
     eng = NTCBatchEngine(load_model_for_pore("rna002"), "rna002", device="cuda")
-    k, kt = bucket_keeps(eng, [BatchItem(s, r) for s, r in reads])
-    torch.cuda.empty_cache()  # the card is shared with the parent
-    plain_ms = {}
-    compare_backward(k, plain_ms, kt)
-    del kt
+    out = {"bwd": bwd, "walk": walk}[part](eng, [BatchItem(s, r) for s, r in reads], {})
+    torch.cuda.empty_cache()  # this worker may take the next task
+    return out
+
+
+def wide_pv_ckpt_child(reads: list) -> float:
+    """Plain K15's checkpoint mode on the wide rung's bucket, in a second
+    spawned process beside the parent and phase_12_child (the longest of
+    the plain runs, a host-bound loop over 16384 rows): `reads`, (signal,
+    read) pairs, through the engine's checkpointed route at WIDE_CAPS, its
+    K15 outputs moved to the host (the card holds three processes'
+    buckets), then the plain version on the same inputs, every output bit
+    for bit. Returns the plain run's CUDA-event ms."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # as phase_12_child
+    import torch
+
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, NTCBatchEngine
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+
+    eng = NTCBatchEngine(load_model_for_pore("rna002"), "rna002", device="cuda")
+    kc = {}
+    eng._dispatch(list(range(len(reads))), [BatchItem(s, r) for s, r in reads], *WIDE_CAPS,
+                  keep=kc)
+    del kc["rec"]
+    for f in PV_OUTS:
+        kc[f] = kc[f].cpu()
     torch.cuda.empty_cache()
-    return plain_ms, compare_walk(k, plain_ms)
+    plain_ms = {}
+    compare_ckpt(kc, plain_ms, bwd=False)
+    del kc
+    torch.cuda.empty_cache()
+    return plain_ms["ntc_pv_ckpt"]
 
 
 def phase_11(model, max_err: dict):
@@ -868,13 +999,21 @@ def phase_11(model, max_err: dict):
             # the CPU tests' engine padding
             eng = NTCBatchEngine(model, "rna002", device="cuda", dtype=dtype, t_pad_to=64,
                                  n_pad_to=16, cap_n=caps[0], cap_k=caps[1])
-            keep, kt = bucket_keeps(eng, items)
+            keep, kt = bucket_keeps(eng, items, ckpt=False)  # the full store
             plain_ms = {}
             walked = compare_lattice_kernels(keep, plain_ms, kt)
             R, t_pad = keep["sig"].shape[0], keep["sig"].shape[1] + 1
-            log(f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: K11, K13, K15, K16 and "
-                f"(13a) K17, K18 every output bit for bit, {walked}/{len(items)} reads "
-                f"walked ({time.perf_counter() - t0:.1f} s); plain versions ms "
+            msg = (f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: K11, K13, K15, K16 and "
+                   f"(13a) K17, K18 every output bit for bit, {walked}/{len(items)} reads walked")
+            if caps == WIDE_CAPS:  # the engine's own route there: checkpointed
+                kc = {}
+                eng._dispatch(list(range(len(items))), items, *caps, keep=kc)
+                compare_ckpt(kc, plain_ms)
+                same_routes(kc, keep)
+                msg += ("; the engine's checkpointed route: K14 and K15's checkpoint mode "
+                        "bit for bit with their plain versions and with the full store's outputs")
+                del kc
+            log(f"{msg} ({time.perf_counter() - t0:.1f} s); plain versions ms "
                 + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
             del keep, kt
         torch.cuda.empty_cache()
@@ -887,6 +1026,8 @@ def zstd_stand_in() -> bool:
     import importlib.util
     import types
 
+    if getattr(sys.modules.get("zstandard"), "STAND_IN", False):
+        return True
     if importlib.util.find_spec("zstandard") is not None:
         return False
 
@@ -912,6 +1053,7 @@ def zstd_stand_in() -> bool:
 
     mod = types.ModuleType("zstandard")
     mod.ZstdCompressor = ZstdCompressor
+    mod.STAND_IN = True
     sys.modules["zstandard"] = mod
     return True
 
@@ -942,6 +1084,7 @@ def phase_12(model, bench, launches: dict, long_ref):
     from dynamont_tpu_torch.io import readers
     from dynamont_tpu_torch.models.batch import BatchItem
     from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, WIDE_READS
     from dynamont_tpu_torch.ops import ntc_kernels as kern
     from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
     from dynamont_tpu_torch.ops import ntc_train_kernels as tk
@@ -975,8 +1118,9 @@ def phase_12(model, bench, launches: dict, long_ref):
             f"retries {pr['wide_retries']} ({pr['wide_s']:.2f} s), exact retries "
             f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat} | "
             f"plain {plain} | peak device memory {peak:.2f} GiB")
-        if (any(v == 0 for v in (*lat.values(), *pre.values())) or any(plain.values())
-                or any(kk.LAUNCHES.values()) or any(tk.LAUNCHES.values())):
+        if (any(lat[k] == 0 for k in MAIN_RUNG) or any(v == 0 for v in pre.values())
+                or any(plain.values()) or any(kk.LAUNCHES.values())
+                or any(tk.LAUNCHES.values())):
             raise AssertionError("the engine missed a kernel, ran a plain version or a "
                                  "training kernel")
         if pr["exact_retries"] > 2:
@@ -996,7 +1140,7 @@ def phase_12(model, bench, launches: dict, long_ref):
         items = [BatchItem(job.signal, job.read)
                  for job in readers.generate_tsv_jobs(tsv, True)]
     launches.update(pre)
-    launches.update(lat)
+    launches.update({k: lat[k] for k in MAIN_RUNG})
 
     if long_ref is not None:
         s, r, ref = long_ref
@@ -1014,34 +1158,62 @@ def phase_12(model, bench, launches: dict, long_ref):
 
     # each lattice kernel, and the training kernels (phase 13's full-width
     # part), against its plain version on the bucket the engine ran, then
-    # timed there
+    # timed there. Three processes share the card, the longest run (plain
+    # K15's checkpoint mode) in one spawned process from the start; the
+    # parent's plain K15 + K17 waits for the other's K13 + K18, which
+    # holds the same bucket, and runs with its kernel's outputs on the host
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()  # the card is shared with the child
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        child = pool.apply_async(phase_12_child,
-                                 ([(it.signal, it.read) for it in items[:NTC_READS]],))
+    torch.cuda.empty_cache()  # the card is shared with the spawned processes
+    pairs = [(it.signal, it.read) for it in items[:NTC_READS]]
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        bwd_child = pool.apply_async(phase_12_child, (pairs, "bwd"))
+        wide_child = pool.apply_async(wide_pv_ckpt_child, (pairs[:WIDE_READS],))
+        walk_child = pool.apply_async(phase_12_child, (pairs, "walk"))  # after "bwd"
+        wide_plain_ms = {"ntc_bwd_ckpt": wide_ckpt_plain(eng, items[:WIDE_READS])}
+        log(f"[12] the wide rung's bucket ({WIDE_READS}, 16384) at {WIDE_CAPS}: K14's "
+            f"checkpoints and row 0 bit for bit with its plain version's "
+            f"({wide_plain_ms['ntc_bwd_ckpt'] / 1e3:.1f} s, beside the spawned processes)")
+        plain_ms = bwd_child.get()
+        t1 = time.perf_counter()
         k, kt = bucket_keeps(eng, items[:NTC_READS])
+        host = ((k, ("lp", "choices", "slots")), (kt, ("fwd",)))  # the kernels' outputs
+        for d, fields in host:
+            for f in fields:
+                d[f] = d[f].cpu()
         torch.cuda.empty_cache()
         shape = (k["sig"].shape[0], k["sig"].shape[1] + 1, k["walk_dims"][-1])
         if shape != (NTC_READS, 16384, s_max_of(2048)):
             raise AssertionError(f"engine bucket (R, T_pad, S_max) {shape}")
-        plain_ms = {}
         compare_tab_gather(k, plain_ms)
         compare_forward(k, plain_ms, kt)
-        t1 = time.perf_counter()
-        child_ms, walked = child.get()
-    plain_ms.update(child_ms)
+        t2 = time.perf_counter()
+        walk_ms, walked = walk_child.get()
+        t3 = time.perf_counter()
+        wide_plain_ms["ntc_pv_ckpt"] = wide_child.get()
+    plain_ms.update(walk_ms)
+    for d, fields in host:
+        for f in fields:
+            d[f] = d[f].cuda()
+    del host
+    log(f"[12] the wide rung's bucket: K15's checkpoint mode's lp, choices, slots, apEf and "
+        f"fwdEf bit for bit with its plain version's "
+        f"({wide_plain_ms['ntc_pv_ckpt'] / 1e3:.1f} s in a spawned process)")
     log(f"[12] bucket {shape[:2]} N2 2048 {k['dims']} fp32: K11, K13, K15, K16, K17, K18 "
         f"every output bit for bit with their plain versions, K17's row T_r-1 E with "
         f"K15's fwdEf and K18's b0 with K13's row 0, {walked}/{NTC_READS} reads walked "
-        f"({t1 - t0:.1f} s here for K11, K15 and K17; {time.perf_counter() - t0:.1f} s with "
-        "the spawned process's K13, K18 and K16)")
+        f"(from the pool's start: K13 + K18 ended at {t1 - t0:.1f} s, K11, K15 and K17 here "
+        f"at {t2 - t0:.1f} s, K16 at {t3 - t0:.1f} s, K15's checkpoint mode at "
+        f"{time.perf_counter() - t0:.1f} s)")
     times = lattice_times(k, plain_ms)
     del k
     times.update(train_times(kt, plain_ms))
     del kt
     torch.cuda.empty_cache()
-    wide_rung(model, eng, items)
+    wide_rung(model, eng, items, launches)
+    wide = wide_routes(eng, items[:WIDE_READS], wide_plain_ms)
+    times["ntc_bwd_ckpt"] = wide["ntc_bwd_ckpt"]
+    times["ntc_pv"]["ckpt"] = dict(wide["ntc_pv_ckpt"], launches=launches.pop("ntc_pv_ckpt"),
+                                   max_abs_err=0.0)  # bit for bit, or a check raised
     return times
 
 
@@ -1120,13 +1292,108 @@ def train_times(kt: dict, plain_ms: dict) -> dict:
     }
 
 
-def wide_rung(model, eng, items) -> None:
+def wide_ckpt_plain(eng, items) -> float:
+    """Plain K14 on the wide rung's bucket (`items` at WIDE_CAPS, where the
+    engine takes the checkpointed route) against the kernel's checkpoints
+    and row 0, bit for bit; returns its CUDA-event ms."""
+    import torch
+
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS
+
+    kc = {}
+    eng._dispatch(list(range(len(items))), items, *WIDE_CAPS, keep=kc)
+    for f in ("lp", "choices", "slots", "rec"):
+        del kc[f]
+    torch.cuda.empty_cache()  # the card is shared with the spawned processes
+    plain_ms = {}
+    compare_ckpt(kc, plain_ms, pv=False)
+    del kc
+    torch.cuda.empty_cache()
+    return plain_ms["ntc_bwd_ckpt"]
+
+
+def wide_routes(eng, items, plain_ms: dict) -> dict:
+    """The wide rung's bucket (`items` at WIDE_CAPS) through both lattice
+    routes: each route's bucket-program wall time and peak memory; the
+    outputs bit for bit equal (same_routes); then K13 and K15 on the full
+    store's inputs, and K14 and K15's checkpoint mode on the checkpointed
+    route's, timed there. Returns the timing entries of ntc_bwd_ckpt and
+    ntc_pv_ckpt (their plain times, `plain_ms`, measured by wide_ckpt_plain
+    and wide_pv_ckpt_child)."""
+    import torch
+
+    from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    gidx = list(range(len(items)))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    walls = {}
+    for route, ckpt in (("full store, K13 + K15", False),
+                        ("checkpointed, K14 + K15's checkpoint mode", True)):
+        for rep in range(2):  # the first warms the allocator
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eng._dispatch(gidx, items, *WIDE_CAPS, ckpt=ckpt)
+            torch.cuda.synchronize()
+            walls[route] = ((time.perf_counter() - t0) * 1e3,
+                            (torch.cuda.max_memory_allocated() - held) / 2**30)
+            torch.cuda.empty_cache()
+    log(f"[12] the wide rung's bucket ({len(items)}, 16384) at {WIDE_CAPS}, each route's "
+        "bucket program (host clock, second run; peak above what was held): "
+        + "; ".join(f"{r} {ms:.1f} ms, peak {gb:.2f} GiB" for r, (ms, gb) in walls.items()))
+
+    kf, kc = {}, {}
+    eng._dispatch(gidx, items, *WIDE_CAPS, keep=kf, ckpt=False)
+    p, dims, prm, sig, tl = kf["plan"], kf["dims"], kf["prm"], kf["sig"], kf["trans_log"]
+    N_r, T_r, Zb = kf["N_r"], kf["T_r"], kf["Zb"]
+    ms_full = {"ntc_bwd": cuda_ms(lambda: kern.bwd(p, dims, prm, sig, tl, N_r, T_r), 1),
+               "ntc_pv": cuda_ms(lambda: kern.pv(p, dims, prm, sig, kf["bwd"], Zb, tl, T_r), 1)}
+    C = nb.C_CKPT
+    kf["ckpt_rows"], kf["row0"] = kf["bwd"][C::C].clone(), kf["bwd"][0].clone()
+    del kf["bwd"], p, prm, sig
+    torch.cuda.empty_cache()
+    eng._dispatch(gidx, items, *WIDE_CAPS, keep=kc)
+    same_routes(kc, kf)
+    del kf
+    torch.cuda.empty_cache()
+    p, dims, prm, sig, tl = kc["plan"], kc["dims"], kc["prm"], kc["sig"], kc["trans_log"]
+    N_r, T_r, ckpt, Zb = kc["N_r"], kc["T_r"], kc["ckpt"], kc["Zb"]
+    for f in ("lp", "choices", "slots", "rec"):
+        del kc[f]
+    cells = int(T_r.sum()) * dims.CN * dims.CK
+    bwd_in = [sig, p.cand_n, p.allowed, p.hd, p.d01, p.d02, p.brow_same, p.brow_next,
+              p.bcol_same, p.bcol_suc, *prm, N_r, T_r]
+    pv_in = bwd_in + [p.row_same, p.row_prev, p.col_same, p.col_prec, ckpt, Zb]
+    log(f"[12] the wide rung's bucket {dims} fp32: outputs of both routes bit for bit "
+        f"(checkpoints = the store's rows (c+1)*{C}, row 0, Zb, lp, choices, slots, finals, "
+        f"walk); full store K13 {ms_full['ntc_bwd']:.3f} ms, K15 {ms_full['ntc_pv']:.3f} ms; "
+        "checkpointed route (plain: the runs beside the spawned processes):")
+    times = {
+        "ntc_bwd_ckpt": timed(
+            "ntc_bwd_ckpt", lambda: kern.bwd_ckpt(p, dims, prm, sig, tl, N_r, T_r),
+            plain_ms["ntc_bwd_ckpt"], bwd_in, cells, 2),
+        "ntc_pv_ckpt": timed(
+            "ntc_pv_ckpt", lambda: kern.pv_ckpt(p, dims, prm, sig, ckpt, Zb, tl, N_r, T_r),
+            plain_ms["ntc_pv_ckpt"], pv_in, cells, 2),
+    }
+    del kc, p, prm, sig, ckpt
+    torch.cuda.empty_cache()
+    return times
+
+
+def wide_rung(model, eng, items, launches: dict) -> None:
     """The engine's wide rung at full width: caps (2, 2) overflow every one
     of WIDE_READS phase-12 reads, which then re-run in one bucket at the
-    wide caps. Every NTC kernel launches twice (the tiny main bucket, the
-    wide one), no plain version runs, no read reaches the exact rung, and
-    each read stays within the fp32-against-exact bounds of its main-rung
-    result (`eng`'s)."""
+    wide caps. The pre-pass kernels, K11 and K16 launch twice (the tiny
+    main bucket, the wide one), K13 and K15 once (the main bucket's full
+    store) and K14 and K15's checkpoint mode once (the wide bucket's
+    checkpointed route); no plain version runs, no read reaches the exact
+    rung, and each read stays within the fp32-against-exact bounds of its
+    main-rung result (`eng`'s). Puts the checkpointed kernels' launches
+    into `launches`."""
     import torch
 
     from dynamont_tpu_torch.models.batch import BatchOutput
@@ -1157,9 +1424,12 @@ def wide_rung(model, eng, items) -> None:
         f"{pr['wide_retries']}, exact retries {pr['exact_retries']} | launches {pre} {lat} | "
         f"plain {plain} | peak device memory {peak:.2f} GiB, {peak - held:.2f} GiB above "
         f"the {held:.2f} GiB held before")
-    if (pr["wide_retries"] != WIDE_READS or pr["exact_retries"]
-            or any(v != 2 for v in (*lat.values(), *pre.values())) or any(plain.values())):
+    want = {"ntc_tab_gather": 2, "ntc_walk": 2, "ntc_bwd": 1, "ntc_pv": 1,
+            "ntc_bwd_ckpt": 1, "ntc_pv_ckpt": 1}
+    if (pr["wide_retries"] != WIDE_READS or pr["exact_retries"] or lat != want
+            or any(v != 2 for v in pre.values()) or any(plain.values())):
         raise AssertionError("the wide rung missed a kernel, a read or fell further")
+    launches.update(ntc_bwd_ckpt=lat["ntc_bwd_ckpt"], ntc_pv_ckpt=lat["ntc_pv_ckpt"])
     worst = (0, 0.0, 0.0)
     for i, (got, ref) in enumerate(zip(outs, main)):
         if got.error is not None or ref.error is not None:
@@ -1220,7 +1490,7 @@ def phase_13(model, bench, launches: dict) -> None:
                 f"launches {used} | plain {plain} | exact rung {trainer.fp64_reads} | peak "
                 f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             if (any(used[k] == 0 for k in path_kernels)
-                    or any(used[k] for k in ("ntc_bwd", "ntc_pv", "ntc_walk"))
+                    or any(used[k] for k in (*MAIN_RUNG[1:], *CKPT_ROUTE[1:]))
                     or any(plain.values()) or any(kk.LAUNCHES.values())
                     or trainer.fp64_reads > 1):
                 raise AssertionError("the NTC training path missed a kernel, ran one off "
@@ -1279,6 +1549,196 @@ def phase_13(model, bench, launches: dict) -> None:
         f"split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
         + f" | peak device memory {peak:.2f} GiB | exact rung {eng.profile['exact_retries']} "
         f"reads in {STEPS + 1} steps")
+
+
+def table9(path: str):
+    """A seeded synthetic 9-mer table of the real shape (K = 4^9 rows, means
+    U(-2, 2), stdevs U(0.15, 0.4), as tests/test_9mer.py builds its tables;
+    the rna004_9mer and DNA r10 tables are not in the repository), saved as
+    an .npz model at `path` and loaded back as the CLI loads it."""
+    import numpy as np
+
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+
+    rng = np.random.default_rng(9)
+    np.savez(path, means=rng.uniform(-2.0, 2.0, K9), stdevs=rng.uniform(0.15, 0.4, K9),
+             alphabet_size=4, kmer_size=9)
+    return load_model_for_pore("rna004", path)
+
+
+def phase_14(model, bench, lm, le) -> None:
+    """Native 9-mer NTC (module docstring): (a) the checkpoint-recompute TK
+    pre-pass against the dense K9/K10 route on phase 9's bucket; (b) the
+    lattice kernels against their plain versions at K = 4^9 on short reads;
+    (c) 16 reads of 1800 bases through the resquiggle CLI with
+    --ntc-native-9mer, and the bucket's stages timed."""
+    import torch
+
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import BIGK_WIDE_CAPS, NTCBatchEngine
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.utils.synthetic import make_read
+
+    # (a) phase 9's 5-mer bucket through both TK routes
+    sig, _, _, T_r = pre_bucket(model, bench[:NTC_READS], 16384, 2048)
+    means, _, c1, c2 = model_tensors(model)
+    args = (sig, T_r, means, c1, c2, lm, le, model.alphabet_size, CK0, torch.float32)
+    kn.reset_counts()
+    dense, ms_dense = timed_once(lambda: nb.pre_tk_batch(*args))
+    used = dict(kn.LAUNCHES)
+    ckpt, ms_ckpt = timed_once(lambda: nb.pre_tk_batch_ckpt(*args, chunk=128))
+    if used["ntc_tk_bwd"] != 1 or used["ntc_tk_fwd_u"] != 1 or kn.LAUNCHES != used:
+        raise AssertionError(f"TK routes: launches {used} then {kn.LAUNCHES}")
+    for f in ("cand", "cnt", "overflow", "Zf", "Zb"):
+        same(f"pre_tk_batch_ckpt {f} against the dense route", getattr(ckpt, f),
+             getattr(dense, f))
+    log(f"[14a] ({NTC_READS}, 16384) K {model.num_kmers} CK0 {CK0} fp32: the checkpoint-"
+        f"recompute TK pass bit for bit with K9 -> K10 (cand, cnt, overflow, Zf, Zb); "
+        f"{ms_ckpt:.1f} ms against {ms_dense:.1f} ms")
+    del sig, T_r, dense, ckpt
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="dynamont_9mer_") as tmp:
+        npz = os.path.join(tmp, "rna9.npz")
+        m9 = table9(npz)
+        # (b) the lattice kernels at K = 4^9 on short reads
+        short = [BatchItem(*make_read(m9, n_bases=n, seed=s)) for s, n in ((0, 25), (1, 31))]
+        gidx = list(range(len(short)))
+        for dtype in (torch.float32,):  # the native path's dtype (fp64: phase 11, 5-mer)
+            t0 = time.perf_counter()
+            eng9 = NTCBatchEngine(m9, "rna004", device="cuda", dtype=dtype, native_kmer=True,
+                                  t_pad_to=64, n_pad_to=16)
+            plain_ms = {}
+            k = {}
+            eng9._dispatch(gidx, short, CN, CK0, keep=k)
+            walked = compare_lattice_kernels(k, plain_ms)
+            kf, kc = {}, {}
+            eng9._dispatch(gidx, short, *BIGK_WIDE_CAPS, keep=kf, ckpt=False)
+            compare_lattice_kernels(kf, plain_ms)
+            eng9._dispatch(gidx, short, *BIGK_WIDE_CAPS, keep=kc)
+            compare_tab_gather(kc, plain_ms)
+            compare_ckpt(kc, plain_ms)
+            compare_walk(kc, plain_ms)
+            same_routes(kc, kf)
+            log(f"[14b] K {K9} bucket {(len(short), k['sig'].shape[1] + 1)} {dtype}: at "
+                f"{k['dims']} K11, K13, K15, K16, at {kc['dims']} K11, K13, K14, K15 and its "
+                f"checkpoint mode, K16 every output bit for bit with their plain versions, "
+                f"both routes equal; {walked}/{len(short)} reads walked "
+                f"({time.perf_counter() - t0:.1f} s)")
+            del k, kf, kc, eng9
+            torch.cuda.empty_cache()
+        # (c) the CLI on 16 reads of the phase-4 shape drawn from the table
+        reads = []
+        for s in range(NTC_READS):
+            sg, rd = make_read(m9, n_bases=N_BASES, mean_dwell=MEAN_DWELL, seed=s)
+            reads.append((sg[:T_TRIM], rd))
+        phase_14_cli(m9, npz, reads, tmp)
+
+
+@contextlib.contextmanager
+def stage_events(targets):
+    """Wrap each (module, attribute, label) function with CUDA events for
+    the duration; yields the {label: [(start, end), ...]} it fills (the
+    wrapped functions still count their launches)."""
+    import torch
+
+    events: dict = {}
+    saved = []
+    for mod, attr, label in targets:
+        fn = getattr(mod, attr)
+
+        def wrapped(*args, _fn=fn, _label=label, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = _fn(*args, **kw)
+            ev[1].record()
+            events.setdefault(_label, []).append(ev)
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, wrapped)
+    try:
+        yield events
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def phase_14_cli(m9, npz: str, reads, tmp: str) -> None:
+    """Phase 14(c): the resquiggle CLI with --ntc-native-9mer on `reads`,
+    every launch counter reset right before and read right after, its
+    bucket program's stages on CUDA events (stage_events)."""
+    import torch
+
+    from dynamont_tpu_torch.cli import resquiggle
+    from dynamont_tpu_torch.models import ntc_batch as mb
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    plain_csv = zstd_stand_in()
+    tsv, out = os.path.join(tmp, "reads9.tsv"), os.path.join(tmp, "out9.csv.zst")
+    write_tsv(tsv, reads)
+    stages = [(mb.nb, "pre_tn_batch", "TN pre-pass (K7, K8, selection)"),
+              (mb, "_pre_tk", "TK checkpoint-recompute pass"),
+              (mb.nb, "build_plan_batch", "plan"), (kern, "tab_gather", "K11"),
+              (kern, "bwd", "K13"), (kern, "pv", "K15"), (kern, "bwd_ckpt", "K14"),
+              (kern, "pv_ckpt", "K15 checkpoint mode"), (kern, "walk", "K16")]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    for mod in (kk, kn, kern, tk):
+        mod.reset_counts()
+    with stage_events(stages) as events:
+        t0 = time.perf_counter()
+        eng = resquiggle.main(["--tsv", tsv, "-o", out, "--mode", "resquiggle", "-p",
+                               "rna004", "--model_path", npz, "--ntc-native-9mer",
+                               "--device", "cuda", "--profile"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lat, pre = dict(kern.LAUNCHES), dict(kn.LAUNCHES)
+    plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pr = eng.profile
+    log(f"[14c] CLI --mode resquiggle -p rna004 --ntc-native-9mer, K {eng.model.num_kmers}, "
+        f"{len(reads)} reads of {N_BASES} bases, T {T_TRIM}: {wall:.2f} s wall = "
+        f"{len(reads) / wall:.2f} reads/s | engine dispatch {pr['dispatch_s']:.3f} s, collect "
+        f"{pr['collect_s']:.3f} s | wide retries {pr['wide_retries']} ({pr['wide_s']:.2f} s), "
+        f"exact retries {pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat} | "
+        f"plain {plain} | peak device memory {peak:.2f} GiB ({held:.2f} GiB held before)")
+    split = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()}
+    log(f"[14c] the CLI's bucket programs, stages on CUDA events (ms, summed over "
+        f"{pr['buckets']} main and {pr['wide_retries']} wide-rung reads' buckets): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    if (eng.model.num_kmers != K9 or pre["ntc_tk_bwd"] or pre["ntc_tk_fwd_u"]
+            or not (pre["ntc_tn_fwd"] and pre["ntc_tn_bwd_sel"])
+            or any(lat[k] == 0 for k in MAIN_RUNG) or any(plain.values())
+            or any(kk.LAUNCHES.values()) or any(tk.LAUNCHES.values())):
+        raise AssertionError("the native 9-mer path launched K9/K10, missed a kernel or ran "
+                             "a plain version")
+    errors = os.path.join(tmp, "out9.errors")
+    err_lines = []
+    if os.path.exists(errors):
+        with open(errors) as f:
+            err_lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    if any("out of memory" in ln for ln in err_lines):
+        raise AssertionError(f"out of memory: {err_lines[:3]}")
+    rows = read_rows(out, plain_csv) if os.path.exists(out) else []
+    per_read = {f"r{i}": 0 for i in range(len(reads))}
+    for row in rows:
+        per_read[row[0]] += 1
+    failed = {ln.split("Rid: ")[1].split("\t")[0] for ln in err_lines if "Rid: " in ln}
+    missing = [r for r, n in per_read.items() if n == 0 and r not in failed]
+    log(f"[14c] {len(rows)} CSV rows, {sum(n > 0 for n in per_read.values())} reads segmented "
+        f"(rows per read {min(per_read.values())}-{max(per_read.values())}), "
+        f"{len(failed)} error lines" + "".join(f"; {ln[:160]}" for ln in err_lines[:3]))
+    if missing:
+        raise AssertionError(f"reads with neither rows nor an error line: {missing}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def ntc_train_split(eng, items) -> dict:
@@ -1680,6 +2140,10 @@ def main(argv=None) -> int:
     phase.start("13")
     if want("13"):
         phase_13(model, bench, launches)
+    # 14. native 9-mer NTC
+    phase.start("14")
+    if want("14"):
+        phase_14(model, bench, lm, le)
     phase.end()
 
     kernels = []

@@ -5,7 +5,8 @@ Reads come from a plain TSV (--tsv) or a dorado BAM + raw directory; they
 are bucketed and segmented on one device by the banded engine (--mode
 basic) or the NTC engine (--mode resquiggle, models/ntc_batch), and the
 results stream to a zstd CSV with the reference's columns and `.errors`
-sidecar. --ntc-native-9mer is not ported yet.
+sidecar. --ntc-native-9mer runs a >5-mer model at its native K in
+resquiggle mode instead of reducing it to 5-mer tables.
 
     python -m dynamont_tpu_torch.cli.resquiggle --tsv reads.tsv \\
         -o out.csv.zst --mode basic|resquiggle -p rna002 [--device cuda]
@@ -47,8 +48,10 @@ def build_parser() -> ArgumentParser:
                    help="continue an interrupted run: reads already in the "
                         "output CSV are skipped, new results are appended")
     p.add_argument("--ntc-native-9mer", action="store_true",
-                   help="resquiggle mode with a >5-mer model at native K "
-                        "(not yet ported; such models run reduced to 5-mer)")
+                   help="resquiggle mode with a >5-mer model: run NTC at "
+                        "native K (true 9-mer polish calls, ref: "
+                        "NTC_main.cpp:95-99) instead of the reduced 5-mer "
+                        "tables; memory-heavy")
     p.add_argument("--profile", action="store_true",
                    help="print engine wall-clock accounting to stderr")
     return p
@@ -59,10 +62,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
-        raise SystemExit(2)
-    if args.ntc_native_9mer:
-        print("--ntc-native-9mer is not yet ported to the PyTorch package; "
-              "use dynamont_tpu's dynamont-resquiggle", file=sys.stderr)
         raise SystemExit(2)
     if args.batch_size is None:
         args.batch_size = 32 if args.mode == "basic" else 16
@@ -119,7 +118,8 @@ def main(argv=None):
             # cap-overflow reads re-run inside the engine (wide rung, then
             # the exact per-read path)
             eng = NTCBatchEngine(model, args.pore, device=device,
-                                 batch_size=args.batch_size)
+                                 batch_size=args.batch_size,
+                                 native_kmer=args.ntc_native_9mer)
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: ")
     finally:
         writer.close()
@@ -159,10 +159,24 @@ def _emit(writer, job, out, model, rna) -> None:
         job.read, model.kmer_size, rna))
 
 
+def _dump_failed_input(job) -> str:
+    """Repro dump for a read that crashed the engine: the reference stdin
+    format (signal csv line + read line), like the reference's training
+    repro dump (ref: FileIO.py:281-283). Returns the dump path."""
+    path = f"failed_input_{job.readid}.txt"
+    with open(path, "w") as fh:
+        fh.write(",".join(repr(float(v)) for v in job.signal))
+        fh.write("\n")
+        fh.write(job.read)
+        fh.write("\n")
+    return path
+
+
 def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
     """Stream jobs through the engine, dispatching chunk i+1 before
     collecting chunk i. A chunk whose run raises is re-run read by read,
-    so one bad read costs only itself a sidecar line. A chunk is four
+    so one bad read costs only itself a sidecar line and a repro dump
+    (_dump_failed_input, in the working directory). A chunk is four
     buckets of the mode's batch size."""
     from dynamont_tpu_torch.models.batch import BatchItem
 
@@ -187,10 +201,11 @@ def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
             try:
                 emit(eng.run([BatchItem(job.signal, job.read, job)]))
             except Exception as e:  # the read itself breaks the engine
+                path = _dump_failed_input(job)
                 writer.put_error(
                     f"error: engine exception, {e}\tT: {len(job.signal)}"
                     f"\tN: {len(job.read)}\tRid: {job.readid}"
-                    f"\tSid: {job.signalid}")
+                    f"\tSid: {job.signalid}\tdump: {path}")
 
     def collect_oldest():
         handle, part = window.popleft()

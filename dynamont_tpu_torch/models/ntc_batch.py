@@ -8,15 +8,25 @@ The bucket program (ntc_bucket_program): TN and TK pre-pass (K7-K10) ->
 plan -> K11 parameter gathers -> K13 backward -> Zb -> K15 forward,
 posteriors and Viterbi -> Zf -> start slots -> K16 walk -> segment
 summaries. On CUDA tensors every kernel runs on the card; on CPU tensors
-their plain versions run (ops/ntc_kernels).
+their plain versions run (ops/ntc_kernels). Where CK > 128 (every wide
+rung) the lattice takes the checkpointed route, as JAX's BWD_CKPT does:
+K14 stores the backward row entering every 8th row and row 0, and K15's
+checkpoint mode re-derives the rows in between (bit for bit the full
+store's); lp stays in the working dtype.
+
+Native 9-mer NTC (native_kmer=True with a >5-mer model, ref:
+NTC_main.cpp:95-99) runs the same program at K = 4^k, as JAX's kernel
+route does: the TK pre-pass becomes the checkpoint-recompute torch pass
+(ops/ntc_batch.pre_tk_batch_ckpt; K9 and K10 take at most 4096 columns),
+which searches the main rung's crossing within the top BIGK_TK_SEL_CAP
+values.
 
 Escalation, as in the JAX engine: a read whose 95%-mass columns overflow the
 candidate caps (or whose walk overflows) re-runs in a wide rung at (16, 240)
-caps, at most 8 reads per bucket; what still fails goes to the exact
-per-read fp64 path (models/ntc.run_ntc), which escalates its own CAP_LADDER.
-The JAX engine runs its wide rung with the checkpointed backward kernel #14
-because the full store does not fit a TPU v5e's HBM next to the rest; the
-port runs K13 with a full store there too.
+caps ((16, 256) at native big K, JAX's scan-rung caps), at most 8 reads per
+bucket; what still fails goes to the exact per-read fp64 path
+(models/ntc.run_ntc), which escalates its own CAP_LADDER and refuses a read
+whose (T+1) * K * 8 bytes exceed 2 GiB.
 
 Training (train(), ref: NTC.cpp:923-1130) runs ntc_train_bucket_program
 per bucket: the pre-pass and the plan as above, then K17 forward store ->
@@ -30,8 +40,10 @@ What differs from the JAX engine: one device, given explicitly; the read
 axis is padded to the bucket's own size, not to the TPU geometry's 16; the
 caps are the JAX kernel route's on every device, and train() runs the
 batched program in both precisions (the JAX engine runs it only on its
-fp32 kernel route, every read on the exact path elsewhere); native 9-mer
-NTC is not ported yet.
+fp32 kernel route, every read on the exact path elsewhere); the native
+big-K wide rung runs the kernel route at the scan rung's caps; training
+runs at K <= 4096 only (the JAX package trains no native big-K model
+either).
 """
 
 from __future__ import annotations
@@ -53,50 +65,85 @@ from dynamont_tpu_torch.ops import ntc_batch as nb
 from dynamont_tpu_torch.ops import ntc_kernels as kern
 from dynamont_tpu_torch.ops import ntc_train_kernels as tkern
 from dynamont_tpu_torch.ops import ntc_walk as nw
+from dynamont_tpu_torch.ops.ntc_pre_kernels import BIG_K
 from dynamont_tpu_torch.ops.ntc_train import TRAIN_THRESHOLD
 from dynamont_tpu_torch.utils.kmer import int2kmer, int2kmers_batch, seq_to_kmer_ids
 from dynamont_tpu_torch.utils.logmath import logsumexp
 
 FP32_EPSILON = 1e-6   # per-cell Z tolerance of the fp32 gates (BASELINE.md)
 WIDE_CAPS = (16, 240)  # the wide rung's (cap_n, cap_k): CK = 256
+BIGK_WIDE_CAPS = (16, 256)  # at native big K (JAX's scan rung): CK = 272
 WIDE_READS = 8         # reads per wide-rung bucket
+CKPT_CK = 128          # CK above which the lattice takes the checkpointed route
+# the main rung's TK crossing is searched in the top 48 values at big K
+# (JAX models/ntc_batch.py:36-40); the wide rung keeps the full width
+BIGK_TK_SEL_CAP = 48
+
+
+def _pre_tk(sig, T_r, tensors: dict, K: int, A: int, log_ppm: float,
+            log_ppe: float, CK0: int, dtype):
+    """The TK pre-pass: K9 -> K10 up to K = 4096, above it the
+    checkpoint-recompute pass with JAX's chunk and selection width."""
+    args = (sig, T_r, tensors["means"], tensors["c1"], tensors["c2"],
+            log_ppm, log_ppe, A, CK0, dtype)
+    if K <= BIG_K:
+        return nb.pre_tk_batch(*args)
+    sel = BIGK_TK_SEL_CAP if BIGK_TK_SEL_CAP < CK0 <= CKPT_CK else None
+    return nb.pre_tk_batch_ckpt(*args, chunk=math.gcd(sig.shape[1] + 1, 128),
+                                sel_cap=sel)
 
 
 def ntc_bucket_program(sig, kid, N_r, T_r, tensors: dict, *, A: int, S: int,
                        log_ppm: float, log_ppe: float, trans_log: dict,
                        CN: int, CK0: int, S_max: int, dtype,
-                       keep: dict | None = None) -> dict:
+                       keep: dict | None = None,
+                       ckpt: bool | None = None) -> dict:
     """One bucket through the whole NTC pipeline: sig (R, T_pad-1), kid
     (R, N2-1) int32, N_r/T_r (R,) int32, all on one device; `tensors` the
     model's means, stdevs, c1, c2 and K11's table there. Returns the
     per-read Z values, flags and segment summaries as device tensors.
 
-    `keep`, when given, receives each lattice kernel's inputs and outputs
-    (plan, dims, ks, table, prm, sig, bwd, Zb, N_r, T_r, trans_log,
-    walk_dims, lp, choices, slots, apEf, fwdEf, start, rec, fin), so that
-    each kernel can be held against its plain version on the bucket the
-    engine ran; `bwd` is then a copy of the backward store taken before lp
-    is written over it."""
+    `ckpt` picks the lattice's route: the checkpointed one (K14, K15's
+    checkpoint mode) or the full store (K13, K15); None takes the
+    checkpointed route where CK > CKPT_CK. `keep`, when given, receives
+    each lattice kernel's inputs and outputs (plan, dims, ks, table, prm,
+    sig, Zb, N_r, T_r, trans_log, walk_dims, lp, choices, slots, apEf,
+    fwdEf, start, rec, fin; and `bwd`, a copy of the backward store taken
+    before lp is written over it, or `ckpt` and `row0`), so that each
+    kernel can be held against its plain version on the bucket the engine
+    ran."""
     means, stdevs = tensors["means"], tensors["stdevs"]
     K = means.shape[0]
     pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, log_ppm, log_ppe,
                          CN, dtype)
-    pk = nb.pre_tk_batch(sig, T_r, means, tensors["c1"], tensors["c2"],
-                         log_ppm, log_ppe, A, CK0, dtype)
+    pk = _pre_tk(sig, T_r, tensors, K, A, log_ppm, log_ppe, CK0, dtype)
     plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid,
                                      N_r, K, A, S, pn.kn1, pn.kn2)
     ks = nb.gather_index(plan)
     prm = kern.tab_gather(ks, tensors["table"], dims)
     sigd = sig.to(dtype).contiguous()
-    bwd = kern.bwd(plan, dims, prm, sigd, trans_log, N_r, T_r)
-    Zb = nb.ntc_zb_batch(plan, bwd[0])
     if keep is not None:
         keep.update(plan=plan, dims=dims, ks=ks, table=tensors["table"],
-                    prm=prm, sig=sigd, bwd=bwd.clone(), Zb=Zb, N_r=N_r,
-                    T_r=T_r, trans_log=trans_log, walk_dims=(K, A, S, S_max))
-    # lp is written over the backward store (row t read before written)
-    lp, choices, slots, apEf, fwdEf = kern.pv(plan, dims, prm, sigd, bwd, Zb,
-                                              trans_log, T_r, out=bwd)
+                    prm=prm, sig=sigd, N_r=N_r, T_r=T_r, trans_log=trans_log,
+                    walk_dims=(K, A, S, S_max))
+    if ckpt is None:
+        ckpt = dims.CK > CKPT_CK
+    if ckpt:
+        ckpts, row0 = kern.bwd_ckpt(plan, dims, prm, sigd, trans_log, N_r, T_r)
+        Zb = nb.ntc_zb_batch(plan, row0)
+        if keep is not None:
+            keep.update(ckpt=ckpts, row0=row0, Zb=Zb)
+        lp, choices, slots, apEf, fwdEf = kern.pv_ckpt(
+            plan, dims, prm, sigd, ckpts, Zb, trans_log, N_r, T_r)
+        del ckpts
+    else:
+        bwd = kern.bwd(plan, dims, prm, sigd, trans_log, N_r, T_r)
+        Zb = nb.ntc_zb_batch(plan, bwd[0])
+        if keep is not None:
+            keep.update(bwd=bwd.clone(), Zb=Zb)
+        # lp is written over the backward store (row t read before written)
+        lp, choices, slots, apEf, fwdEf = kern.pv(plan, dims, prm, sigd, bwd,
+                                                  Zb, trans_log, T_r, out=bwd)
     Zf = nb.ntc_zf_batch(plan, fwdEf, N_r, T_r)
     i0, j0, k0, valid = nw.start_slots(plan, apEf, N_r, T_r)
     rec, fin = kern.walk(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
@@ -217,10 +264,7 @@ class NTCBatchEngine:
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
-        if model.kmer_size > 5:
-            if native_kmer:
-                raise NotImplementedError(
-                    "native 9-mer NTC is not yet ported to the PyTorch package")
+        if model.kmer_size > 5 and not native_kmer:
             from dynamont_tpu_torch.utils.pore_model import reduce_model_to_5mer
 
             print(f"NTC: reducing {model.kmer_size}-mer model to 5-mer "
@@ -238,6 +282,7 @@ class NTCBatchEngine:
         self.cap_k = cap_k
         self.fallback = fallback
         self.wide_retry = wide_retry
+        self.wide_caps = BIGK_WIDE_CAPS if model.num_kmers > BIG_K else WIDE_CAPS
         self._eps = EPSILON if dtype == torch.float64 else FP32_EPSILON
         ntk = resolve_transitions(NTK_TRANSITIONS[pore], transition_overrides)
         self.trans_log = {k: math.log(v) for k, v in ntk.items()}
@@ -338,6 +383,10 @@ class NTCBatchEngine:
         default the exact per-read path in train mode (_train_exact).
         Returns, per read, (trained_transitions, trained_emissions, Z) or
         an Exception."""
+        if self.model.num_kmers > BIG_K:
+            raise NotImplementedError(
+                f"NTC training at K = {self.model.num_kmers}: training runs "
+                f"the dense TK pre-pass kernels, which take K <= {BIG_K}")
         exact = exact or self._train_exact
         outputs: list = [None] * len(items)
         valid: list[int] = []
@@ -395,7 +444,7 @@ class NTCBatchEngine:
         return res.trained_transitions, res.trained_emissions, res.Z
 
     def _dispatch(self, gidx, items, cap_n: int, cap_k: int,
-                  keep: dict | None = None):
+                  keep: dict | None = None, ckpt: bool | None = None):
         T_arr, N_arr, sig, kid, N2 = self._pad_bucket(gidx, items)
         # segment cap: one per base plus polish slack (overflow -> ladder)
         S_max = round_up(N2 + N2 // 4 + 64, 128)
@@ -405,7 +454,7 @@ class NTCBatchEngine:
             self.tensors, A=self.model.alphabet_size, S=self.model.kmer_size,
             log_ppm=self.log_ppm, log_ppe=self.log_ppe,
             trans_log=self.trans_log, CN=cap_n, CK0=cap_k, S_max=S_max,
-            dtype=self.dtype, keep=keep)
+            dtype=self.dtype, keep=keep, ckpt=ckpt)
         host = {k: _to_host(v) for k, v in res.items()}
         done = None
         if self.device.type == "cuda":
@@ -490,13 +539,13 @@ class NTCBatchEngine:
         return [(st, bp, t0, p * scale, pk) for st, bp, t0, p, pk in segs]
 
     def _run_wide(self, idxs: list[int], items, outputs) -> list[int]:
-        """The wide rung: overflowing reads re-run at WIDE_CAPS in buckets of
-        at most WIDE_READS. Returns the reads that still overflow or fail
-        their Z gates (a wide-rung Z failure is not terminal: the exact
-        path may succeed)."""
+        """The wide rung: overflowing reads re-run at self.wide_caps in
+        buckets of at most WIDE_READS. Returns the reads that still overflow
+        or fail their Z gates (a wide-rung Z failure is not terminal: the
+        exact path may succeed)."""
         still: list[int] = []
         for gidx in self._buckets(idxs, items, min(self.batch_size, WIDE_READS)):
-            bucket = self._dispatch(gidx, items, *WIDE_CAPS)
+            bucket = self._dispatch(gidx, items, *self.wide_caps)
             still += self._collect(bucket, items, outputs)
             for i in gidx:
                 if (i not in still and outputs[i] is not None
@@ -513,6 +562,14 @@ class NTCBatchEngine:
         if not self.fallback:
             return BatchOutput(it, None, math.nan,
                                "candidate cap overflow (no fallback)")
+        # the per-read path holds four (T, K) fp64 matrices: at native big K
+        # a long read would ask for tens of GB (JAX models/ntc_batch.py:883-898)
+        K = self.model.num_kmers
+        if (len(it.signal) + 1) * K * 8 > 2**31:
+            return BatchOutput(
+                it, None, math.nan,
+                "candidate cap overflow (read too long for the exact "
+                f"fp64 path at K={K}; retry with larger caps)")
         from dynamont_tpu_torch.models.ntc import (
             NTCPreprocessError, NTCZError, run_ntc,
         )

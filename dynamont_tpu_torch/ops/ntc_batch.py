@@ -19,9 +19,11 @@ forward-backward identity, but the global Z drifts from the per-column
 sums in fp32 over ~16k steps). The per-read rung (ops/ntc_pre) keeps the
 reference's global Z; the two round differently.
 
-Not ported here: the native 9-mer (K = 4^9) branches — the two-stage
-top-cap of select_topk, pre_tk_batch_ckpt and the big-K plan — which
-belong to the native 9-mer slice.
+Native 9-mer NTC (K = 4^9) adds select_topk's two-stage top-cap and
+pre_tk_batch_ckpt, the checkpoint-recompute TK pre-pass. The plan needs no
+big-K branch: it builds no (T, K+1) tables (a sort and a binary search
+find the slots), so its fields equal JAX's build_plan_batch(bigk=True)'s
+on every live slot.
 """
 
 from __future__ import annotations
@@ -47,18 +49,36 @@ def select_topk(U, cap: int, ge_break: bool, col_live, sentinel: int):
     prefix and `sentinel` elsewhere, count, overflow). The top-cap is
     lax.top_k's: descending, ties to the lower index — by iterated
     max-extraction up to cap 16 (as the JAX function), else by a stable
-    descending sort (torch.topk does not order ties).
+    descending sort (torch.topk does not order ties). At big K (W >= 32768,
+    native 9-mer) it is JAX's exact two-stage top-cap: the top `cap` blocks
+    of 128 lanes by their maxima, then the top `cap` of their cap*128
+    lanes; ties within a block go to the lower lane, across blocks in
+    block-max order (the JAX function's, ops/ntc_batch.py:95-115).
     """
+    W = U.shape[-1]
     if cap <= 16:
         vals, idx = _topk_maxmask(U, cap)
+    elif W >= 32768 and cap * 128 <= W and W % 128 == 0:
+        rows = U.shape[0]
+        Ub = U.reshape(rows, W // 128, 128)
+        bidx = _stable_topk(torch.amax(Ub, dim=2), cap)[1]
+        gath = torch.gather(Ub, 1, bidx[:, :, None].expand(-1, -1, 128))
+        vals, li = _stable_topk(gath.reshape(rows, cap * 128), cap)
+        idx = torch.gather(bidx, 1, li // 128) * 128 + li % 128
+        del Ub, gath
     else:
-        s = torch.sort(U, dim=-1, descending=True, stable=True)
-        vals, idx = s.values[:, :cap], s.indices[:, :cap]
-        del s
+        vals, idx = _stable_topk(U, cap)
     m = vals[:, :1]
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     tot = torch.sum(torch.exp(U - m_safe), dim=1, keepdim=True)
     return crossing_from_topk(vals, idx, tot, ge_break, col_live, sentinel)
+
+
+def _stable_topk(U, cap: int):
+    """(vals, idx) of the top `cap` of each row, descending, ties to the
+    lower index (a stable descending sort)."""
+    s = torch.sort(U, dim=-1, descending=True, stable=True)
+    return s.values[:, :cap], s.indices[:, :cap]
 
 
 def crossing_from_topk(vals, idx, tot, ge_break: bool, col_live, sentinel):
@@ -163,6 +183,91 @@ def pre_tk_batch(sig, T_r, means, c1, c2, log_m1, log_e2,
     del bwd
     return PreBatchResult(Zf=logsumexp(finalE, dim=1), Zb=Zb,
                           **tk_select(U, T_r, cap))
+
+
+def pre_tk_batch_ckpt(sig, T_r, means, c1, c2, log_m1, log_e2,
+                      alphabet_size: int, cap: int, dtype, chunk: int = 128,
+                      sel_cap: int | None = None) -> PreBatchResult:
+    """pre_tk_batch with O(T/chunk * R * K) memory instead of O(T * R * K)
+    (JAX ops/ntc_batch.pre_tk_batch_ckpt): the backward pass keeps only the
+    (M, E) row entering each chunk of `chunk` rows; the forward pass
+    re-derives each chunk's backward rows from it, then selects on the
+    chunk's columns. It runs K9's and K10's plain columns as torch ops, so
+    it equals pre_tk_batch bit for bit wherever both run; native 9-mer NTC
+    (K = 4^9) needs it, as the kernels take at most 4096 columns. The
+    emission scores and row masks are computed for blocks of rows at once
+    (elementwise: the same values), to launch fewer ops per row.
+
+    sel_cap (<= cap) searches the 95%-mass crossing within the top sel_cap
+    values only and pads the slots back to `cap` with sentinels K: equal
+    to the full-cap selection on every column whose crossing lies within
+    sel_cap; a column whose crossing lies beyond it flags overflow."""
+    R, Tm1 = sig.shape
+    T_pad = Tm1 + 1
+    if T_pad % chunk:
+        raise ValueError(f"T_pad {T_pad} is not a multiple of the chunk {chunk}")
+    sel_cap = cap if sel_cap is None else sel_cap
+    if sel_cap > cap:
+        raise ValueError(f"sel_cap {sel_cap} exceeds cap {cap}")
+    sig = sig.to(dtype).contiguous()
+    tabk = tk_tables(means, c1, c2, dtype)
+    T_r = T_r.to(torch.int32)
+    K, dev = tabk.shape[1], sig.device
+    zero = torch.zeros((R, 1), dtype=dtype, device=dev)
+    sig_b = torch.cat([sig, zero], dim=1)  # backward row t reads sig[t]
+    sig_f = torch.cat([zero, sig], dim=1)  # forward row t reads sig[t-1]
+    is_term, dead = kn.tk_row_masks(torch.arange(T_pad, device=dev)[:, None], T_r)
+    cols = dict(alphabet_size=alphabet_size, log_m1=log_m1, log_e2=log_e2)
+    sub = min(chunk, 32)  # rows of scores at once: (sub, R, K) temporaries
+
+    def bwd_rows(t_hi, t_lo, M, E):
+        """Backward rows t_hi-1 down to t_lo from the row t_hi (M, E);
+        yields (t, M, E)."""
+        for s_hi in range(t_hi, t_lo, -sub):
+            s_lo = max(t_lo, s_hi - sub)
+            sc = kn.tk_scores(sig_b[:, s_lo:s_hi].T, tabk)
+            for t in range(s_hi - 1, s_lo - 1, -1):
+                M, E = kn.tk_bwd_column(sc[t - s_lo], M, E, is_term[t], dead[t], **cols)
+                yield t, M, E
+
+    M = torch.full((R, K), NEG_INF, dtype=dtype, device=dev)
+    E = M.clone()
+    ckpts = [None] * (T_pad // chunk)
+    for c in range(T_pad // chunk - 1, -1, -1):
+        ckpts[c] = (M, E)
+        for _, M, E in bwd_rows((c + 1) * chunk, c * chunk, M, E):
+            pass
+    Zb = logsumexp(E, dim=1)
+
+    cand = torch.full((T_pad, R, cap), K, dtype=torch.int32, device=dev)
+    cnt = torch.empty((T_pad, R), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((R,), dtype=torch.bool, device=dev)
+    M = torch.full((R, K), NEG_INF, dtype=dtype, device=dev)
+    E = torch.zeros_like(M)
+    finalE = torch.where(is_term[0], E, M)
+    U = torch.empty((chunk, R, K), dtype=dtype, device=dev)
+    for c in range(T_pad // chunk):
+        t0 = c * chunk
+        rows = [None] * chunk
+        for t, bM, bE in bwd_rows(t0 + chunk, t0, *ckpts[c]):
+            rows[t - t0] = (bM, bE)
+        ckpts[c] = None
+        for s_lo in range(t0, t0 + chunk, sub):
+            sc = kn.tk_scores(sig_f[:, s_lo:s_lo + sub].T, tabk)
+            for t in range(s_lo, min(s_lo + sub, t0 + chunk)):
+                if t > 0:
+                    M, E = kn.tk_fwd_column(sc[t - s_lo], M, E, dead[t], **cols)
+                    finalE = torch.where(is_term[t], E, finalE)
+                bM, bE = rows[t - t0]
+                U[t - t0] = torch.logaddexp(bM + M, bE + E)
+                rows[t - t0] = None
+        live = ~dead[t0:t0 + chunk].reshape(-1)
+        cc, nn, oo = select_topk(U.reshape(chunk * R, K), sel_cap, True, live, K)
+        cand[t0:t0 + chunk, :, :sel_cap] = cc.reshape(chunk, R, sel_cap)
+        cnt[t0:t0 + chunk] = nn.reshape(chunk, R)
+        ovf |= oo.reshape(chunk, R).any(dim=0)
+    return PreBatchResult(cand=cand, cnt=cnt, Zf=logsumexp(finalE, dim=1),
+                          Zb=Zb, overflow=ovf)
 
 
 def tk_select(U, T_r, cap: int):
@@ -568,6 +673,18 @@ def _bwd_stored(plan: NTCPlan, t: int, col, Nm1, T_r):
     return torch.where(is_term, term, torch.where(dead, NEG_INF, col))
 
 
+def _bwd_chunk(plan: NTCPlan, dims: PlanDims, rows: _Rows, tl: dict, nxt,
+               t0: int, C: int, Nm1, T_r) -> list:
+    """The stored backward rows t0 .. t0+C-1 re-derived from `nxt`, the
+    stored row t0+C (a checkpoint), from the last row down."""
+    out = [None] * C
+    for i in range(C - 1, -1, -1):
+        col = _bwd_column(plan, dims, rows, tl, t0 + i, nxt, Nm1)
+        nxt = _bwd_stored(plan, t0 + i, col, Nm1, T_r)
+        out[i] = nxt
+    return out
+
+
 def ntc_backward_batch(plan: NTCPlan, dims: PlanDims, prm: NTCParams, sig,
                        trans_log: dict, N_r, T_r):
     """The backward lattice (T_pad, R, 5, CN, CK), every row (ref:
@@ -585,6 +702,35 @@ def ntc_backward_batch(plan: NTCPlan, dims: PlanDims, prm: NTCParams, sig,
         nxt = _bwd_stored(plan, t, col, Nm1, T_r)
         out[t] = nxt
     return out
+
+
+# rows per checkpoint chunk of the checkpointed backward (JAX's C_PV on its
+# checkpointed geometries, ops/ntc_pallas.py:86-89)
+C_CKPT = 8
+
+
+def ntc_backward_ckpt_batch(plan: NTCPlan, dims: PlanDims, prm: NTCParams,
+                            sig, trans_log: dict, N_r, T_r, C: int = C_CKPT):
+    """The backward lattice of ntc_backward_batch, keeping only what the
+    checkpointed forward needs (ref: ntc_pallas._bwd_ckpt_kernel): ckpt
+    (T_pad/C, R, 5, CN, CK), the stored row that enters chunk c, i.e.
+    row (c+1)*C, -inf for the last chunk; and row0 (R, 5, CN, CK)."""
+    R, CN, CK, _ = dims
+    T_pad = plan.cand_n.shape[0]
+    if T_pad % C:
+        raise ValueError(f"T_pad {T_pad} is not a multiple of the chunk {C}")
+    dtype, dev = sig.dtype, sig.device
+    rows = _rows(dims, prm, sig)
+    Nm1 = (N_r.long() - 1)[:, None]
+    ckpt = torch.empty((T_pad // C, R, 5, CN, CK), dtype=dtype, device=dev)
+    nxt = torch.full((R, 5, CN, CK), NEG_INF, dtype=dtype, device=dev)
+    ckpt[-1] = nxt
+    for t in range(T_pad - 1, -1, -1):
+        col = _bwd_column(plan, dims, rows, trans_log, t, nxt, Nm1)
+        nxt = _bwd_stored(plan, t, col, Nm1, T_r)
+        if t % C == 0 and t > 0:
+            ckpt[t // C - 1] = nxt
+    return ckpt, nxt
 
 
 def _init_column(plan: NTCPlan, dims: PlanDims, dtype):
@@ -756,7 +902,8 @@ def slot_bits(CK: int) -> int:
 
 def ntc_posterior_viterbi_batch(plan: NTCPlan, dims: PlanDims,
                                 prm: NTCParams, sig, bwd, Z_norm,
-                                trans_log: dict, T_r, out=None, fwd_out=None):
+                                trans_log: dict, T_r, out=None, fwd_out=None,
+                                ckpt=None, N_r=None):
     """The forward pass with posteriors and the 5-state Viterbi (ref:
     getBorders, NTC.cpp:595-669). Returns (lp (T_pad, R, 5, CN, CK),
     choices (T_pad, R, CN, CK) int16, slots (T_pad, R, CN, CK) int32,
@@ -772,7 +919,13 @@ def ntc_posterior_viterbi_batch(plan: NTCPlan, dims: PlanDims,
     col_prec + 1 << b | P's col_prec + 1 << 2b, b = slot_bits(CK).
     `out`, if given, receives lp (it may be `bwd` itself: row t of bwd is
     read before row t of lp is written); `fwd_out`, if given, the forward
-    store (equal to ntc_forward_store_batch's)."""
+    store (equal to ntc_forward_store_batch's).
+
+    Checkpoint mode (ref: ntc_pallas._pv_kernel, ckpt=True): with bwd None
+    and `ckpt` (with N_r) from ntc_backward_ckpt_batch, each chunk's
+    backward rows are re-derived from its checkpoint at the chunk's first
+    row, by the same column function, so every output equals the full
+    store's bit for bit."""
     from dynamont_tpu_torch.ops.ntc_pre_kernels import _tree_sum, threads
 
     R, CN, CK, A = dims
@@ -782,7 +935,11 @@ def ntc_posterior_viterbi_batch(plan: NTCPlan, dims: PlanDims,
     B = threads(CN * CK)
     rows = _rows(dims, prm, sig)
     Zc = Z_norm.to(dtype)[:, None, None, None]
-    lp_out = out if out is not None else torch.empty_like(bwd)
+    if ckpt is not None:
+        C = T_pad // ckpt.shape[0]
+        Nm1 = (N_r.long() - 1)[:, None]
+    lp_out = out if out is not None else torch.empty(
+        (T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
     choices = torch.empty((T_pad, R, CN, CK), dtype=torch.int16, device=dev)
     init = _init_column(plan, dims, dtype)
     f_prev, v_prev = init, init
@@ -798,8 +955,15 @@ def ntc_posterior_viterbi_batch(plan: NTCPlan, dims: PlanDims,
             fwd = _fwd_column(plan, dims, rows, trans_log, t, f_prev, ok, cond, ix)
         if fwd_out is not None:
             fwd_out[t] = fwd
+        if ckpt is None:
+            bw = bwd[t]
+        else:
+            if t % C == 0:
+                chunk = _bwd_chunk(plan, dims, rows, trans_log, ckpt[t // C],
+                                   t, C, Nm1, T_r)
+            bw = chunk[t % C]
 
-        ap = fwd + bwd[t]
+        ap = fwd + bw
         lp = ap - Zc
         if fp32:
             m = torch.amax(ap.reshape(R, -1), dim=1)

@@ -4,7 +4,9 @@ versions:
 
   tab_gather / tab_gather_plain  K11 ntc_tab_gather  replaces _tab_gather_packs_kernel
   bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
+  bwd_ckpt   / bwd_ckpt_plain    K14 ntc_bwd_ckpt    replaces _bwd_ckpt_kernel
   pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
+  pv_ckpt    / pv_ckpt_plain     K15 ntc_pv_ckpt     its checkpoint branch
   walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
 
 The kernels are in csrc/ntc_lattice.cu, in float and double. As in
@@ -12,8 +14,9 @@ ops/ntc_pre_kernels.py, a wrapper runs its plain version for tensors on the
 CPU, launches its kernel for CUDA tensors, and raises for anything else or
 when the launch fails; LAUNCHES and PLAIN_RUNS count one per call. The
 plain versions are ops/ntc_batch.ntc_backward_batch,
-ntc_posterior_viterbi_batch and ops/ntc_walk.walk_records_plain; the
-kernels repeat their arithmetic op for op.
+ntc_backward_ckpt_batch, ntc_posterior_viterbi_batch (its checkpoint mode
+for pv_ckpt) and ops/ntc_walk.walk_records_plain; the kernels repeat their
+arithmetic op for op.
 
 Layouts (one bucket of R reads, T_pad rows, CN n-slots, CK k-slots, A = 4):
 
@@ -24,6 +27,9 @@ Layouts (one bucket of R reads, T_pad rows, CN n-slots, CK k-slots, A = 4):
   sig         (R, T_pad-1)              signal
   tl          (13,)                     log transitions in ntc_batch.TL_KEYS order
   bwd, lp     (T_pad, R, 5, CN, CK)     backward store; posteriors (may share bwd's buffer)
+  ckpt        (T_pad/C, R, 5, CN, CK)   backward row (c+1)*C entering chunk c, -inf
+                                        for the last (C = ntc_batch.C_CKPT)
+  row0        (R, 5, CN, CK)            backward row 0
   choices     (T_pad, R, CN, CK) int16  Viterbi choice word
   slots       (T_pad, R, CN, CK) int32  predecessor-slot word
   apEf, fwdEf (R, CN, CK)               Viterbi and forward E at row T_r-1
@@ -45,7 +51,8 @@ from dynamont_tpu_torch.ops.nt_banded_kernels import (
 )
 from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
 
-KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_pv", "ntc_walk")
+KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_bwd_ckpt", "ntc_pv", "ntc_pv_ckpt",
+           "ntc_walk")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 
@@ -60,7 +67,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ntc_tab_gather": [_P] * 7 + [_I] * 6 + [_P],
     "ntc_bwd": [_P] * 19 + [_I] * 6 + [_P],
+    "ntc_bwd_ckpt": [_P] * 21 + [_I] * 7 + [_P],
     "ntc_pv": [_P] * 22 + [_I] * 7 + [_P],
+    "ntc_pv_ckpt": [_P] * 31 + [_I] * 8 + [_P],
     "ntc_walk": [_P] * 13 + [_I] * 10 + [_P],
 }
 _bound: dict = {}
@@ -164,6 +173,27 @@ def bwd_plain(plan, dims, prm, sig, trans_log: dict, N_r, T_r):
     return nb.ntc_backward_batch(plan, dims, prm, sig, trans_log, N_r, T_r)
 
 
+def _check_bwd_inputs(name: str, plan, dims, prm, sig, N_r, T_r) -> int:
+    """Checks of what the backward kernels read; returns T_pad."""
+    T_pad = sig.shape[1] + 1
+    _check(name, sig.dtype, sig.device, sig=sig, N_r=N_r, T_r=T_r, **prm._asdict())
+    _check_ints(name, N_r=N_r, T_r=T_r)
+    _check_dims(name, dims)
+    _check_plan(name, plan, T_pad, dims, sig.device)
+    if any(x.dtype != sig.dtype for x in prm):
+        raise TypeError(f"{name}: the gathered parameters are not {sig.dtype}")
+    return T_pad
+
+
+def _bwd_ptrs(plan: nb.NTCPlan, prm: nb.NTCParams, sig) -> tuple:
+    """The pointers of bwd_column's inputs, in the kernels' order."""
+    p = plan
+    return (_ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd), _ptr(p.d01),
+            _ptr(p.d02), _ptr(p.brow_same), _ptr(p.brow_next), _ptr(p.bcol_same),
+            _ptr(p.bcol_suc), _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k),
+            _ptr(prm.suc), _ptr(prm.nsl))
+
+
 def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
         trans_log: dict, N_r, T_r):
     """The backward store (T_pad, R, 5, CN, CK)."""
@@ -172,25 +202,55 @@ def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     name = "ntc_bwd"
     dtype, dev = sig.dtype, sig.device
     R, CN, CK, A = dims
-    T_pad = sig.shape[1] + 1
-    _check(name, dtype, dev, sig=sig, N_r=N_r, T_r=T_r, **prm._asdict())
-    _check_ints(name, N_r=N_r, T_r=T_r)
-    _check_dims(name, dims)
-    _check_plan(name, plan, T_pad, dims, dev)
-    if any(x.dtype != dtype for x in prm):
-        raise TypeError(f"{name}: the gathered parameters are not {dtype}")
+    T_pad = _check_bwd_inputs(name, plan, dims, prm, sig, N_r, T_r)
     out = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
     tl = tl_tensor(trans_log, dtype, dev)
-    p = plan
     rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd), _ptr(p.d01),
-        _ptr(p.d02), _ptr(p.brow_same), _ptr(p.brow_next), _ptr(p.bcol_same),
-        _ptr(p.bcol_suc), _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k),
-        _ptr(prm.suc), _ptr(prm.nsl), _ptr(tl), _ptr(N_r), _ptr(T_r),
+        *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
         _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K14: the checkpointed backward lattice
+# ---------------------------------------------------------------------------
+
+def bwd_ckpt_plain(plan, dims, prm, sig, trans_log: dict, N_r, T_r):
+    PLAIN_RUNS["ntc_bwd_ckpt"] += 1
+    return nb.ntc_backward_ckpt_batch(plan, dims, prm, sig, trans_log, N_r, T_r)
+
+
+def _check_chunks(name: str, T_pad: int) -> None:
+    if T_pad % nb.C_CKPT:
+        raise ValueError(f"{name}: T_pad {T_pad} is not a multiple of {nb.C_CKPT}")
+
+
+def bwd_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
+             trans_log: dict, N_r, T_r):
+    """(ckpt (T_pad/C, R, 5, CN, CK), row0 (R, 5, CN, CK)): the backward
+    store's row (c+1)*C entering each chunk c of C = ntc_batch.C_CKPT rows
+    (-inf for the last chunk), and its row 0."""
+    if _on_cpu(sig):
+        return bwd_ckpt_plain(plan, dims, prm, sig, trans_log, N_r, T_r)
+    name = "ntc_bwd_ckpt"
+    dtype, dev = sig.dtype, sig.device
+    R, CN, CK, A = dims
+    T_pad = _check_bwd_inputs(name, plan, dims, prm, sig, N_r, T_r)
+    _check_chunks(name, T_pad)
+    C = nb.C_CKPT
+    ckpt = torch.empty((T_pad // C, R, 5, CN, CK), dtype=dtype, device=dev)
+    row0 = torch.empty((R, 5, CN, CK), dtype=dtype, device=dev)
+    scratch = torch.empty((R, 2, 5, CN, CK), dtype=dtype, device=dev)
+    tl = tl_tensor(trans_log, dtype, dev)
+    rc = _entry(name, dtype)(
+        *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
+        _ptr(ckpt), _ptr(row0), _ptr(scratch), R, T_pad, CN, CK, A,
+        threads(CN * CK), C, _stream(dev))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return ckpt, row0
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +302,51 @@ def pv(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
         _ptr(tl), _ptr(Z_norm), _ptr(T_r), _ptr(bwd_store), _ptr(lp),
         _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf), _ptr(scratch),
         R, T_pad, CN, CK, A, threads(CN * CK), nb.slot_bits(CK), _stream(dev))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return lp, choices, slots, apEf, fwdEf
+
+
+def pv_ckpt_plain(plan, dims, prm, sig, ckpt, Z_norm, trans_log: dict, N_r,
+                  T_r):
+    PLAIN_RUNS["ntc_pv_ckpt"] += 1
+    return nb.ntc_posterior_viterbi_batch(plan, dims, prm, sig, None, Z_norm,
+                                          trans_log, T_r, ckpt=ckpt, N_r=N_r)
+
+
+def pv_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
+            ckpt, Z_norm, trans_log: dict, N_r, T_r):
+    """pv's outputs from bwd_ckpt's checkpoints: each chunk's backward rows
+    re-derived in the kernel; lp in a buffer of its own."""
+    if _on_cpu(sig):
+        return pv_ckpt_plain(plan, dims, prm, sig, ckpt, Z_norm, trans_log,
+                             N_r, T_r)
+    name = "ntc_pv_ckpt"
+    dtype, dev = sig.dtype, sig.device
+    R, CN, CK, A = dims
+    T_pad = _check_bwd_inputs(name, plan, dims, prm, sig, N_r, T_r)
+    _check_chunks(name, T_pad)
+    C = nb.C_CKPT
+    _check(name, dtype, dev, ckpt=ckpt, Z_norm=Z_norm)
+    if ckpt.shape != (T_pad // C, R, 5, CN, CK) or Z_norm.shape != (R,):
+        raise ValueError(f"{name}: ckpt/Z_norm do not match {dims}")
+    if ckpt.dtype != dtype or Z_norm.dtype != dtype:
+        raise TypeError(f"{name}: every float input must be {dtype}")
+    lp = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
+    choices = torch.empty((T_pad, R, CN, CK), dtype=torch.int16, device=dev)
+    slots = torch.empty((T_pad, R, CN, CK), dtype=torch.int32, device=dev)
+    apEf = torch.empty((R, CN, CK), dtype=dtype, device=dev)
+    fwdEf = torch.empty_like(apEf)
+    scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
+    bbuf = torch.empty((R, C, 5, CN, CK), dtype=dtype, device=dev)
+    tl = tl_tensor(trans_log, dtype, dev)
+    p = plan
+    rc = _entry(name, dtype)(
+        *_bwd_ptrs(plan, prm, sig), _ptr(p.row_same), _ptr(p.row_prev),
+        _ptr(p.col_same), _ptr(p.col_prec), _ptr(tl), _ptr(Z_norm), _ptr(N_r),
+        _ptr(T_r), _ptr(ckpt), _ptr(lp), _ptr(choices), _ptr(slots),
+        _ptr(apEf), _ptr(fwdEf), _ptr(scratch), _ptr(bbuf), R, T_pad, CN, CK,
+        A, threads(CN * CK), nb.slot_bits(CK), C, _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return lp, choices, slots, apEf, fwdEf

@@ -289,6 +289,65 @@ def tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
 
 
 # ---------------------------------------------------------------------------
+# the TK columns, shared by K9, K10 and ntc_batch.pre_tk_batch_ckpt
+# ---------------------------------------------------------------------------
+
+BIG_K = 4096  # above it JAX's batched TK pre-pass sums its groups otherwise
+
+
+def _prec_sum_b(E_prev, alphabet_size: int):
+    """X[:, k] = logsumexp_j E_prev[:, prec_j(k)], in the batched JAX
+    pre-pass's order (ops/ntc_batch._prec_sum_b): ntc_pre._prec_sum up to
+    K = 4096; above it, for A = 4, the class sum pairwise, (e0 + e1) +
+    (e2 + e3), as JAX's two lane rolls add it."""
+    R, K = E_prev.shape
+    if K <= BIG_K or alphabet_size != 4:
+        return _prec_sum(E_prev, alphabet_size)
+    g = E_prev.reshape(R, 4, K // 4)
+    m = torch.amax(g, dim=1)
+    fin = torch.isfinite(m)
+    safe = torch.where(fin, m, 0.0)
+    e = torch.exp(g - safe[:, None])
+    s = (e[:, 0] + e[:, 1]) + (e[:, 2] + e[:, 3])
+    x = torch.where(fin, torch.log(s) + safe, NEG_INF)
+    return torch.repeat_interleave(x, 4, dim=-1)
+
+
+def tk_scores(x, tabk):
+    """Emission scores c1 - c2 * (x - mu)^2 of every k-mer: x (..., R) ->
+    (..., R, K); elementwise, so a block of rows rounds as row by row."""
+    return log_normal_pdf_c(x[..., None], *tabk)
+
+
+def tk_row_masks(t, T_r):
+    """(is_term, dead), each (..., R, 1) bool, of rows t (an int or an
+    (n, 1) tensor): the row T_r-1, and the rows past it."""
+    return ((t == T_r - 1)[..., None], (t > T_r - 1)[..., None])
+
+
+def tk_bwd_column(sc, M_next, E_next, is_term, dead, alphabet_size: int,
+                  log_m1: float, log_e2: float):
+    """Backward TK row t (M, E), each (R, K), from row t+1, with sc =
+    tk_scores(sig[t]) (sig 0 at t = T_pad-1) and row t's masks. The
+    successor sum is ntc_pre._suc_sum at every K: JAX's big-K branch adds
+    each group of 4 ascending too (_sum4's one-hot contraction)."""
+    M_new = E_next + sc
+    E_new = torch.logaddexp(_suc_sum(M_next + sc + log_m1, alphabet_size),
+                            E_next + sc + log_e2)
+    return (torch.where(is_term | dead, NEG_INF, M_new),
+            torch.where(is_term, 0.0, torch.where(dead, NEG_INF, E_new)))
+
+
+def tk_fwd_column(sc, M_prev, E_prev, dead, alphabet_size: int,
+                  log_m1: float, log_e2: float):
+    """Forward TK row t >= 1 (M, E), each (R, K), from row t-1, with sc =
+    tk_scores(sig[t-1]) and row t's dead mask (row 0 is M = -inf, E = 0)."""
+    M_new = _prec_sum_b(E_prev, alphabet_size) + sc + log_m1
+    E_new = torch.logaddexp(M_prev + sc, E_prev + sc + log_e2)
+    return torch.where(dead, NEG_INF, M_new), torch.where(dead, NEG_INF, E_new)
+
+
+# ---------------------------------------------------------------------------
 # K9: TK backward store
 # ---------------------------------------------------------------------------
 
@@ -302,14 +361,9 @@ def tk_bwd_plain(sig, tabk, T_r, alphabet_size: int, log_m1: float,
     E_next = M_next.clone()
     zero = torch.zeros((R,), dtype=sig.dtype, device=sig.device)
     for t in range(Tm1, -1, -1):
-        sc = log_normal_pdf_c((sig[:, t] if t < Tm1 else zero)[:, None], *tabk)
-        M_new = E_next + sc
-        E_new = torch.logaddexp(_suc_sum(M_next + sc + log_m1, alphabet_size),
-                                E_next + sc + log_e2)
-        is_term = (t == T_r - 1)[:, None]
-        dead = (t > T_r - 1)[:, None]
-        M_next = torch.where(is_term | dead, NEG_INF, M_new)
-        E_next = torch.where(is_term, 0.0, torch.where(dead, NEG_INF, E_new))
+        M_next, E_next = tk_bwd_column(
+            tk_scores(sig[:, t] if t < Tm1 else zero, tabk), M_next, E_next,
+            *tk_row_masks(t, T_r), alphabet_size, log_m1, log_e2)
         bwd[t, 0] = M_next
         bwd[t, 1] = E_next
     return bwd
@@ -351,18 +405,11 @@ def tk_fwd_u_plain(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
     M_prev = torch.full((R, K), NEG_INF, dtype=sig.dtype, device=sig.device)
     E_prev = torch.zeros_like(M_prev)
     finalE = M_prev.clone()
-    zero = torch.zeros((R,), dtype=sig.dtype, device=sig.device)
     for t in range(Tm1 + 1):
-        sc = log_normal_pdf_c((sig[:, t - 1] if t > 0 else zero)[:, None], *tabk)
-        M_new = _prec_sum(E_prev, alphabet_size) + sc + log_m1
-        E_new = torch.logaddexp(M_prev + sc, E_prev + sc + log_e2)
-        dead = (t > T_r - 1)[:, None]
-        if t == 0:
-            M_prev = torch.full_like(M_new, NEG_INF)
-            E_prev = torch.zeros_like(E_new)
-        else:
-            M_prev = torch.where(dead, NEG_INF, M_new)
-            E_prev = torch.where(dead, NEG_INF, E_new)
+        if t > 0:
+            M_prev, E_prev = tk_fwd_column(
+                tk_scores(sig[:, t - 1], tabk), M_prev, E_prev,
+                tk_row_masks(t, T_r)[1], alphabet_size, log_m1, log_e2)
         finalE = torch.where((t == T_r - 1)[:, None], E_prev, finalE)
         U[t] = torch.logaddexp(bwd[t, 0] + M_prev, bwd[t, 1] + E_prev)
     return U, finalE

@@ -1,15 +1,23 @@
 """The port's dynamont-resquiggle --mode basic against dynamont_tpu's, on
 the same TSV: columns 0-7 and 9 byte-identical, probabilities within 2e-3
 (the fp32-against-fp64 bound of tests/test_device_pipeline.py; the two
-runs are fp32 engines of different frameworks)."""
+runs are fp32 engines of different frameworks). A read that crashes the
+engine leaves the same sidecar line and repro dump as in dynamont_tpu;
+--ntc-native-9mer runs; the native big-K exact rung refuses a long read."""
+
+import functools
 
 import numpy as np
 import pytest
 import zstandard as zstd
 
 from dynamont_tpu.cli import resquiggle as jax_cli
+from dynamont_tpu.models.batch import BandedBatchEngine as JaxBandedEngine
 from dynamont_tpu.models.registry import load_model_for_pore
 from dynamont_tpu_torch.cli import resquiggle as torch_cli
+from dynamont_tpu_torch.models import ntc_batch as torch_ntc_batch
+from dynamont_tpu_torch.models.batch import BandedBatchEngine, BatchItem
+from dynamont_tpu_torch.utils.pore_model import PoreModel
 
 from tests.synthetic import make_read
 
@@ -62,15 +70,81 @@ def test_port_cli_matches_jax_cli(tsv, tmp_path):
     assert not (tmp_path / "torch.errors").exists()
 
 
-def test_port_cli_refuses_native_9mer(tsv, tmp_path, capsys):
-    """Resquiggle mode at native 9-mer K is not ported yet."""
-    with pytest.raises(SystemExit) as e:
-        torch_cli.main(["--tsv", str(tsv), "-o", str(tmp_path / "o.csv.zst"),
-                        "--mode", "resquiggle", "-p", "rna002",
-                        "--ntc-native-9mer"])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not (tmp_path / "o.csv.zst").exists()
+def test_port_cli_refuses_native_9mer(tsv, tmp_path, monkeypatch):
+    """--ntc-native-9mer is no longer refused: it runs resquiggle mode (with
+    rna002's 5-mer table it changes nothing, as in dynamont_tpu; the native
+    big-K path is tests/test_torch_ntc_native.py's)."""
+    monkeypatch.setattr(torch_ntc_batch, "NTCBatchEngine", functools.partial(
+        torch_ntc_batch.NTCBatchEngine, t_pad_to=64, n_pad_to=16))
+    out = tmp_path / "o.csv.zst"
+    eng = torch_cli.main(["--tsv", str(tsv), "-o", str(out), "--mode",
+                          "resquiggle", "-p", "rna002", "--ntc-native-9mer",
+                          "--device", "cpu"])
+    assert eng.model.kmer_size == 5
+    _, rows = _rows(out)
+    assert {r[0] for r in rows} == {"read0", "read1", "read2"}
+    assert not (tmp_path / "o.errors").exists()
+
+
+def _crash(monkeypatch, engine):
+    """collect() raises for multi-read chunks; the per-read isolation then
+    goes through run(), where only readid "read1" keeps crashing."""
+    orig_collect, orig_run = engine.collect, engine.run
+
+    def crashing_collect(self, handle):
+        if len(handle[0]) > 1:
+            raise RuntimeError("synthetic chunk crash")
+        return orig_collect(self, handle)
+
+    def crashing_run(self, batch_items):
+        if any(getattr(it.meta, "readid", None) == "read1" for it in batch_items):
+            raise RuntimeError("synthetic per-read crash")
+        return orig_run(self, batch_items)
+
+    monkeypatch.setattr(engine, "collect", crashing_collect)
+    monkeypatch.setattr(engine, "run", crashing_run)
+
+
+def test_engine_crash_leaves_repro_dump_as_jax(tsv, tmp_path, monkeypatch):
+    """The case of tests/test_cli_robustness.py on both CLIs: the healthy
+    reads are segmented, the crashing one gets failed_input_read1.txt in
+    the working directory and a `dump:` field on its sidecar line; both
+    byte for byte dynamont_tpu's."""
+    _crash(monkeypatch, JaxBandedEngine)
+    _crash(monkeypatch, BandedBatchEngine)
+    args = ["--tsv", str(tsv), "--mode", "basic", "-p", "rna002"]
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("torch", torch_cli.main, ["--device", "cpu"])):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)  # the dump lands in cwd
+        main(args + ["-o", str(tmp_path / name / "out.csv.zst")] + extra)
+        _, rows = _rows(tmp_path / name / "out.csv.zst")
+        assert {r[0] for r in rows} == {"read0", "read2"}
+    read = lambda name, f: (tmp_path / name / f).read_bytes()
+    err = read("torch", "out.errors").decode()
+    assert "engine exception" in err and "read1" in err
+    assert "\tdump: failed_input_read1.txt" in err
+    assert read("torch", "out.errors") == read("jax", "out.errors")
+    assert read("torch", "failed_input_read1.txt") == read("jax", "failed_input_read1.txt")
+    sig_line, read_line = read("torch", "failed_input_read1.txt").decode().strip().split("\n")
+    assert len(sig_line.split(",")) > 0 and set(read_line) <= set("ACGTU")
+
+
+def test_native_9mer_exact_path_refuses_long_reads():
+    """The exact per-read fp64 rung at K = 4^9 would allocate ~4 T*K fp64
+    matrices (~70 GB at production T): the engine refuses the read with
+    dynamont_tpu's error instead (tests/test_9mer.py's case; a synthetic
+    seeded 9-mer table stands in for the real one)."""
+    K = 4 ** 9
+    rng = np.random.default_rng(11)
+    nine = PoreModel(rng.uniform(-2.0, 2.0, K), rng.uniform(0.15, 0.4, K), 4, 9, True)
+    eng = torch_ntc_batch.NTCBatchEngine(nine, "rna004", device="cpu",
+                                         native_kmer=True)
+    assert eng.model.num_kmers == K  # not reduced
+    out = eng._run_exact(BatchItem(np.zeros(4096), "A" * 500))
+    assert out.error is not None and "too long" in out.error
+    # reads under ~1k samples at K = 4^9 stay eligible for the exact path
+    assert (1000 + 1) * K * 8 < 2**31
 
 
 def test_port_cli_without_cuda_fails(tsv, tmp_path, capsys, monkeypatch):

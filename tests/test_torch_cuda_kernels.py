@@ -226,8 +226,11 @@ def test_lattice_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
-    """K11, K13, K15 (lp written over the store) and K16 against their plain
-    versions on the short reads: every output bit for bit."""
+    """K11, K13, K14, K15 (lp written over the store, and its checkpoint
+    mode) and K16 against their plain versions on the short reads: every
+    output bit for bit; K14's checkpoints are K13's rows (c+1)*8 and its
+    row 0 K13's, and K15's checkpoint mode gives the full-store K15's
+    outputs."""
     from dynamont_tpu_torch.constants import NTK_TRANSITIONS
     from dynamont_tpu_torch.ops import ntc_batch as nb
     from dynamont_tpu_torch.ops import ntc_kernels as kern
@@ -256,6 +259,17 @@ def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
     got = kern.pv(plan, dims, prm, sig, store, Zb, tl, T, out=store)
     want = kern.pv_plain(plan, dims, prm, sig, bwd, Zb, tl, T)
     for g, w in zip(got, want):
+        same(g, w)
+    ckpt, row0 = kern.bwd_ckpt(plan, dims, prm, sig, tl, N, T)
+    for g, w in zip((ckpt, row0), kern.bwd_ckpt_plain(plan, dims, prm, sig, tl, N, T)):
+        same(g, w)
+    C = nb.C_CKPT
+    same(ckpt[:-1], bwd[C::C])
+    same(row0, bwd[0])
+    got_ck = kern.pv_ckpt(plan, dims, prm, sig, ckpt, Zb, tl, N, T)
+    for g, w, p in zip(got_ck, want, kern.pv_ckpt_plain(plan, dims, prm, sig, ckpt, Zb,
+                                                         tl, N, T)):
+        same(g, p)
         same(g, w)
     lp, ch, slots, apE, _ = want
     args = (lp, ch, slots, plan, *nw.start_slots(plan, apE, N, T), N, T, 1024, 4, 5, 128)
@@ -319,3 +333,24 @@ def test_ntc_train_kernels_match_plain_on_cuda(card, dtype, caps):
     same(fwd[T.long() - 1, r, nb.E_ST], fwdEf)
     torch.cuda.synchronize()
     assert all(tk.LAUNCHES[k] == launches[k] + 1 for k in tk.KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pre_tk_ckpt_matches_dense_kernels_on_cuda(card, dtype):
+    """The checkpoint-recompute TK pre-pass (torch ops on the card, the
+    plain K9/K10 columns) against the dense route through K9 and K10 on
+    the short reads: candidates, counts, overflow, Zf and Zb bit for bit."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    sig, _, _, T, _, _ = _ntc_bucket(dtype)
+    model = load_model_for_pore("rna002")
+    means, c1, c2 = (torch.from_numpy(a).cuda() for a in model.score_params())
+    launches = dict(kn.LAUNCHES)
+    dense = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, 120, dtype)
+    assert kn.LAUNCHES["ntc_tk_bwd"] == launches["ntc_tk_bwd"] + 1
+    ckpt = nb.pre_tk_batch_ckpt(sig, T, means, c1, c2, LM, LE, 4, 120, dtype, chunk=64)
+    for f in ("cand", "cnt", "overflow", "Zf", "Zb"):
+        torch.testing.assert_close(getattr(ckpt, f), getattr(dense, f), rtol=0, atol=0,
+                                   equal_nan=True, msg=f)

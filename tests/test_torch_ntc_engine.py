@@ -11,7 +11,8 @@ K7-K11, K13, K15, K16).
   the exact per-read path, whose result it then is exactly; with the wide
   rung every read is repaired at (16, 240) and none reaches the exact path.
 * The CLI in resquiggle mode against JAX's on one TSV; --device cuda
-  without a card exits 2; native 9-mer NTC is refused.
+  without a card exits 2; a native 9-mer engine keeps its K and refuses
+  training, which runs at K <= 4096 only.
 
 Both packages pad buckets with t_pad_to 64 and n_pad_to 16 here (the CLI
 runs are patched to it) so that the CPU runs stay short; padding changes no
@@ -156,15 +157,22 @@ def test_bucket_program_keeps_kernel_inputs(model, reads):
 
 
 def test_engine_refuses_what_is_not_ported(model):
-    """Native 9-mer NTC is not ported: a 9-mer model with native_kmer=True
-    is refused. No 9-mer table is in the repo, so a synthetic one stands
-    in (seeded means, one stdev)."""
+    """Native 9-mer NTC segmentation is ported (tests/test_torch_ntc_native.py):
+    a 9-mer model with native_kmer=True keeps its K = 4^9 and gets the big-K
+    wide caps. NTC training at that K is not (the JAX package trains no
+    native big-K model either): train() refuses it. No 9-mer table is in
+    the repo, so a synthetic one stands in (seeded means, one stdev)."""
     K = 4 ** 9
     nine = PoreModel(np.random.default_rng(0).normal(90.0, 10.0, K),
                      np.full(K, 2.0), 4, 9, True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_ntc_batch.NTCBatchEngine(nine, "rna002", device="cpu",
-                                       native_kmer=True)
+    eng = torch_ntc_batch.NTCBatchEngine(nine, "rna002", device="cpu",
+                                         native_kmer=True)
+    assert eng.model.num_kmers == K
+    assert eng.wide_caps == torch_ntc_batch.BIGK_WIDE_CAPS
+    with pytest.raises(NotImplementedError, match="K <= 4096"):
+        eng.train([BatchItem(np.zeros(100), "A" * 20)])
+    assert torch_ntc_batch.NTCBatchEngine(model, "rna002", device="cpu").wide_caps \
+        == torch_ntc_batch.WIDE_CAPS
 
 
 def _rows(path):
