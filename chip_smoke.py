@@ -10,7 +10,10 @@ result line):
      bucket in fp64 (fp32 at full width is phase 5's): band cells within
      1e-5, Z within rtol 1e-6, choice bits, walked paths and segment
      starts identical, walk probabilities within 1e-6 (both compute the
-     same float operations in the same order);
+     same float operations in the same order); the matrix route's K4
+     (banded_vit) over K5's and K1's stored rows: ch, LPM and LPE bit for
+     bit, and bb.banded_batch_run's PM, PE and choices bit for bit those of
+     the plain K4's posteriors;
   4. the main path: 64 reads of 1800 bases (mean dwell 9, T trimmed to
      16000, rna002) through BandedBatchEngine on the card, batch 32, run
      RUNS times after a warm-up, with the launch counters reset right
@@ -20,8 +23,11 @@ result line):
      rung (borders identical, probabilities within 2e-3);
   5. each kernel against its plain version at its path's bucket shape,
      fp32, as phases 3 and 6 hold them: (32, 16384, 512) for the
-     segmentation kernels, (24, 16384, 512) for the training kernels; then
-     CUDA-event times of each kernel beside its plain version's run;
+     segmentation kernels and K4, (24, 16384, 512) for the training
+     kernels; K5 -> K1 -> K4 against K2 on the (32, 16384, 512) bucket
+     (one Viterbi step in both: equal wherever K5's stored forward rows
+     equal K2's; the largest difference is printed); then CUDA-event
+     times of each kernel beside its plain version's run;
   6. the training kernels (banded_fwd, banded_bwd_train) against their
      plain versions on the short reads in fp32 and fp64 and on one
      (2, 16384, 512) bucket in fp64: every output bit for bit;
@@ -126,14 +132,36 @@ result line):
      after: K7, K8, K11, K13, K15, K16 launched, K9 and K10 not, no plain
      version, no out-of-memory, every read segmented or on an error line;
      reads/s, retries, peak memory, and the bucket programs' stages on CUDA
-     events recorded around each stage of that run.
+     events recorded around each stage of that run;
+ 15. (a) the matrix route: the 64 phase-4 reads, snapped to the int16 wire
+     grid, through BandedBatchEngine(device_pipeline=False) (batch 32,
+     fp32) after a one-bucket warm-up, every counter reset right before
+     and read right after: K5, K1, K4 launched, K2, K3 and every plain
+     version not; every read segmented; reads/s and peak memory; then the
+     same reads through the device route: borders identical on every read,
+     probabilities within 2e-3 (the largest difference printed);
+     (b) the stacked table gather #12 (ntc_table_gather) on phase 12's
+     bucket, on the index rows K11 reads (ops/ntc_batch.gather_index): bit
+     for bit its plain version, and its rows bit for bit K11's mu/c1/c2,
+     successor and n-slot parameters; its time beside tabT[:, ks]'s;
+     (c) dynamont-NT and dynamont-NT-banded in process, --device cuda
+     against --device cpu, on the three short reads in segment, -z,
+     --train and -p mode: dynamont-NT-banded's stdout identical,
+     dynamont-NT's borders identical and its numbers within 1e-9 (as
+     phase 10); then the first phase-4 read at full width through both
+     with -p: dynamont-NT-banded's segments equal the exact fp64 rung's
+     (run_nt_banded), -p prints T values, -inf where a row holds no live M
+     cell (rows 0 and T-1 among them, as in the JAX CLIs), no NaN or +inf;
+     each CLI's wall time.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
-ntc_pv's entry carries its checkpoint mode's time as `ckpt`. Needs no JAX
-and no network. `--phases 1,2,11` runs a subset (the kernels line then
-lists only what was measured).
+ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_vit's
+launches are phase 15(a)'s, ntc_table_gather's the one run of its own
+entry in phase 15(b) (it lies on no path). Needs no JAX and no network.
+`--phases 1,2,11` runs a subset (the kernels line then lists only what was
+measured).
 """
 
 from __future__ import annotations
@@ -155,6 +183,7 @@ SOURCE = {
     "banded_bwd": "dynamont_tpu_torch/csrc/nt_banded.cu",
     "banded_fwd_vit": "dynamont_tpu_torch/csrc/nt_banded.cu",
     "banded_walk": "dynamont_tpu_torch/csrc/nt_banded.cu",
+    "banded_vit": "dynamont_tpu_torch/csrc/nt_banded.cu",
     "banded_fwd": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
     "banded_bwd_train": "dynamont_tpu_torch/csrc/nt_banded_train.cu",
     "ntc_tn_fwd": "dynamont_tpu_torch/csrc/ntc_pre.cu",
@@ -162,6 +191,7 @@ SOURCE = {
     "ntc_tk_bwd": "dynamont_tpu_torch/csrc/ntc_pre.cu",
     "ntc_tk_fwd_u": "dynamont_tpu_torch/csrc/ntc_pre.cu",
     "ntc_tab_gather": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_table_gather": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_bwd": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_bwd_ckpt": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_pv": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
@@ -173,6 +203,7 @@ REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
     "banded_fwd_vit": "dynamont_tpu/ops/nt_banded_pallas.py:584",
     "banded_walk": "dynamont_tpu/ops/nt_banded_pallas.py:747",
+    "banded_vit": "dynamont_tpu/ops/nt_banded_pallas.py:426",
     "banded_fwd": "dynamont_tpu/ops/nt_banded_pallas.py:113",
     "banded_bwd_train": "dynamont_tpu/ops/nt_banded_train.py:90",
     "ntc_tn_fwd": "dynamont_tpu/ops/ntc_pre_pallas.py:78",
@@ -180,6 +211,7 @@ REPLACES = {
     "ntc_tk_bwd": "dynamont_tpu/ops/ntc_pre_pallas.py:336",
     "ntc_tk_fwd_u": "dynamont_tpu/ops/ntc_pre_pallas.py:381",
     "ntc_tab_gather": "dynamont_tpu/ops/ntc_pallas.py:244",
+    "ntc_table_gather": "dynamont_tpu/ops/ntc_pallas.py:177",
     "ntc_bwd": "dynamont_tpu/ops/ntc_pallas.py:839",
     "ntc_bwd_ckpt": "dynamont_tpu/ops/ntc_pallas.py:864",
     "ntc_pv": "dynamont_tpu/ops/ntc_pallas.py:984",
@@ -193,13 +225,16 @@ REPLACES = {
 # of both states (TN/TK pre-pass), a live lattice cell (ntc_bwd, ntc_pv,
 # ntc_fwd_store, ntc_train: K15's forward half; K13 plus 13 term
 # logaddexps and the moments; ntc_bwd_ckpt: K13's; ntc_pv_ckpt: K15's plus
-# K13's re-derivation), a walk step (banded_walk, ntc_walk);
-# ntc_tab_gather only moves bytes
+# K13's re-derivation), a walk step (banded_walk, ntc_walk); banded_vit:
+# the two posteriors (add, subtract each) and the Viterbi step (two adds,
+# a max, the choice's add and compare); ntc_tab_gather and
+# ntc_table_gather only move bytes
 OPS_PER_UNIT = {
-    "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10,
+    "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10, "banded_vit": 9,
     "banded_fwd": 16, "banded_bwd_train": 30,
     "ntc_tn_fwd": 16, "ntc_tn_bwd_sel": 30, "ntc_tk_bwd": 25,
-    "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_bwd": 130, "ntc_pv": 150,
+    "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_table_gather": 0,
+    "ntc_bwd": 130, "ntc_pv": 150,
     "ntc_walk": 40, "ntc_fwd_store": 100, "ntc_train": 190,
     "ntc_bwd_ckpt": 130, "ntc_pv_ckpt": 280,
 }
@@ -296,6 +331,43 @@ def compare_kernels(batch, N_max, lm, le, plain_ms: dict | None = None):
         raise AssertionError("walk: segment starts differ")
     torch.cuda.synchronize()
     return errs
+
+
+def compare_vit(batch, lm, le, plain_ms: dict | None = None, rows=None,
+                check_run: bool = True):
+    """K4 (banded_vit) over K5's and K1's stored rows (or `rows` = (fM, fE,
+    bM, bE, Zb)) against its plain version: ch, LPM, LPE bit for bit; with
+    check_run, bb.banded_batch_run's PM, PE and choices bit for bit the
+    plain K4's posteriors'. Raises otherwise; returns K4's outputs."""
+    import torch
+
+    from dynamont_tpu_torch.ops import nt_banded_batch as bb
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+
+    if rows is None:
+        fM, fE = kk.forward(batch, lm, le)
+        bM, bE = kk.backward(batch, lm, le)
+        r = torch.arange(fM.shape[0], device=fM.device)
+        rows = (fM, fE, bM, bE, bE[r, 0, batch.bw.long() + 1])
+    got = kk.viterbi_post(batch, *rows)
+    want = plain_run("banded_vit", lambda: kk.viterbi_post_plain(batch, *rows), plain_ms)
+    for f, g, w in zip(("ch", "LPM", "LPE"), got, want):
+        same(f"banded_vit {f}", g, w)
+    if check_run:
+        res = bb.banded_batch_run(batch, lm, le)
+        same("banded_batch_run PM", res.PM, bb._prob(want[1]))
+        same("banded_batch_run PE", res.PE, bb._prob(want[2]))
+        same("banded_batch_run choices", res.choices, want[0].bool())
+    return got
+
+
+def max_diff(a, b) -> float:
+    """Largest |a - b| over the cells where a and b differ (inf where one
+    is infinite or NaN there); 0.0 when they are equal cell for cell."""
+    ne = a != b
+    if not bool(ne.any()):
+        return 0.0
+    return (a[ne] - b[ne]).abs().nan_to_num(nan=math.inf).max().item()
 
 
 def timed_once(fn):
@@ -498,19 +570,22 @@ def compare_pre_kernels(model, bucket, dtype, lm, le, cap_n=CN, cap_k=CK0):
     return dict.fromkeys(kn.KERNELS, 0.0)
 
 
-def run_ntc_cli(sig, read, device: str, flags=()):
-    """dynamont_tpu_torch.cli.ntc_main.main in process on one read: (the
-    NTCResult, stdout)."""
+def run_cli(sig, read, device: str, flags=(), cli: str = "ntc_main"):
+    """dynamont_tpu_torch.cli.<cli>.main in process on one read (the
+    per-read NTC by default; nt_main, nt_banded_main): (its result,
+    stdout)."""
+    import importlib
+
     from dynamont_tpu_torch.models.registry import get_model_path
     from dynamont_tpu_torch.utils.synthetic import signal_to_text
-    from dynamont_tpu_torch.cli import ntc_main
 
+    main = importlib.import_module(f"dynamont_tpu_torch.cli.{cli}").main
     stdin, out = sys.stdin, io.StringIO()
     sys.stdin = io.StringIO(f"{signal_to_text(sig)}\n{read}\n")
     try:
         with contextlib.redirect_stdout(out):
-            res = ntc_main.main(["-m", get_model_path("rna002"), "-r", "rna002",
-                                 "--device", device, *flags])
+            res = main(["-m", get_model_path("rna002"), "-r", "rna002",
+                        "--device", device, *flags])
     finally:
         sys.stdin = stdin
     return res, out.getvalue()
@@ -707,9 +782,9 @@ def phase_10(model, bench, lm, le):
     for i, (s, r) in enumerate(make_read(model, n_bases=25, seed=s) for s in range(3)):
         for mode, flags in (("segment", ()), ("calcZ", ("-z",)), ("train", ("--train",))):
             t0 = time.perf_counter()
-            got, out_g = run_ntc_cli(s, r, "cuda", flags)
+            got, out_g = run_cli(s, r, "cuda", flags)
             t1 = time.perf_counter()
-            want, out_w = run_ntc_cli(s, r, "cpu", flags)
+            want, out_w = run_cli(s, r, "cpu", flags)
             err = ntc_agree(got, want, mode)
             log(f"[10] short read {i} {mode}: cuda {t1 - t0:.2f} s, cpu "
                 f"{time.perf_counter() - t1:.2f} s, rung {got.caps}, max diff {err:.3g}, "
@@ -719,7 +794,7 @@ def phase_10(model, bench, lm, le):
     s, r = bench[0]
     s = hampel_filter(s.copy())  # as the TSV reader delivers it (phase 12)
     t0 = time.perf_counter()
-    res, _ = run_ntc_cli(s, r, "cuda")
+    res, _ = run_cli(s, r, "cuda")
     wall = time.perf_counter() - t0
     if not res.segments or not math.isfinite(res.Z):
         raise AssertionError(f"long read: {len(res.segments or [])} segments, Z {res.Z}")
@@ -1017,7 +1092,7 @@ def phase_11(model, max_err: dict):
                 + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
             del keep, kt
         torch.cuda.empty_cache()
-    max_err.update(dict.fromkeys((*kern.KERNELS, *tk.KERNELS), 0.0))
+    max_err.update(dict.fromkeys((*kern.LATTICE_KERNELS, *tk.KERNELS), 0.0))
 
 
 def zstd_stand_in() -> bool:
@@ -1415,7 +1490,8 @@ def wide_rung(model, eng, items, launches: dict) -> None:
     outs = weng.run(wide_items)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    lat, pre = dict(kern.LAUNCHES), dict(kn.LAUNCHES)
+    lat = {k: kern.LAUNCHES[k] for k in kern.LATTICE_KERNELS}
+    pre = dict(kn.LAUNCHES)
     plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
     peak = torch.cuda.max_memory_allocated() / 2**30
     pr = weng.profile
@@ -1741,6 +1817,172 @@ def phase_14_cli(m9, npz: str, reads, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_15(model, bench, small, launches: dict, max_err: dict) -> dict:
+    """The matrix route, the stacked table gather and the single-read NT
+    CLIs (module docstring). Returns banded_vit's launches' source run and
+    ntc_table_gather's timing entry."""
+    import numpy as np
+    import torch
+
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.batch import T_PAD_TO, BandedBatchEngine, BatchItem
+    from dynamont_tpu_torch.models.nt_banded import run_nt_banded
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+    from dynamont_tpu_torch.ops import nt_banded_batch as bb
+    from dynamont_tpu_torch.ops import nt_banded_device as dv
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+
+    # (a) the matrix route on the phase-4 reads, snapped to the wire grid
+    items = []
+    for sig, read in bench:
+        dac, scale, offset = dv.quantize_signal(sig)
+        items.append(BatchItem(dac.astype(np.float64) * scale + offset, read))
+    eng = BandedBatchEngine(model, "rna002", device="cuda", batch_size=BATCH,
+                            device_pipeline=False)
+    eng.run(items[:BATCH])  # warm-up: allocator and first launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kk.reset_counts()
+    t0 = time.perf_counter()
+    outs = eng.run(items)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used, plain = dict(kk.LAUNCHES), dict(kk.PLAIN_RUNS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[15a] matrix route, {len(items)} reads (batch {BATCH}, fp32): {wall:.2f} s = "
+        f"{len(items) / wall:.2f} reads/s | peak device memory {peak:.2f} GiB | fp64 retries "
+        f"{eng.profile.get('z_retries', 0)} | launches {used} | plain {plain}")
+    if (any(used[k] == 0 for k in kk.MATRIX_KERNELS) or used["banded_fwd_vit"]
+            or used["banded_walk"] or any(plain.values())):
+        raise AssertionError("the matrix route missed a kernel or ran another route")
+    launches["banded_vit"] = used["banded_vit"]
+    # one bucket's split: the device program (CUDA events), then the host
+    # (the posteriors and choices to the host, the native walk)
+    its = items[:BATCH]
+    kids = [seq_to_kmer_ids(it.read, model.kmer_size, model.alphabet_size) for it in its]
+    batch = bb.prepare_batch([it.signal for it in its], kids, model, device="cuda",
+                             dtype=torch.float32, t_pad_to=T_PAD_TO)
+    res, dev_ms = timed_once(lambda: eng._run(batch))
+    t0 = time.perf_counter()
+    host = [x.cpu() for x in (res.PM, res.PE, res.choices)]
+    t1 = time.perf_counter()
+    bb.traceback_batch(res, batch.bstart.cpu().numpy(), batch.T.cpu().numpy(),
+                       batch.N.cpu().numpy(), batch.bw.cpu().numpy(), model.kmer_size)
+    t2 = time.perf_counter()
+    log(f"[15a] one {(BATCH, batch.bstart.shape[1], batch.B)} bucket: device program "
+        f"{dev_ms:.2f} ms (K5, K1, K4, posteriors), PM/PE/choices to the host "
+        f"{(t1 - t0) * 1e3:.1f} ms ({nbytes(*host) / 1e9:.2f} GB), the same again and "
+        f"the native walk {(t2 - t1) * 1e3:.1f} ms")
+    del res, host, batch
+    dev = BandedBatchEngine(model, "rna002", device="cuda", batch_size=BATCH).run(items)
+    dp = 0.0
+    for i, (m, d) in enumerate(zip(outs, dev)):
+        if m.error is not None or d.error is not None or not m.segments:
+            raise AssertionError(f"read {i}: {m.error} / {d.error}")
+        if [x[1:3] for x in m.segments] != [x[1:3] for x in d.segments]:
+            raise AssertionError(f"read {i}: borders differ between the routes")
+        dp = max([dp] + [abs(x[3] - y[3]) for x, y in zip(m.segments, d.segments)])
+    log(f"[15a] against the device route: borders identical on every read, probabilities "
+        f"within {dp!r}")
+    if dp > 2e-3:
+        raise AssertionError("probabilities differ between the routes beyond 2e-3")
+    del eng, outs, dev, items
+    torch.cuda.empty_cache()
+
+    # (b) #12 on phase 12's bucket, on K11's index rows
+    with tempfile.TemporaryDirectory(prefix="dynamont_tg_") as tmp:
+        tsv = os.path.join(tmp, "reads.tsv")
+        write_tsv(tsv, bench[:NTC_READS])
+        its = [BatchItem(job.signal, job.read)
+               for job in readers.generate_tsv_jobs(tsv, True)]
+    ntc = NTCBatchEngine(model, "rna002", device="cuda")
+    k = {}
+    ntc._dispatch(list(range(NTC_READS)), its, ntc.cap_n, ntc.cap_k, keep=k)
+    ks, prm, (R, CN, CK, A) = k["ks"], k["prm"], k["dims"]
+    T_pad, K = ks.shape[0], k["table"].shape[1]
+    tabT = nb.combined_tablesT(ntc.tensors["means"], ntc.tensors["c1"], ntc.tensors["c2"], A)
+    same("combined_tablesT", tabT[: nb.NTAB], k["table"])
+    kern.reset_counts()
+    out = kern.table_gather(ks, tabT)
+    torch.cuda.synchronize()
+    launches["ntc_table_gather"] = kern.LAUNCHES["ntc_table_gather"]
+    if launches["ntc_table_gather"] != 1 or any(kern.PLAIN_RUNS.values()):
+        raise AssertionError("ntc_table_gather did not launch")
+    want, plain_ms = timed_once(lambda: kern.table_gather_plain(ks, tabT))
+    same("ntc_table_gather", out, want)
+    RCK = R * CK
+    kpart = out[:, :, :RCK].reshape(T_pad, nb.TG_ROWS, R, CK)
+    for f, row in (("mu_k", 0), ("c1_k", 1), ("c2_k", 2)):
+        same(f"ntc_table_gather row {row} vs K11's {f}", kpart[:, row], getattr(prm, f))
+    suc = (kpart[:, 3 : nb.NTAB].reshape(T_pad, 3, A, R, CK).permute(0, 1, 3, 2, 4)
+           .reshape(T_pad, 3, R, A * CK))
+    same("ntc_table_gather rows 3-14 vs K11's suc", suc, prm.suc)
+    same("ntc_table_gather rows 0-2 vs K11's nsl", out[:, :3, RCK:], prm.nsl)
+    max_err["ntc_table_gather"] = 0.0
+    log(f"[15b] ntc_table_gather on ks {tuple(ks.shape)} (K = {K}): bit for bit its plain "
+        "version and K11's mu/c1/c2, successor and n-slot parameters")
+    ks64 = ks.clamp(0, K - 1).long()
+    times = {"ntc_table_gather": timed(
+        "ntc_table_gather", lambda: kern.table_gather(ks, tabT), plain_ms, [ks, tabT],
+        ks.numel(), 3, library=lambda: tabT[:, ks64])}
+    del ntc, k, ks, prm, out, want, kpart, suc, ks64
+    torch.cuda.empty_cache()
+
+    # (c) the single-read NT CLIs, cuda against cpu
+    for i, (s, r) in enumerate(small):
+        for mode, flags in (("segment", ()), ("calcZ", ("-z",)), ("train", ("--train",)),
+                            ("prob", ("-p",))):
+            for cli in ("nt_banded_main", "nt_main"):
+                t0 = time.perf_counter()
+                got, out_g = run_cli(s, r, "cuda", flags, cli)
+                t1 = time.perf_counter()
+                ref, out_w = run_cli(s, r, "cpu", flags, cli)
+                if cli == "nt_banded_main":
+                    if out_g != out_w:
+                        bad = [(a, b) for a, b in zip(out_g.splitlines(), out_w.splitlines())
+                               if a != b]
+                        raise AssertionError(f"dynamont-NT-banded {mode}: stdout differs "
+                                             f"from --device cpu: {str(bad)[:2000]}")
+                    err = 0.0
+                else:
+                    err = ntc_agree(got, ref, "segment" if mode == "prob" else mode)
+                    if mode == "prob":
+                        g, w = got.per_t_logprob, ref.per_t_logprob
+                        fin = np.isfinite(w)
+                        d = np.abs(g[fin] - w[fin]).max()
+                        if not np.array_equal(fin, np.isfinite(g)) or d > 1e-9:
+                            raise AssertionError("dynamont-NT -p differs beyond 1e-9")
+                        err = max(err, float(d))
+                log(f"[15c] short read {i} {cli} {mode}: cuda {t1 - t0:.2f} s, cpu "
+                    f"{time.perf_counter() - t1:.2f} s, stdout "
+                    f"{'identical' if out_g == out_w else 'differs'}, max diff {err:.3g}")
+    s, r = bench[0]
+    T = len(s) + 1
+    exact = run_nt_banded(s, r, model, "rna002", device="cuda")
+    for cli in ("nt_banded_main", "nt_main"):
+        t0 = time.perf_counter()
+        got, out = run_cli(s, r, "cuda", ("-p",), cli)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vals = got.per_t_logprob  # -inf where a row holds no live M cell (row 0, T-1)
+        n_fin = int(np.isfinite(vals).sum())
+        if len(vals) != T or not np.isneginf(vals[[0, -1]]).all() \
+                or (np.isnan(vals) | (vals == np.inf)).any() or n_fin < T // 2:
+            raise AssertionError(f"{cli} -p: {len(vals)} values ({n_fin} finite), want "
+                                 f"T = {T}, -inf at rows 0 and T-1, no NaN or +inf")
+        if len(out.splitlines()[1].split(",")) != T + 1:
+            raise AssertionError(f"{cli} -p printed another count of values")
+        if cli == "nt_banded_main" and got.segments != exact.segments:
+            raise AssertionError("dynamont-NT-banded's segments differ from the exact rung's")
+        log(f"[15c] long read ({len(r)} bases, T {T}) {cli} -p on cuda: {wall:.2f} s, "
+            f"{len(got.segments)} segments, -p: {T} values, {n_fin} finite"
+            + (", segments equal run_nt_banded's" if cli == "nt_banded_main" else ""))
+    return times
+
+
 def ntc_train_split(eng, items) -> dict:
     """ms of each stage of one training bucket as ntc_train_bucket_program
     runs it (CUDA events), and of the host post-processing (host clock)."""
@@ -1881,6 +2123,8 @@ def main(argv=None) -> int:
                 b, nmax = bucket(reads, dtype)
                 shape = (b.sig.shape[0], b.bstart.shape[1], b.B)
                 errs = compare_kernels(b, nmax, lm, le)
+                compare_vit(b, lm, le)
+                errs["banded_vit"] = 0.0  # bit for bit, or compare_vit raised
                 log(f"[3] bucket {shape} {dtype}: max abs err {errs}")
                 del b
             if dtype == torch.float32:
@@ -1988,7 +2232,22 @@ def main(argv=None) -> int:
         }
         for name, (kern, inputs, units, extra) in runs.items():
             times[name] = timed(name, kern, plain_ms[name], inputs, units, 3, extra)
-        del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs
+        # the matrix route's K4 over K5's and K1's rows of the same bucket:
+        # against its plain version, then against K2's (ch, LPM, LPE)
+        vfM, vfE = kk.forward(main_b, lm, le)
+        vit_rows = (vfM, vfE, bM, bE, Zb)
+        vit = compare_vit(main_b, lm, le, plain_ms, vit_rows, check_run=False)
+        max_err["banded_vit"] = 0.0
+        n_ch = int((vit[0] != ch).sum())
+        d_lp = max(max_diff(vit[1], LPM), max_diff(vit[2], LPE))
+        log(f"[5] K5 -> K1 -> K4 against K2 on {(BATCH, 16384, 512)} fp32: "
+            + ("ch, LPM, LPE bit for bit" if n_ch == 0 and d_lp == 0.0 else
+               f"{n_ch} choice bits differ, LPM/LPE off by up to {d_lp!r}"))
+        del vit
+        times["banded_vit"] = timed(
+            "banded_vit", lambda: kk.viterbi_post(main_b, *vit_rows), plain_ms["banded_vit"],
+            [*vit_rows, main_b.bstart, main_b.T, main_b.N, main_b.bw], cells(main_b), 3)
+        del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs, vit_rows, vfM, vfE
         torch.cuda.empty_cache()
 
     # 6. the training kernels against their plain versions
@@ -2144,6 +2403,10 @@ def main(argv=None) -> int:
     phase.start("14")
     if want("14"):
         phase_14(model, bench, lm, le)
+    # 15. the matrix route, the stacked table gather, the NT CLIs
+    phase.start("15")
+    if want("15"):
+        times.update(phase_15(model, bench, small, launches, max_err))
     phase.end()
 
     kernels = []

@@ -4,7 +4,8 @@ Contract (ref: NT_main.cpp:77-123, README.md:106-122):
   stdin line 1: comma-separated signal values
   stdin line 2: read (processing orientation)
   exit codes: 3 Z mismatch, 4 signal missing, 5 read missing, 6 model kmer
-  length mismatch, 7 bad model path, 8-11 input size violations.
+  length mismatch, 7 bad model path, 8-11 input size violations; the
+  port's own, NO_CUDA_EXIT, for --device cuda without a CUDA device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,24 @@ import os
 import sys
 
 import numpy as np
+
+
+# the protocol's codes: 1/2 NTC pre-pass Z mismatch, 3 Z mismatch, 4-11
+# input and model errors; this one is the port's
+NO_CUDA_EXIT = 12
+
+
+def device_or_exit(name: str):
+    """torch.device(name); without a CUDA device, --device cuda exits
+    NO_CUDA_EXIT instead of falling back to the CPU."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("--device cuda: torch sees no CUDA device (pass --device cpu "
+              "to run the plain-torch path)", file=sys.stderr)
+        raise SystemExit(NO_CUDA_EXIT)
+    return device
 
 
 def read_stdin_pair() -> tuple[np.ndarray, str]:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import sys
 from argparse import ArgumentParser
 
+from dynamont_tpu_torch.cli._protocol import NO_CUDA_EXIT
 from dynamont_tpu_torch.constants import NTK_PARAM_NAMES
 
 _FLAG_NAMES = {
@@ -24,10 +25,6 @@ _FLAG_NAMES = {
     "e1": "--extendscore1", "e2": "--extendscore2", "e3": "--extendscore3",
     "e4": "--extendscore4", "i1": "--insertionscore1", "i2": "--insertionscore2",
 }
-
-# the protocol's codes: 1/2 pre-pass Z mismatch, 3 Z mismatch, 4-11 input
-# and model errors (cli/_protocol.py, models/nt.py); this one is the port's
-NO_CUDA_EXIT = 12
 
 
 def build_parser() -> ArgumentParser:
@@ -60,18 +57,13 @@ def main(argv=None):
     """Runs the protocol; returns the NTCResult (for in-process callers)."""
     args = build_parser().parse_args(argv)
 
-    import torch
-
     from dynamont_tpu_torch.cli._protocol import (
-        fmt, load_model_or_exit, print_train_output, read_stdin_pair,
+        device_or_exit, fmt, load_model_or_exit, print_train_output,
+        read_stdin_pair,
     )
     from dynamont_tpu_torch.constants import is_rna
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("--device cuda: torch sees no CUDA device (pass --device cpu "
-              "to run the plain-torch path)", file=sys.stderr)
-        raise SystemExit(NO_CUDA_EXIT)
+    device = device_or_exit(args.device)
     model = load_model_or_exit(args.model, is_rna(args.pore))
     signal, read = read_stdin_pair()
 

@@ -172,11 +172,17 @@ def _dump_failed_input(job) -> str:
     return path
 
 
+# chunks dispatched ahead of collection, as in the JAX CLI: queued
+# launches hold their inputs and outputs, the DP working set is per launch
+INFLIGHT = 3
+
+
 def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
-    """Stream jobs through the engine, dispatching chunk i+1 before
-    collecting chunk i. A chunk whose run raises is re-run read by read,
-    so one bad read costs only itself a sidecar line and a repro dump
-    (_dump_failed_input, in the working directory). A chunk is four
+    """Stream jobs through the engine with a rolling window: up to INFLIGHT
+    chunks are dispatched before the oldest is collected, so the device
+    does not drain between chunks. A chunk whose run raises is re-run read
+    by read, so one bad read costs only itself a sidecar line and a repro
+    dump (_dump_failed_input, in the working directory). A chunk is four
     buckets of the mode's batch size."""
     from dynamont_tpu_torch.models.batch import BatchItem
 
@@ -223,7 +229,7 @@ def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
             isolate(part, e)
             return
         window.append((handle, part))
-        if len(window) > 1:
+        if len(window) > INFLIGHT:
             collect_oldest()
 
     chunk: list = []

@@ -36,8 +36,8 @@ def build_parser() -> ArgumentParser:
     p.add_argument("--precision", choices=["auto", "fp64", "fp32"],
                    default="auto",
                    help="auto (default): fp32 on a CUDA device, fp64 on the "
-                        "CPU; fp32 reads failing the Z gate re-run on the "
-                        "exact fp64 rung")
+                        "CPU; resquiggle-mode reads failing a gate or cap "
+                        "re-run on the exact fp64 rung")
     p.add_argument("--resume", action="store_true",
                    help="continue from the last trained_{epoch}_{batch} "
                         "checkpoint in the output dir (skips the batches "
@@ -53,7 +53,7 @@ def build_parser() -> ArgumentParser:
 
 def main(argv=None):
     """Run the training; returns the closed Trainer (its counters say how
-    many reads took the per-read fp64 rung)."""
+    many reads took the per-read fp64 NTC rung)."""
     args = build_parser().parse_args(argv)
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)

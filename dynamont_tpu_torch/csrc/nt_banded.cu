@@ -1,13 +1,16 @@
 // Banded NT pair-HMM kernels for Hopper (sm_90a): the three kernels of the
-// basic-mode segmentation path, templated on float and double.
+// basic-mode segmentation path and the posterior + Viterbi pass of the
+// matrix route, templated on float and double.
 //
 //   banded_bwd      replaces dynamont_tpu/ops/nt_banded_pallas.py::_bwd_kernel
 //   banded_fwd_vit  replaces dynamont_tpu/ops/nt_banded_pallas.py::_fwd_vit_kernel
 //   banded_walk     replaces dynamont_tpu/ops/nt_banded_pallas.py::_walk_kernel
+//   banded_vit      replaces dynamont_tpu/ops/nt_banded_pallas.py::_vit_kernel
 //
-// Plain-torch versions of all three live in ops/nt_banded_batch.py
-// (backward, fwd_vit, walk); the wrappers in ops/nt_banded_kernels.py
-// launch these through the extern "C" entry points at the end of the file.
+// Plain-torch versions of all four live in ops/nt_banded_batch.py
+// (backward, fwd_vit, walk, viterbi_post); the wrappers in
+// ops/nt_banded_kernels.py launch these through the extern "C" entry
+// points at the end of the file.
 //
 // Layout (read-major, row-contiguous):
 //   sig                 (R, T_pad-1)   normalized signal; row t uses sig[t-1]
@@ -17,7 +20,8 @@
 //   bstart              (R, T_pad)     int32 band start per row; band column
 //                                      j of row t is base n = bstart[t]+j-1
 //   T, N, bw            (R,)           int32 per-read true sizes
-//   bM, bE, LPM, LPE    (R, T_pad, B)  band rows
+//   fM, fE, bM, bE,     (R, T_pad, B)  band rows
+//   LPM, LPE
 //   ch                  (R, T_pad, B)  uint8 Viterbi choice bit
 //
 // Design: one thread block per read and one thread per band column
@@ -34,21 +38,28 @@
 // fp32 tensors written by banded_bwd, two read and three written by
 // banded_fwd_vit) are far below what the memory system could carry in the
 // same time. Packing several reads per block and filling the SMs is later
-// work.
+// work. banded_vit has no recurrence besides the Viterbi step: it streams
+// four stored (T, B) tensors in and writes three, 25 bytes per band cell
+// in fp32 (a 2.0 ms bound at (32, 16384, 512)), so of the four its chain
+// comes nearest its bytes; it loads row t+1 of its inputs while row t's
+// step waits on the barrier.
 //
 // Exactness: every expression rounds as the plain-torch version does, op
 // by op: c1 - (c2*d)*d, (E_m + sc_b) + log_m1, logaddexp as
 // m + log1p(exp(-|a-b|)) (what torch.logaddexp computes), max-then-add in
 // the Viterbi step, and the choice bit as the float equality
 // vE_new == vM_e + lpe. The library is built with -fmad=false and without
-// fast math so no product is fused into a sum.
+// fast math so no product is fused into a sum. banded_fwd_vit and
+// banded_vit take the Viterbi step in one function (viterbi_step), so the
+// matrix route's choices equal the fused path's wherever its stored
+// forward rows equal the fused kernel's.
 //
 // Traps: (1) B is the padded band width the JAX package computes; columns
 // j >= 2*bw+3 are always -inf and the Z gate counts T*B cells with that B.
 // (2) Backward rows above a read's T-1 are -inf and leave the carry
 // untouched; reads of different T share one bucket. (3) Forward rows past
-// T are never computed: banded_fwd_vit writes LPM = LPE = -inf and ch = 0
-// there, as the plain version does.
+// T are never computed: banded_fwd_vit and banded_vit write LPM = LPE =
+// -inf and ch = 0 there, as the plain versions do.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +70,25 @@
 namespace {
 
 using namespace dynamont;
+
+// One Viterbi step of band column j over the posteriors (lpm, lpe) of row t
+// (ref: NT_banded.cpp:139-189): the previous Viterbi row at VMs/VEs, the
+// band shift s1 between rows t-1 and t, max-then-add. Writes the new cell
+// and returns the choice bit vE_new == vM_e + lpe, taken after masking.
+template <typename S>
+__device__ __forceinline__ uint8_t viterbi_step(const S* VMs, const S* VEs,
+                                                int j, int B, bool s1,
+                                                bool valid, S lpm, S lpe,
+                                                S& vM_new, S& vE_new) {
+  const S NEG = neg_inf<S>();
+  const int jl = j + 1 < B ? j + 1 : -1;  // left shift source
+  const S vE_m = s1 ? VEs[j] : (j > 0 ? VEs[j - 1] : NEG);
+  const S vM_e = s1 ? (jl >= 0 ? VMs[jl] : NEG) : VMs[j];
+  const S vE_e = s1 ? (jl >= 0 ? VEs[jl] : NEG) : VEs[j];
+  vM_new = valid ? vE_m + lpm : NEG;
+  vE_new = valid ? max_nan(vM_e, vE_e) + lpe : NEG;
+  return (vE_new == vM_e + lpe) ? 1 : 0;
+}
 
 // ---------------------------------------------------------------------------
 // banded_bwd: backward M/E recurrence in reverse t (ref: NT_banded.cpp:64-123)
@@ -201,18 +231,84 @@ __global__ void banded_fwd_vit_kernel(
     LPM[cell] = lpm;
     LPE[cell] = lpe;
     // Viterbi row
-    const S vE_m = s1 ? VEs[o + j] : (j > 0 ? VEs[o + j - 1] : NEG);
-    const S vM_e = s1 ? (jl >= 0 ? VMs[o + jl] : NEG) : VMs[o + j];
-    const S vE_e = s1 ? (jl >= 0 ? VEs[o + jl] : NEG) : VEs[o + j];
-    const S vM_new = valid ? vE_m + lpm : NEG;
-    const S vE_new = valid ? max_nan(vM_e, vE_e) + lpe : NEG;
-    ch[cell] = (vE_new == vM_e + lpe) ? 1 : 0;
+    S vM_new, vE_new;
+    ch[cell] = viterbi_step(VMs + o, VEs + o, j, B, s1, valid, lpm, lpe,
+                            vM_new, vE_new);
     cur ^= 1;
     const int n_o = cur * B;
     Ms[n_o + j] = M_new;
     Es[n_o + j] = E_new;
     VMs[n_o + j] = vM_new;
     VEs[n_o + j] = vE_new;
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// banded_vit: log posteriors + Viterbi over stored forward and backward rows
+// (the matrix route; ref: NT_banded.cpp:139-189)
+// ---------------------------------------------------------------------------
+template <typename S>
+__global__ void banded_vit_kernel(
+    const S* __restrict__ fM, const S* __restrict__ fE,
+    const S* __restrict__ bM, const S* __restrict__ bE,
+    const S* __restrict__ Zb, const int* __restrict__ bstart,
+    const int* __restrict__ T_arr, const int* __restrict__ N_arr,
+    const int* __restrict__ bw_arr, uint8_t* __restrict__ ch,
+    S* __restrict__ LPM, S* __restrict__ LPE, int T_pad, int B) {
+  extern __shared__ unsigned char smem[];
+  S* VMs = reinterpret_cast<S*>(smem);  // Viterbi rows [2][B]
+  S* VEs = VMs + 2 * B;
+  const int r = blockIdx.x;
+  const int j = threadIdx.x;
+  const S NEG = neg_inf<S>();
+  const int T = T_arr[r], N = N_arr[r], bw = bw_arr[r];
+  const S zb = Zb[r];
+  const int* bs_r = bstart + (size_t)r * T_pad;
+  const size_t base = (size_t)r * T_pad * B;
+
+  for (int t = T; t < T_pad; ++t) {  // rows past the read: defined fill
+    LPM[base + (size_t)t * B + j] = NEG;
+    LPE[base + (size_t)t * B + j] = NEG;
+    ch[base + (size_t)t * B + j] = 0;
+  }
+  LPM[base + j] = (fM[base + j] + bM[base + j]) - zb;
+  LPE[base + j] = (fE[base + j] + bE[base + j]) - zb;
+  ch[base + j] = 0;
+  int cur = 0;
+  VMs[j] = NEG;
+  VEs[j] = (j == bw + 1) ? S(0) : NEG;
+  // row t's four inputs, loaded one row ahead
+  S fm = NEG, fe = NEG, bm = NEG, be = NEG;
+  if (T > 1) {
+    const size_t c1 = base + B + j;
+    fm = fM[c1];
+    fe = fE[c1];
+    bm = bM[c1];
+    be = bE[c1];
+  }
+  __syncthreads();
+  for (int t = 1; t < T; ++t) {
+    const size_t cell = base + (size_t)t * B + j;
+    const S lpm = (fm + bm) - zb;
+    const S lpe = (fe + be) - zb;
+    if (t + 1 < T) {
+      fm = fM[cell + B];
+      fe = fE[cell + B];
+      bm = bM[cell + B];
+      be = bE[cell + B];
+    }
+    const int bs = bs_r[t];
+    const bool s1 = bs != bs_r[t - 1];
+    const bool valid = in_band(j, bs, bw, N, 1);
+    LPM[cell] = lpm;
+    LPE[cell] = lpe;
+    S vM_new, vE_new;
+    ch[cell] = viterbi_step(VMs + cur * B, VEs + cur * B, j, B, s1, valid,
+                            lpm, lpe, vM_new, vE_new);
+    cur ^= 1;
+    VMs[cur * B + j] = vM_new;
+    VEs[cur * B + j] = vE_new;
     __syncthreads();
   }
 }
@@ -319,6 +415,17 @@ int launch_walk(const S* LPM, const S* LPE, const uint8_t* ch,
   return (int)cudaGetLastError();
 }
 
+template <typename S>
+int launch_vit(const S* fM, const S* fE, const S* bM, const S* bE,
+               const S* Zb, const int* bstart, const int* T, const int* N,
+               const int* bw, uint8_t* ch, S* LPM, S* LPE, int R, int T_pad,
+               int B, void* stream) {
+  const size_t smem = 4 * (size_t)B * sizeof(S);
+  banded_vit_kernel<S><<<R, B, smem, (cudaStream_t)stream>>>(
+      fM, fE, bM, bE, Zb, bstart, T, N, bw, ch, LPM, LPE, T_pad, B);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // extern "C" entry points: pointers and the stream arrive as void* from
@@ -355,6 +462,17 @@ int launch_walk(const S* LPM, const S* LPE, const uint8_t* ch,
                           (const int*)bstart, (const int*)T, (const int*)N,  \
                           (const int*)bw, (int*)path_n, (S*)prob,            \
                           (uint8_t*)close, R, T_pad, B, N_max, stream);      \
+  }                                                                           \
+  extern "C" int nt_banded_vit_##SUFFIX(                                      \
+      const void* fM, const void* fE, const void* bM, const void* bE,        \
+      const void* Zb, const void* bstart, const void* T, const void* N,      \
+      const void* bw, void* ch, void* LPM, void* LPE, int R, int T_pad,      \
+      int B, void* stream) {                                                 \
+    return launch_vit<S>((const S*)fM, (const S*)fE, (const S*)bM,          \
+                         (const S*)bE, (const S*)Zb, (const int*)bstart,     \
+                         (const int*)T, (const int*)N, (const int*)bw,       \
+                         (uint8_t*)ch, (S*)LPM, (S*)LPE, R, T_pad, B,        \
+                         stream);                                            \
   }
 
 DEFINE_ENTRY_POINTS(float, f32)

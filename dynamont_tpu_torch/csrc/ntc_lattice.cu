@@ -2,6 +2,7 @@
 // batched resquiggle engine, templated on float and double.
 //
 //   ntc_tab_gather  replaces dynamont_tpu/ops/ntc_pallas.py::_tab_gather_packs_kernel
+//   ntc_table_gather replaces dynamont_tpu/ops/ntc_pallas.py::_tab_gather_kernel
 //   ntc_bwd         replaces dynamont_tpu/ops/ntc_pallas.py::_bwd_kernel
 //   ntc_bwd_ckpt    replaces dynamont_tpu/ops/ntc_pallas.py::_bwd_ckpt_kernel
 //   ntc_pv          replaces dynamont_tpu/ops/ntc_pallas.py::_pv_kernel
@@ -52,7 +53,11 @@
 // ntc_walk: one block of one thread per read replays the traceback over the
 // stored choices and predecessor slots, N_MICRO micro-steps per column.
 // ntc_tab_gather: one thread per k-mer index, writing every table row that
-// index feeds.
+// index feeds. ntc_table_gather is the same gather without the pack layout:
+// the 16 stacked rows of ops/ntc_batch.combined_tablesT at each index, in
+// float32 (the TPU kernel splits the table into three bf16 terms for its
+// one-hot matmul and recombines every value exactly; here a load is the
+// value).
 //
 // What bounds them: ntc_bwd and ntc_pv are chains of T_pad dependent steps,
 // each two or more block barriers and ~40 transcendental functions per cell
@@ -61,7 +66,9 @@
 // once over the memory rate, are both far below the chain's latency.
 // ntc_pv_ckpt adds ntc_bwd's operations to ntc_pv's (the re-derivation)
 // for 1/8 of the backward bytes.
-// ntc_walk is one thread's dependent loads. ntc_tab_gather moves bytes.
+// ntc_walk is one thread's dependent loads. ntc_tab_gather and
+// ntc_table_gather move bytes: 64 bytes written per index, coalesced along
+// j; the table (64 KB at K = 1024) stays in L1/L2.
 //
 // Exactness: every expression rounds as the plain version does, op by op
 // (built with -fmad=false, no fast math): scores c1 - (c2*d)*d,
@@ -150,6 +157,29 @@ __global__ void tab_gather_kernel(const int* __restrict__ ks,
       for (int s = 0; s < 3; ++s)
         nsl[((size_t)t * 3 + s) * RC2 + q] = live ? tab[(size_t)s * K + v] : S(0);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ntc_table_gather: out[t, s, j] = tab[s, ks[t, j]] for the TG_ROWS stacked
+// rows, 0 where ks[t, j] is outside [0, K) (#12)
+// ---------------------------------------------------------------------------
+constexpr int TG_ROWS = 16;
+
+__global__ void table_gather_kernel(const int* __restrict__ ks,
+                                    const float* __restrict__ tab,
+                                    float* __restrict__ out, int T, int J,
+                                    int K) {
+  const size_t total = (size_t)T * J;
+  for (size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x; g < total;
+       g += (size_t)gridDim.x * blockDim.x) {
+    const size_t t = g / J, j = g % J;
+    const int v = ks[g];
+    const bool live = v >= 0 && v < K;
+    float* o = out + t * TG_ROWS * J + j;
+#pragma unroll
+    for (int s = 0; s < TG_ROWS; ++s)
+      o[(size_t)s * J] = live ? tab[(size_t)s * K + v] : 0.0f;
   }
 }
 
@@ -721,6 +751,16 @@ int tab_gather(const int* ks, const S* tab, S* mu_k, S* c1_k, S* c2_k, S* suc,
   return (int)cudaGetLastError();
 }
 
+int table_gather(const int* ks, const float* tab, float* out, int T, int J,
+                 int K, cudaStream_t stream) {
+  const size_t total = (size_t)T * J;
+  const int threads = 256;
+  const size_t want = (total + threads - 1) / threads;
+  const int blocks = (int)(want < 65535 * 16 ? want : 65535 * 16);
+  table_gather_kernel<<<blocks, threads, 0, stream>>>(ks, tab, out, T, J, K);
+  return (int)cudaGetLastError();
+}
+
 template <typename S>
 int bwd(const BwdIn<S>& in, const S* tlog, const int* N_r, const int* T_r,
         S* out, int NT, cudaStream_t stream) {
@@ -883,3 +923,9 @@ int walk(const S* lp, const short* choices, const int* slots,
 
 NTC_LATTICE_ENTRIES(float, f32)
 NTC_LATTICE_ENTRIES(double, f64)
+
+extern "C" int ntc_table_gather_f32(const int* ks, const float* tab,
+                                    float* out, int T, int J, int K,
+                                    void* stream) {
+  return table_gather(ks, tab, out, T, J, K, (cudaStream_t)stream);
+}

@@ -1,13 +1,19 @@
 """Batched banded segmentation engine (counterpart of
 dynamont_tpu/models/batch.py): reads are packed into padded buckets, each
-bucket runs as one device pipeline (wire -> decode -> three kernels ->
-summaries), and reads that fail the fp32 Z gate escalate to the exact
-per-read fp64 rung.
+bucket runs as one device program, and reads that fail the fp32 Z gate
+escalate to the exact per-read fp64 rung.
 
-One device, given explicitly. dispatch() queues every bucket on the
-current CUDA stream and starts the summaries' copies into pinned host
-memory; collect() waits for them, so host formatting of one chunk can
-overlap the device work of the next.
+Two routes, as in the JAX package. The device pipeline (the default):
+wire -> decode -> three kernels (K1-K3) -> summaries; dispatch() queues
+every bucket on the current CUDA stream and starts the summaries' copies
+into pinned host memory, collect() waits for them, so host formatting of
+one chunk can overlap the device work of the next. The matrix route
+(device_pipeline=False): raw signals prepared on the host with no wire
+quantization, the full posterior matrices from K5 -> K1 -> K4
+(ops/nt_banded_batch.banded_batch_run), walked on the host by the native
+traceback; collect() runs it bucket by bucket.
+
+One device, given explicitly.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ class BandedBatchEngine:
 
     def __init__(self, model, pore: str, *, device, dtype=torch.float32,
                  batch_size: int = 32, band: int = 400,
-                 fp64_fallback: bool = True):
+                 fp64_fallback: bool = True, device_pipeline: bool = True):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
@@ -87,6 +93,7 @@ class BandedBatchEngine:
         self.dtype = dtype
         self.batch_size = batch_size
         self.fp64_fallback = fp64_fallback
+        self.device_pipeline = device_pipeline
         # wall-clock accounting across run() calls: dispatch = host prep +
         # queueing, collect = device wait + summary decode
         self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
@@ -95,6 +102,7 @@ class BandedBatchEngine:
                               dtype=dtype)
         self._dev_run = dv.make_device_fn(p.means, p.c1, p.c2, p.log_m1,
                                           p.log_e2)
+        self._run = bb.make_banded_batch_fn(self.m1, self.e2)
 
     def _buckets(self, items: list[BatchItem]):
         """Reads packed into padded buckets minimizing device rows
@@ -115,20 +123,25 @@ class BandedBatchEngine:
             else:
                 valid.append(i)
         t0 = time.perf_counter()
-        pending = [
-            self._dispatch_bucket([items[valid[g]] for g in group],
-                                  [valid[g] for g in group])
-            for group in self._buckets([items[i] for i in valid])
-        ]
+        groups = [[valid[g] for g in group]
+                  for group in self._buckets([items[i] for i in valid])]
+        pending = groups
+        if self.device_pipeline:
+            pending = [self._dispatch_bucket([items[i] for i in gidx], gidx)
+                       for gidx in groups]
         self.profile["dispatch_s"] += time.perf_counter() - t0
-        return outputs, valid, pending
+        return items, outputs, valid, pending
 
     def collect(self, handle) -> list[BatchOutput]:
-        """Wait for the handle's buckets and build outputs."""
-        outputs, valid, pending = handle
+        """Wait for the handle's buckets (the matrix route: run them) and
+        build outputs."""
+        items, outputs, valid, pending = handle
         t1 = time.perf_counter()
         for bucket in pending:
-            self._collect_bucket(bucket, outputs)
+            if self.device_pipeline:
+                self._collect_bucket(bucket, outputs)
+            else:
+                self._run_bucket([items[i] for i in bucket], bucket, outputs)
         self.profile["buckets"] += len(pending)
         self.profile["reads"] += len(valid)
         self.profile["collect_s"] += time.perf_counter() - t1
@@ -177,6 +190,32 @@ class BandedBatchEngine:
                     summaries=(starts[j], medians[j], int(N[j]),
                                self.model.kmer_size),
                 )
+
+    def _run_bucket(self, its: list[BatchItem], gidx: list[int], outputs):
+        """One bucket through the matrix route: host-prepared raw signals,
+        the posterior matrices on the device, the native host walk."""
+        kmer_ids = [
+            seq_to_kmer_ids(it.read, self.model.kmer_size,
+                            self.model.alphabet_size)
+            for it in its
+        ]
+        batch = bb.prepare_batch(
+            [it.signal for it in its], kmer_ids, self.model, self.band,
+            device=self.device, dtype=self.dtype, t_pad_to=T_PAD_TO)
+        res = self._run(batch)
+        Zf = res.Zf.cpu().numpy().astype(np.float64)
+        Zb = res.Zb.cpu().numpy().astype(np.float64)
+        T, N, bw = (x.cpu().numpy() for x in (batch.T, batch.N, batch.bw))
+        ok = bb.check_z_batch(Zf, Zb, T, batch.B, self.dtype)
+        seg_lists = bb.traceback_batch(res, batch.bstart.cpu().numpy(), T, N,
+                                       bw, self.model.kmer_size)
+        for j, out_i in enumerate(gidx):
+            if not ok[j]:
+                outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
+                                              float(Zb[j]))
+            else:
+                outputs[out_i] = BatchOutput(its[j], seg_lists[j],
+                                             float(Zb[j]))
 
     def _validate(self, it: BatchItem) -> str | None:
         try:

@@ -1,8 +1,10 @@
 """End-to-end single-read banded NT pipeline (counterpart of
-dynamont_tpu/models/nt_banded.py; ref: src/cpp/NT_banded_main.cpp). It is
-the exact fp64 rung that batched reads failing the fp32 Z gate escalate
-to, in segment mode for segmentation and in train/calcZ mode for
-training."""
+dynamont_tpu/models/nt_banded.py; ref: src/cpp/NT_banded_main.cpp), run
+by dynamont-NT-banded (cli/nt_banded_main.py). It is the exact fp64 rung
+that batched reads failing the fp32 Z gate escalate to, in segment mode
+for segmentation and in train/calcZ mode for training. Segments come
+from the fused kernels (K1-K3); want_prob also runs the read through the
+matrix route (K5, K1, K4) for the per-t border log-probabilities."""
 
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ MODES = ("segment", "train", "calcZ")
 
 def run_nt_banded(signal, read: str, model, pore: str,
                   transition_overrides: dict | None = None,
-                  mode: str = "segment", band: int = DEFAULT_BAND, *,
+                  mode: str = "segment", want_prob: bool = False,
+                  band: int = DEFAULT_BAND, *,
                   device, dtype=torch.float64,
                   validate: bool = True) -> NTResult:
     if mode not in MODES:
@@ -57,4 +60,9 @@ def run_nt_banded(signal, read: str, model, pore: str,
         return NTResult(Z=Zb, trained_transitions={"m1": m1, "e1": 1.0, "e2": e2},
                         trained_emissions=_emissions_to_dict(means, stdevs, model))
     segments = summaries_to_segments(starts, medians, N, model.kmer_size)
-    return NTResult(segments=segments, Z=Zb)
+    result = NTResult(segments=segments, Z=Zb)
+    if want_prob:
+        result.per_t_logprob = nt_banded.banded_per_t_logprob(
+            signal, kmer_ids, model, band, log_m1, log_e2, device=device,
+            dtype=dtype)
+    return result

@@ -1,6 +1,8 @@
 """Batched banded NT DP in plain PyTorch — the CPU path and the plain
-versions of the five CUDA kernels (counterpart of
-dynamont_tpu/ops/nt_banded_batch.py).
+versions of the six banded CUDA kernels (counterpart of
+dynamont_tpu/ops/nt_banded_batch.py), and the matrix route
+(`banded_batch_run`: stored forward and backward rows, then the log
+posteriors and Viterbi choices over them, walked on the host).
 
 Reads are padded to a common (T_pad, B) bucket. Every recurrence is a
 Python loop over signal time t whose body is elementwise work on (R, B)
@@ -21,6 +23,7 @@ float equality.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -66,6 +69,16 @@ class BandedBatch(NamedTuple):
     bw: torch.Tensor       # (R,) int32 per-read effective bandwidth
     pad: int               # left padding of the parameter arrays
     B: int                 # band array width (>= 2*max_bw+3)
+
+
+class BandedBatchResult(NamedTuple):
+    """The matrix route's result of a padded batch."""
+
+    Zf: torch.Tensor       # (R,)
+    Zb: torch.Tensor       # (R,)
+    PM: torch.Tensor       # (R, T_pad, B) posterior probability of M
+    PE: torch.Tensor       # (R, T_pad, B) posterior probability of E
+    choices: torch.Tensor  # (R, T_pad, B) bool Viterbi traceback bit
 
 
 class BandedTrainResult(NamedTuple):
@@ -393,6 +406,32 @@ def fwd_vit(batch: BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):
     return ch, LPM, LPE, Zf[:, 0]
 
 
+def viterbi_post(batch: BandedBatch, fM, fE, bM, bE, Zb):
+    """Plain version of the banded_vit kernel: the log posteriors
+    LPM/LPE = fwd + bwd - Zb over stored forward and backward rows and the
+    Viterbi recurrence over them, with fwd_vit's Viterbi step. Returns
+    (ch uint8, LPM, LPE), each (R, T_pad, B); rows t >= T hold
+    LPM = LPE = -inf and ch = 0, as fwd_vit leaves them."""
+    R, T_pad, B = fM.shape
+    zb = Zb[:, None, None]
+    LPM = fM + bM - zb
+    LPE = fE + bE - zb
+    valid = _valid(batch, slice(1, None), True)
+    s1 = _row_shifts(batch)
+    ch = torch.zeros((R, T_pad, B), dtype=torch.uint8, device=fM.device)
+    vM = torch.full((R, B), NEG_INF, dtype=fM.dtype, device=fM.device)
+    vE = _start_row(batch, fM.dtype)
+    for t in range(1, T_pad):
+        vM, vE, c = _viterbi_row(vM, vE, s1[:, t - 1 : t], LPM[:, t],
+                                 LPE[:, t], valid[:, t - 1])
+        ch[:, t] = c
+    dead = (torch.arange(T_pad, device=fM.device) >= batch.T[:, None])[:, :, None]
+    LPM.masked_fill_(dead, NEG_INF)
+    LPE.masked_fill_(dead, NEG_INF)
+    ch.masked_fill_(dead, 0)
+    return ch, LPM, LPE
+
+
 def walk(LPM, LPE, ch, batch: BandedBatch, N_max: int):
     """Plain version of the banded_walk kernel: the reverse MAP traceback
     over (n, j, is_m) (ref: NT_banded.cpp:204-250), all reads at once.
@@ -464,3 +503,63 @@ def path_summaries(path_n, prob, close, N_max: int):
     med = 0.5 * (sp.gather(1, lo) + sp.gather(1, hi))
     med = torch.where(counts > 0, med, 0.0)
     return starts[:, :N_max], med
+
+
+# ---------------------------------------------------------------------------
+# the matrix route (JAX's BandedBatchEngine(device_pipeline=False))
+# ---------------------------------------------------------------------------
+
+def log_posteriors(batch: BandedBatch, log_m1: float, log_e2: float):
+    """(Zf, Zb, ch, LPM, LPE) of a batch through the three kernels of the
+    matrix route: banded_fwd and banded_bwd store every row, banded_vit
+    forms the log posteriors and the Viterbi choices over them. The
+    wrappers run the plain versions for a batch on the CPU."""
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+
+    fM, fE = kk.forward(batch, log_m1, log_e2)
+    bM, bE = kk.backward(batch, log_m1, log_e2)
+    r = torch.arange(fM.shape[0], device=fM.device)
+    zcol = batch.bw.long() + 1
+    Zf = fE[r, batch.T.long() - 1, zcol]
+    Zb = bE[r, 0, zcol]
+    ch, LPM, LPE = kk.viterbi_post(batch, fM, fE, bM, bE, Zb)
+    return Zf, Zb, ch, LPM, LPE
+
+
+def _prob(lp):
+    """exp(lp) clipped to [0, 1], NaN and +inf to 0: exp(-inf - -inf) can
+    surface NaN in dead rows, and fp32 round-off in Z can push a cell just
+    above 1 (as dynamont_tpu/ops/nt_banded_batch.banded_batch_run)."""
+    return torch.nan_to_num(torch.exp(lp), nan=0.0, posinf=0.0).clamp(0.0, 1.0)
+
+
+def banded_batch_run(batch: BandedBatch, log_m1: float,
+                     log_e2: float) -> BandedBatchResult:
+    """The matrix route's segmentation compute for a padded batch: forward,
+    backward, posteriors and Viterbi choices (log_posteriors), then the
+    posterior probabilities the host walk reads."""
+    Zf, Zb, ch, LPM, LPE = log_posteriors(batch, log_m1, log_e2)
+    return BandedBatchResult(Zf=Zf, Zb=Zb, PM=_prob(LPM), PE=_prob(LPE),
+                             choices=ch.bool())
+
+
+def make_banded_batch_fn(m1: float, e2: float):
+    """BandedBatch -> BandedBatchResult under the transition probabilities
+    m1 and e2 (logs taken here)."""
+    log_m1, log_e2 = math.log(m1), math.log(e2)
+    return lambda batch: banded_batch_run(batch, log_m1, log_e2)
+
+
+def traceback_batch(result: BandedBatchResult, bstart, T, N, bw,
+                    kmer_size: int):
+    """The host walk of every read of a batch (the native library's,
+    OpenMP across reads, or its Python twin): per read a list of segments
+    (state, basepos, start_t, median_prob) in read order. bstart, T, N and
+    bw are host arrays; the walk reads the probabilities in float32."""
+    from dynamont_tpu_torch import native
+
+    host = lambda x: x.cpu().numpy()
+    return native.banded_traceback_batch(
+        host(result.choices), host(result.PM), host(result.PE),
+        np.asarray(bstart), np.asarray(T), np.asarray(N), np.asarray(bw),
+        kmer_size)

@@ -2,16 +2,19 @@
 dynamont_tpu/ops/nt_banded_pallas.py and the Pallas kernel of
 dynamont_tpu/ops/nt_banded_train.py).
 
-Each wrapper sits beside its plain-torch version:
+Each wrapper sits beside its plain-torch version; the kernels are numbered
+as PERF.md's table of the TPU kernels numbers them:
 
   backward  / backward_plain    K1 banded_bwd        replaces _bwd_kernel
   fwd_vit   / fwd_vit_plain     K2 banded_fwd_vit    replaces _fwd_vit_kernel
   walk      / walk_plain        K3 banded_walk       replaces _walk_kernel
-  forward   / forward_plain     K4 banded_fwd        replaces _fwd_kernel
+  viterbi_post / viterbi_post_plain
+                                K4 banded_vit        replaces _vit_kernel
+  forward   / forward_plain     K5 banded_fwd        replaces _fwd_kernel
   backward_train / backward_train_plain
-                                K5 banded_bwd_train  replaces _bwd_train_kernel
+                                K6 banded_bwd_train  replaces _bwd_train_kernel
 
-K1-K3 are in csrc/nt_banded.cu, K4-K5 in csrc/nt_banded_train.cu.
+K1-K4 are in csrc/nt_banded.cu, K5-K6 in csrc/nt_banded_train.cu.
 
 A wrapper runs its plain version for tensors on the CPU, launches its
 kernel for CUDA tensors, and raises for anything else
@@ -21,7 +24,8 @@ version runs, one per call, so a run can show which route it took.
 
 `banded_segment` is the fused entry the engine calls (bwd -> fwd_vit ->
 walk -> grouped medians), returning (Zf, Zb, starts, medians) like
-banded_segment_pallas.
+banded_segment_pallas. The matrix route (K5 -> K1 -> K4, the host walk)
+is ops/nt_banded_batch.banded_batch_run.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ from dynamont_tpu_torch.ops import nt_banded_batch as bb
 
 SEGMENT_KERNELS = ("banded_bwd", "banded_fwd_vit", "banded_walk")
 TRAIN_KERNELS = ("banded_fwd", "banded_bwd_train")
-KERNELS = SEGMENT_KERNELS + TRAIN_KERNELS
+MATRIX_KERNELS = ("banded_fwd", "banded_bwd", "banded_vit")
+KERNELS = SEGMENT_KERNELS + TRAIN_KERNELS + ("banded_vit",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 MAX_B = 1024  # one thread per band column
@@ -52,6 +57,7 @@ _ARGTYPES = {
     "nt_banded_bwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
     "nt_banded_fwd_vit": [_P] * 15 + [_I] * 5 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
+    "nt_banded_vit": [_P] * 12 + [_I] * 3 + [_P],
     "nt_banded_fwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
     "nt_banded_bwd_train": [_P] * 13 + [_I] * 5 + [_D, _D, _P],
 }
@@ -215,7 +221,41 @@ def walk(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
 
 
 # ---------------------------------------------------------------------------
-# K4: forward, every row stored
+# K4: posteriors + Viterbi over stored forward and backward rows
+# ---------------------------------------------------------------------------
+
+def viterbi_post_plain(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
+    PLAIN_RUNS["banded_vit"] += 1
+    return bb.viterbi_post(batch, fM, fE, bM, bE, Zb)
+
+
+def viterbi_post(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
+    """(ch uint8, LPM, LPE), each (R, T_pad, B), from the stored forward
+    and backward rows and Zb."""
+    if _on_cpu(fM):
+        return viterbi_post_plain(batch, fM, fE, bM, bE, Zb)
+    _check_batch("banded_vit", batch)
+    dtype = batch.sig.dtype
+    _check("banded_vit", dtype, batch.sig.device, fM=fM, fE=fE, bM=bM, bE=bE,
+           Zb=Zb)
+    R, T_pad = batch.bstart.shape
+    if any(x.shape != (R, T_pad, batch.B) or x.dtype != dtype
+           for x in (fM, fE, bM, bE)) or Zb.shape != (R,) or Zb.dtype != dtype:
+        raise ValueError("banded_vit: fM/fE/bM/bE/Zb do not match the batch")
+    ch = torch.empty(fM.shape, dtype=torch.uint8, device=fM.device)
+    LPM = torch.empty_like(fM)
+    LPE = torch.empty_like(fM)
+    rc = _entry("nt_banded_vit", dtype)(
+        _ptr(fM), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(batch.bstart),
+        _ptr(batch.T), _ptr(batch.N), _ptr(batch.bw), _ptr(ch), _ptr(LPM),
+        _ptr(LPE), R, T_pad, batch.B, _stream(fM.device))
+    _raise_on("banded_vit", rc)
+    LAUNCHES["banded_vit"] += 1
+    return ch, LPM, LPE
+
+
+# ---------------------------------------------------------------------------
+# K5: forward, every row stored
 # ---------------------------------------------------------------------------
 
 def forward_plain(batch: bb.BandedBatch, log_m1: float, log_e2: float):
@@ -243,7 +283,7 @@ def forward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
 
 
 # ---------------------------------------------------------------------------
-# K5: backward fused with the m1/e2 transition numerators
+# K6: backward fused with the m1/e2 transition numerators
 # ---------------------------------------------------------------------------
 
 def backward_train_plain(batch: bb.BandedBatch, fE, log_m1: float,

@@ -3,7 +3,7 @@ dynamont_tpu/ops/nt_banded_train.py and of the scan oracle
 dynamont_tpu/ops/nt_banded_batch.banded_batch_train).
 
 One function serves fp32 and fp64, with the dtype taken from the batch:
-K4 (`banded_fwd`) stores the forward rows, K5 (`banded_bwd_train`) runs
+K5 (`banded_fwd`) stores the forward rows, K6 (`banded_bwd_train`) runs
 the backward recurrence fused with the m1/e2 numerators, and the emission
 statistics follow in plain torch (ref: NT_banded.cpp:374-451), in the
 scan oracle's two-pass form: per-position weighted sums, per-k-mer means,

@@ -1,24 +1,37 @@
 """Full-lattice 2-state NT pair-HMM (counterpart of
 dynamont_tpu/ops/nt_full.py): emission scores, the dense T x N forward and
-backward lattices, and the forward/backward consistency check.
+backward lattices, the forward/backward consistency check, the posterior
+matrices, the Viterbi choices, the host traceback and the -p output of
+dynamont-NT.
 
-The NTC per-read TN pre-pass (ops/ntc_pre.pre_tn) runs these with the
-ppTN transitions. The t-loop is a Python loop of torch ops over rows of N
-(the JAX package's lax.scan), each row written in place into the (T, N)
-result; every expression rounds as the JAX step writes it.
+The NTC per-read TN pre-pass (ops/ntc_pre.pre_tn) runs the lattices with
+the ppTN transitions. The t-loop is a Python loop of torch ops over rows of
+N (the JAX package's lax.scan; JAX's full NT has no Pallas kernel), each row
+written in place into the (T, N) result; every expression rounds as the JAX
+step writes it.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from dynamont_tpu_torch.constants import EPSILON
-from dynamont_tpu_torch.utils.logmath import log_normal_pdf
+from dynamont_tpu_torch.utils.logmath import log_normal_pdf, logsumexp
 
 NEG_INF = -math.inf
+
+
+class NTMatrices(NamedTuple):
+    forM: torch.Tensor  # (T, N)
+    forE: torch.Tensor
+    backM: torch.Tensor
+    backE: torch.Tensor
+    Zf: torch.Tensor    # scalar
+    Zb: torch.Tensor
 
 
 def emission_scores(sig, kmer_ids, means, stdevs, *, device,
@@ -82,3 +95,74 @@ def check_z(Zf, Zb, n_cells) -> bool:
     if math.isinf(Zf) or math.isinf(Zb):
         return False
     return abs(Zf - Zb) / n_cells <= EPSILON
+
+
+def nt_forward_backward(scores, m1: float, e2: float) -> NTMatrices:
+    """Both passes; m1/e2 are probabilities (logs taken here)."""
+    log_m1, log_e2 = math.log(m1), math.log(e2)
+    forM, forE = make_nt_forward(log_m1, log_e2)(scores)
+    backM, backE = make_nt_backward(log_m1, log_e2)(scores)
+    return NTMatrices(forM, forE, backM, backE, forE[-1, -1], backE[0, 0])
+
+
+def posterior_matrices(mats: NTMatrices):
+    """LPM/LPE = for + back - Zb (ref: utils.cpp:506-513): the reference
+    passes the backward Z into logP."""
+    Z = mats.Zb
+    return mats.forM + mats.backM - Z, mats.forE + mats.backE - Z
+
+
+def nt_viterbi_choices(LPM, LPE):
+    """(T, N) bool traceback predicate of the max-recurrence over the
+    posteriors (ref: NT.cpp:100-131): choice[t, n] = (E[t, n] ==
+    M[t-1, n] + LPE[t, n]), add-then-max; True selects the M predecessor,
+    ties included (ref: NT.cpp:173)."""
+    T, N = LPM.shape
+    choices = torch.zeros((T, N), dtype=torch.bool, device=LPM.device)
+    M = torch.full((N,), NEG_INF, dtype=LPM.dtype, device=LPM.device)
+    E = M.clone()
+    E[0] = 0.0
+    for t in range(1, T):
+        M_new = torch.full_like(M, NEG_INF)
+        M_new[1:] = E[:-1] + LPM[t, 1:]
+        m_arm = M[1:] + LPE[t, 1:]
+        e_arm = E[1:] + LPE[t, 1:]
+        E_new = torch.full_like(E, NEG_INF)
+        E_new[1:] = torch.maximum(m_arm, e_arm)
+        choices[t, 1:] = E_new[1:] == m_arm
+        M, E = M_new, E_new
+    return choices
+
+
+def nt_traceback(choices: np.ndarray, LPM: np.ndarray, LPE: np.ndarray,
+                 kmer_size: int):
+    """Host MAP walk (ref: NT.cpp:146-177) over the log posteriors, as the
+    JAX package walks them: each visited cell's probability math.exp(lp) in
+    float64, the segment's median by np.median. Returns segments
+    (state, basepos, start_t, median_prob) in read order; the state is
+    always 'M' in the NT model."""
+    T, N = choices.shape
+    t, n = T - 1, N - 1
+    is_m = False
+    seg_probs: list[float] = []
+    segments: list[tuple[str, int, int, float]] = []
+    while t and n:
+        if is_m:
+            seg_probs.append(math.exp(LPM[t, n]))
+            segments.append(("M", n - 1 + kmer_size // 2, t - 1,
+                             float(np.median(seg_probs))))
+            seg_probs.clear()
+            t -= 1
+            n -= 1
+            is_m = False
+        else:
+            seg_probs.append(math.exp(LPE[t, n]))
+            is_m = bool(choices[t, n])
+            t -= 1
+    segments.reverse()
+    return segments
+
+
+def per_t_border_logprob(LPM):
+    """-p output: the logsumexp of each LPM row (ref: NT_main.cpp:227-238)."""
+    return logsumexp(LPM, dim=1)

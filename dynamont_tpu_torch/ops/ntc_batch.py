@@ -289,6 +289,7 @@ A_ST, P_ST, S_ST, E_ST, I_ST = 0, 1, 2, 3, 4
 TL_KEYS = ("a1", "a2", "p1", "p2", "p3", "s1", "s2", "s3",
            "e2", "e3", "e4", "i1", "i2")
 NTAB = 3 + 3 * 4   # K11's table rows: mu, c1, c2, then A successors of each
+TG_ROWS = NTAB + 1  # #12's table rows: K11's, then a row of zeros
 
 
 class NTCPlan(NamedTuple):
@@ -469,6 +470,13 @@ def combined_tables(means, c1, c2, alphabet_size: int, dtype):
     rows = [means, c1, c2] + [tab[idx + a] for tab in (means, c1, c2)
                               for a in range(A)]
     return torch.stack(rows).to(dtype).contiguous()
+
+
+def combined_tablesT(means, c1, c2, alphabet_size: int):
+    """(TG_ROWS, K) float32 table #12 gathers from: combined_tables' rows,
+    then a row of zeros (the TPU kernel's 16 sublanes)."""
+    tab = combined_tables(means, c1, c2, alphabet_size, torch.float32)
+    return torch.cat([tab, tab.new_zeros((1, tab.shape[1]))]).contiguous()
 
 
 def gather_index(plan: NTCPlan):

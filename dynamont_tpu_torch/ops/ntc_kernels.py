@@ -3,13 +3,16 @@ dynamont_tpu/ops/ntc_pallas.py, its segmentation kernels) and their plain
 versions:
 
   tab_gather / tab_gather_plain  K11 ntc_tab_gather  replaces _tab_gather_packs_kernel
+  table_gather / table_gather_plain
+                                 #12 ntc_table_gather replaces _tab_gather_kernel
   bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
   bwd_ckpt   / bwd_ckpt_plain    K14 ntc_bwd_ckpt    replaces _bwd_ckpt_kernel
   pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
   pv_ckpt    / pv_ckpt_plain     K15 ntc_pv_ckpt     its checkpoint branch
   walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
 
-The kernels are in csrc/ntc_lattice.cu, in float and double. As in
+The kernels are in csrc/ntc_lattice.cu, in float and double (#12 in float
+only, as its TPU kernel). As in
 ops/ntc_pre_kernels.py, a wrapper runs its plain version for tensors on the
 CPU, launches its kernel for CUDA tensors, and raises for anything else or
 when the launch fails; LAUNCHES and PLAIN_RUNS count one per call. The
@@ -23,6 +26,8 @@ Layouts (one bucket of R reads, T_pad rows, CN n-slots, CK k-slots, A = 4):
   plan        ops/ntc_batch.NTCPlan, every field (T_pad, R, ...)
   ks          (T_pad, R*CK + 2*R*CN) int32  k-slot values | kN | kN2
   table       (3 + 3A, K)               mu, c1, c2, then the A successors' mu, c1, c2
+  tabT        (16, K) float32           table, then a row of zeros (#12)
+  out         (T, 16, J) float32        tabT[:, ks[t, j]] at out[t, :, j] (#12)
   prm         ops/ntc_batch.NTCParams   K11's outputs
   sig         (R, T_pad-1)              signal
   tl          (13,)                     log transitions in ntc_batch.TL_KEYS order
@@ -51,8 +56,9 @@ from dynamont_tpu_torch.ops.nt_banded_kernels import (
 )
 from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
 
-KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_bwd_ckpt", "ntc_pv", "ntc_pv_ckpt",
-           "ntc_walk")
+LATTICE_KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_bwd_ckpt", "ntc_pv",
+                   "ntc_pv_ckpt", "ntc_walk")
+KERNELS = LATTICE_KERNELS + ("ntc_table_gather",)  # #12 lies on no path
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 
@@ -66,6 +72,7 @@ def reset_counts() -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ntc_tab_gather": [_P] * 7 + [_I] * 6 + [_P],
+    "ntc_table_gather": [_P] * 3 + [_I] * 3 + [_P],
     "ntc_bwd": [_P] * 19 + [_I] * 6 + [_P],
     "ntc_bwd_ckpt": [_P] * 21 + [_I] * 7 + [_P],
     "ntc_pv": [_P] * 22 + [_I] * 7 + [_P],
@@ -162,6 +169,41 @@ def tab_gather(ks, table, dims: nb.PlanDims) -> nb.NTCParams:
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return prm
+
+
+# ---------------------------------------------------------------------------
+# #12: the stacked table rows at k-mer indices, without the pack layout
+# ---------------------------------------------------------------------------
+
+def table_gather_plain(ks, tabT):
+    PLAIN_RUNS["ntc_table_gather"] += 1
+    K = tabT.shape[1]
+    live = (ks >= 0) & (ks < K)
+    g = torch.where(live, tabT[:, ks.clamp(0, K - 1).long()], 0.0)
+    return g.permute(1, 0, 2).contiguous()
+
+
+def table_gather(ks, tabT):
+    """out (T, 16, J) float32 with out[t, :, j] = tabT[:, ks[t, j]] and 0
+    where ks is outside [0, K); ks (T, J) int32, tabT (16, K) float32
+    (ntc_batch.combined_tablesT)."""
+    if _on_cpu(ks):
+        return table_gather_plain(ks, tabT)
+    name = "ntc_table_gather"
+    _check(name, torch.float32, ks.device, ks=ks, tabT=tabT)
+    _check_ints(name, ks=ks)
+    if tabT.dtype != torch.float32 or tabT.shape[0] != nb.TG_ROWS \
+            or ks.dim() != 2:
+        raise ValueError(f"{name}: ks {tuple(ks.shape)} / tabT "
+                         f"{tuple(tabT.shape)} {tabT.dtype}: want (T, J) and "
+                         f"({nb.TG_ROWS}, K) float32")
+    T, J = ks.shape
+    out = torch.empty((T, nb.TG_ROWS, J), dtype=torch.float32, device=ks.device)
+    rc = _entry(name, torch.float32)(_ptr(ks), _ptr(tabT), _ptr(out), T, J,
+                                     tabT.shape[1], _stream(ks.device))
+    _raise_on(name, rc)
+    LAUNCHES[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

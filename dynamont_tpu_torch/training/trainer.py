@@ -21,11 +21,11 @@ port's copy of utils/pore_model. What differs:
     here nothing is compiled per shape, and the estimates do not depend on
     the padding);
   * nothing hides the device: an error to build or launch a kernel ends the
-    run. Only per-read data errors take the per-read path — a read failing
-    the fp32 Z gate (basic) or any gate or cap (resquiggle) re-runs on the
-    exact fp64 rung, a read failing the input contract or the fp64 gate is
-    skipped — where the JAX Trainer re-runs a whole batch read by read on
-    any exception;
+    run. Only per-read data errors take the per-read path — in resquiggle
+    mode a read failing any gate or cap re-runs on the exact fp64 rung, as
+    in JAX; a read failing the input contract or the basic mode's Z gate
+    (fp32 or fp64) is skipped, as JAX skips it — where the JAX Trainer
+    re-runs a whole batch read by read on any exception;
   * the post-update Z of every read comes from one more batched pass in
     both modes and precisions (the JAX fp64 path re-runs each read alone);
   * --distributed is not ported yet.
@@ -48,8 +48,7 @@ from dynamont_tpu_torch.utils.kmer import int2kmer, seq_to_kmer_ids
 from dynamont_tpu_torch.utils.pore_model import (
     pore_model_from_dict, read_kmer_models, write_kmer_models,
 )
-from dynamont_tpu_torch.models.nt import ZConsistencyError, _validate
-from dynamont_tpu_torch.models.nt_banded import run_nt_banded
+from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.models.ntc import NTCPreprocessError, NTCZError, run_ntc
 from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
@@ -166,7 +165,7 @@ class Trainer:
         self.outdir = outdir
         self.batch_size = batch_size
         self.epochs = epochs
-        # reads that took the per-read fp64 rung (train and calcZ)
+        # reads that took the per-read fp64 NTC rung (train and calcZ)
         self.fp64_reads = 0
         os.makedirs(outdir, exist_ok=True)
 
@@ -230,11 +229,12 @@ class Trainer:
             self.batch_num = state["batch"]
 
     # -- per-read estimates ------------------------------------------------
-    def _train_batch(self, jobs: list, fallback) -> list:
+    def _train_batch(self, jobs: list) -> list:
         """All valid reads of a batch through the batched banded Baum-Welch
         op in one pass. Returns (trained_transitions, trained_emissions, Z)
-        or an Exception per job; a read failing the Z gate gets
-        fallback(job) instead (fp32) or its gate error (fp64)."""
+        or an Exception per job; a read failing the Z gate gets its gate
+        error in both precisions, and the batch's pool leaves it out, as
+        in the JAX Trainer."""
         model = pore_model_from_dict(self.kmer_models, self.rna)
         out: list = [None] * len(jobs)
         live = []
@@ -266,10 +266,8 @@ class Trainer:
         ok = bb.check_z_batch(Zf, Zb, T, batch.B, self.dtype)
         for r, i in enumerate(live):
             if not ok[r]:
-                out[i] = (fallback(jobs[i]) if self.dtype == torch.float32
-                          else RuntimeError(
-                              f"Z values between matrices do not match! "
-                              f"Zf: {Zf[r]}, Zb: {Zb[r]}"))
+                out[i] = RuntimeError(f"Z values between matrices do not "
+                                      f"match! Zf: {Zf[r]}, Zb: {Zb[r]}")
                 continue
             trans = {"m1": float(m1[r]), "e1": 1.0, "e2": float(e2[r])}
             emis = {
@@ -291,20 +289,15 @@ class Trainer:
         return eng.train(jobs, exact=exact)
 
     def _rung(self, job, mode: str):
-        """The exact per-read fp64 rung of the trainer's mode; a Z-gate
+        """The exact per-read fp64 NTC rung (resquiggle mode); a Z-gate
         error is the read's result, any other error propagates."""
         self.fp64_reads += 1
         model = pore_model_from_dict(self.kmer_models, self.rna)
         try:
-            if self.mode == "basic":
-                return run_nt_banded(job.signal, job.read, model, self.pore,
-                                     self.transition_params, mode=mode,
-                                     device=self.device, dtype=torch.float64,
-                                     validate=False)
             return run_ntc(job.signal, job.read, model, self.pore,
                            self.transition_params, mode=mode,
                            device=self.device, validate=False)
-        except (ZConsistencyError, NTCPreprocessError, NTCZError) as e:
+        except (NTCPreprocessError, NTCZError) as e:
             return e
 
     def _train_read(self, job):
@@ -333,7 +326,7 @@ class Trainer:
 
     def _batch(self, jobs: list, exact) -> list:
         if self.mode == "basic":
-            return self._train_batch(jobs, exact)
+            return self._train_batch(jobs)
         return self._train_batch_ntc(jobs, exact)
 
     # -- batch update ------------------------------------------------------

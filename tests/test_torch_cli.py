@@ -70,6 +70,59 @@ def test_port_cli_matches_jax_cli(tsv, tmp_path):
     assert not (tmp_path / "torch.errors").exists()
 
 
+def _record_chunks(monkeypatch, engine, events):
+    """Append "d" to events for each dispatch() and "c" for each collect()."""
+    orig_dispatch, orig_collect = engine.dispatch, engine.collect
+
+    def dispatch(self, items):
+        events.append("d")
+        return orig_dispatch(self, items)
+
+    def collect(self, handle):
+        events.append("c")
+        return orig_collect(self, handle)
+
+    monkeypatch.setattr(engine, "dispatch", dispatch)
+    monkeypatch.setattr(engine, "collect", collect)
+
+
+def test_multi_chunk_run_keeps_three_chunks_in_flight(tmp_path, monkeypatch):
+    """13 reads at --batch_size 1 are four chunks of up to 4 reads: both
+    CLIs dispatch the first four before collecting the first (3 in flight
+    ahead of collection) and write the same CSV (as
+    test_port_cli_matches_jax_cli) and the same error sidecar for a read
+    that fails validation."""
+    model = load_model_for_pore("rna002")
+    items = []
+    for s in range(12):
+        sig, read_proc = make_read(model, n_bases=30 + 2 * s, seed=160 + s)
+        items.append((f"read{s}", sig, read_proc[9:][::-1]))
+    items.insert(5, ("short", np.full(8, 0.5), "ACGTACGTACGTACGT"))
+    tsv = tmp_path / "reads.tsv"
+    _write_tsv(tsv, items)
+    args = ["--tsv", str(tsv), "--mode", "basic", "-p", "rna002",
+            "--batch_size", "1"]
+    events = {"jax": [], "torch": []}
+    _record_chunks(monkeypatch, JaxBandedEngine, events["jax"])
+    _record_chunks(monkeypatch, BandedBatchEngine, events["torch"])
+    jax_cli.main(args + ["-o", str(tmp_path / "jax.csv.zst")])
+    torch_cli.main(args + ["-o", str(tmp_path / "torch.csv.zst"), "--device", "cpu"])
+    assert torch_cli.INFLIGHT == 3
+    assert events["torch"] == events["jax"] == list("ddddcccc")
+    head_j, rows_j = _rows(tmp_path / "jax.csv.zst")
+    head_t, rows_t = _rows(tmp_path / "torch.csv.zst")
+    assert head_t == head_j
+    assert len(rows_t) == len(rows_j) > 0
+    assert len({r[0] for r in rows_t}) == 12
+    keep = [0, 1, 2, 3, 4, 5, 6, 7, 9]
+    for rt, rj in zip(rows_t, rows_j):
+        assert [rt[i] for i in keep] == [rj[i] for i in keep]
+        assert abs(float(rt[8]) - float(rj[8])) <= 2e-3
+    err = (tmp_path / "torch.errors").read_bytes()
+    assert b"Rid: short" in err
+    assert err == (tmp_path / "jax.errors").read_bytes()
+
+
 def test_port_cli_refuses_native_9mer(tsv, tmp_path, monkeypatch):
     """--ntc-native-9mer is no longer refused: it runs resquiggle mode (with
     rna002's 5-mer table it changes nothing, as in dynamont_tpu; the native

@@ -101,7 +101,7 @@ def test_kernels_match_plain_on_cuda(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_training_kernels_match_plain_on_cuda(card, dtype):
-    """K4 fM/fE and K5 bM/bE, rawM1/rawE2 bit for bit: the plain version
+    """K5 fM/fE and K6 bM/bE, rawM1/rawE2 bit for bit: the plain version
     folds the numerators in the kernel's order and reduces the band in
     the kernel's tree order."""
     model, items, kids = _reads()
@@ -118,6 +118,31 @@ def test_training_kernels_match_plain_on_cuda(card, dtype):
         assert torch.equal(g, w)
     assert kk.LAUNCHES["banded_fwd"] == launches["banded_fwd"] + 1
     assert kk.LAUNCHES["banded_bwd_train"] == launches["banded_bwd_train"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_matrix_route_kernels_match_plain_on_cuda(card, dtype):
+    """K4 over K5's and K1's stored rows: ch, LPM, LPE bit for bit its
+    plain version's and K2's on the same bucket (one Viterbi step in
+    both); bb.banded_batch_run launches K5, K1 and K4 once each."""
+    model, items, kids = _reads()
+    b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                         dtype=dtype, t_pad_to=256)
+    fM, fE = kk.forward(b, LM, LE)
+    bM, bE = kk.backward(b, LM, LE)
+    Zb = bE[torch.arange(3, device="cuda"), 0, b.bw.long() + 1]
+    got = kk.viterbi_post(b, fM, fE, bM, bE, Zb)
+    want = kk.viterbi_post_plain(b, fM, fE, bM, bE, Zb)
+    fused = kk.fwd_vit(b, bM, bE, Zb, LM, LE)[:3]
+    torch.cuda.synchronize()
+    for g, w, f in zip(got, want, fused):
+        assert torch.equal(g, w) and torch.equal(g, f)
+    launches = dict(kk.LAUNCHES)
+    res = bb.banded_batch_run(b, LM, LE)
+    torch.cuda.synchronize()
+    assert all(kk.LAUNCHES[k] == launches[k] + 1 for k in kk.MATRIX_KERNELS)
+    assert torch.equal(res.choices, got[0].bool())
 
 
 @pytest.mark.cuda
@@ -219,7 +244,29 @@ def test_lattice_wrappers_refuse_other_devices():
     table = torch.zeros((15, 16), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         kern.tab_gather(ks, table, nb.PlanDims(1, 2, 8, 4))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kern.table_gather(ks, torch.zeros((16, 16), device="meta"))
     assert kern.PLAIN_RUNS == runs
+
+
+@pytest.mark.cuda
+def test_table_gather_matches_plain_on_cuda(card):
+    """#12 against its plain version, bit for bit: ks (8, 512) at K = 1024
+    with the sentinels K and -1 mixed in."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    mu, c1, c2 = load_model_for_pore("rna002").score_params()
+    tabT = nb.combined_tablesT(*(torch.from_numpy(x).cuda() for x in (mu, c1, c2)), 4)
+    rng = np.random.default_rng(12)
+    ks = rng.integers(-1, 1025, size=(8, 512)).astype(np.int32)
+    ks = torch.from_numpy(ks).cuda()
+    launches = kern.LAUNCHES["ntc_table_gather"]
+    got = kern.table_gather(ks, tabT)
+    want = kern.table_gather_plain(ks, tabT)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kern.LAUNCHES["ntc_table_gather"] == launches + 1
 
 
 @pytest.mark.cuda
@@ -276,7 +323,7 @@ def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
     torch.cuda.synchronize()
     for g, w in zip(kern.walk(*args), kern.walk_plain(*args)):
         same(g, w)
-    assert all(kern.LAUNCHES[k] == launches[k] + 1 for k in kern.KERNELS)
+    assert all(kern.LAUNCHES[k] == launches[k] + 1 for k in kern.LATTICE_KERNELS)
 
 
 def test_train_wrappers_refuse_other_devices():

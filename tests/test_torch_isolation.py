@@ -25,10 +25,10 @@ import dynamont_tpu_torch.constants as torch_constants
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dynamont_tpu_torch"
 COPIED = ("constants.py", "utils/kmer.py", "utils/pore_model.py",
-          "utils/signal.py", "utils/synthetic.py", "ops/geometry.py",
-          "models/packing.py", "models/registry.py", "io/__init__.py",
-          "io/readers.py", "io/fast5.py", "io/output.py", "native.py",
-          "_native/native.cpp")
+          "utils/signal.py", "utils/synthetic.py", "utils/output.py",
+          "ops/geometry.py", "models/packing.py", "models/registry.py",
+          "io/__init__.py", "io/readers.py", "io/fast5.py", "io/output.py",
+          "native.py", "_native/native.cpp")
 MODELS = ("rna002_5mer.npz", "rna004_5mer.npz", "trained_rna002_5mer.npz")
 
 
