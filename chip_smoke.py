@@ -152,14 +152,42 @@ result line):
      with -p: dynamont-NT-banded's segments equal the exact fp64 rung's
      (run_nt_banded), -p prints T values, -inf where a row holds no live M
      cell (rows 0 and T-1 among them, as in the JAX CLIs), no NaN or +inf;
-     each CLI's wall time.
+     each CLI's wall time;
+ 16. the probes of K13 (dynamont_tpu_torch/probes/, the counterparts of the
+     TPU probes scripts/probe_ntc_bwd_synth.py, probe_ntc_bwd_variants.py and
+     probe_ntc_microops.py): first every ntc_bwd_variant variant against its
+     plain version on a short synthetic bucket (R 2, T_pad 256), the
+     forward-order ones included, and every ntc_microop block at ITERS 64
+     on the standard normal tiles and on the tiles its gathers need, bit
+     for bit; then, with the probe kernels' counters reset right before
+     and read right after, (a) the variants through the synthetic probe's
+     run at (16, 16384), caps (8, 120), fp32, each reverse-order variant
+     (every C that fits, every thread count, both stores at row 0) bit for
+     bit ntc_bwd's store on the same inputs, and K15 timed on the prod
+     variant's store; (b) the same variants on the engine's bucket of the
+     16 phase-9 reads, against the engine's own K13 store; in (a) and (b)
+     every variant that stores all rows, forward order and K13's own path
+     included, also has seven of its chunks (the first two visited, three
+     in the middle, the last two) recomputed by the plain column from the
+     row it stored before them, bit for bit (same_steps: no plain run over
+     all 16384 rows, no kernel launch); (c) every microop block at ITERS
+     16384; a C whose staged rows do not fit the card's shared memory is
+     printed with its bytes, not run; no plain version stands in for a
+     kernel in the counted window.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_vit's
 launches are phase 15(a)'s, ntc_table_gather's the one run of its own
-entry in phase 15(b) (it lies on no path). Needs no JAX and no network.
+entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
+ntc_microop's those of phase 16's probe runs (no path runs them):
+ntc_bwd_variant's ms is the staged C=8 reverse variant's on the engine's
+bucket, its plain_ms the plain version's at (2, 256) (`plain_at`), beside
+the kernel's there (`short_ms`), with every variant's ms in `variants_ms`;
+ntc_microop's ms and plain_ms sum the blocks' launches at ITERS 16384 and
+the plain versions' runs at ITERS 64 (`plain_iters`), with each block's us
+per iteration in `us_per_iter`. Needs no JAX and no network.
 `--phases 1,2,11` runs a subset (the kernels line then lists only what was
 measured).
 """
@@ -198,6 +226,8 @@ SOURCE = {
     "ntc_walk": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
     "ntc_fwd_store": "dynamont_tpu_torch/csrc/ntc_train.cu",
     "ntc_train": "dynamont_tpu_torch/csrc/ntc_train.cu",
+    "ntc_bwd_variant": "dynamont_tpu_torch/csrc/ntc_lattice.cu",
+    "ntc_microop": "dynamont_tpu_torch/csrc/ntc_probe.cu",
 }
 REPLACES = {
     "banded_bwd": "dynamont_tpu/ops/nt_banded_pallas.py:273",
@@ -218,6 +248,8 @@ REPLACES = {
     "ntc_walk": "dynamont_tpu/ops/ntc_pallas.py:1298",
     "ntc_fwd_store": "dynamont_tpu/ops/ntc_pallas.py:1564",
     "ntc_train": "dynamont_tpu/ops/ntc_pallas.py:1681",
+    "ntc_bwd_variant": "scripts/probe_ntc_bwd_synth.py:90, scripts/probe_ntc_bwd_variants.py:70",
+    "ntc_microop": "scripts/probe_ntc_microops.py:46",
 }
 # floors of the operations per unit of work, counted as the kernels are
 # written: each add, multiply, compare, max and each exp, log, log1p is one
@@ -228,7 +260,8 @@ REPLACES = {
 # K13's re-derivation), a walk step (banded_walk, ntc_walk); banded_vit:
 # the two posteriors (add, subtract each) and the Viterbi step (two adds,
 # a max, the choice's add and compare); ntc_tab_gather and
-# ntc_table_gather only move bytes
+# ntc_table_gather only move bytes; ntc_bwd_variant: K13's per live cell;
+# ntc_microop: the decay multiply every block does, per cell and iteration
 OPS_PER_UNIT = {
     "banded_bwd": 16, "banded_fwd_vit": 24, "banded_walk": 10, "banded_vit": 9,
     "banded_fwd": 16, "banded_bwd_train": 30,
@@ -236,7 +269,7 @@ OPS_PER_UNIT = {
     "ntc_tk_fwd_u": 31, "ntc_tab_gather": 0, "ntc_table_gather": 0,
     "ntc_bwd": 130, "ntc_pv": 150,
     "ntc_walk": 40, "ntc_fwd_store": 100, "ntc_train": 190,
-    "ntc_bwd_ckpt": 130, "ntc_pv_ckpt": 280,
+    "ntc_bwd_ckpt": 130, "ntc_pv_ckpt": 280, "ntc_bwd_variant": 130, "ntc_microop": 1,
 }
 HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM peak HBM3 bandwidth
 FP32_OPS_PER_S = 67e12     # H100 SXM peak fp32 rate outside the tensor cores
@@ -250,6 +283,7 @@ FP32_EPSILON = 1e-6  # per-cell Z tolerance of the fp32 engine gates
 CELL_ATOL = 1e-5
 RUNS = 5
 STEPS = 5  # timed training steps after a warm-up
+PROBE_T_PAD, MICRO_ITERS = 16384, 16384  # phase 16's synthetic bucket, microop iterations
 
 
 def log(msg: str) -> None:
@@ -1983,6 +2017,145 @@ def phase_15(model, bench, small, launches: dict, max_err: dict) -> dict:
     return times
 
 
+def same_steps(label: str, inp, kw: dict, out) -> int:
+    """Raise unless rows of a variant's full store `out` at its size equal,
+    bit for bit, the plain column (ntc_probe_kernels.plain_rows) over the
+    same rows started from the row the kernel stored just before them: the
+    first two chunks visited, three in the middle and the last two. Each
+    row is thus held to its plain version at long T and many chunks in,
+    without the plain run over all T_pad rows. Returns the rows checked."""
+    from dynamont_tpu_torch.ops import ntc_probe_kernels as pk
+
+    T_pad, C = inp.sig.shape[1] + 1, kw["C"]
+    order, nc = pk.row_order(T_pad, C, kw["reverse"]), T_pad // C
+    n = 0
+    for k in sorted({0, 1, nc // 3, nc // 2, 2 * nc // 3, nc - 2, nc - 1}):
+        nxt = out[order[k * C - 1]] if k else None
+        for t, row in pk.plain_rows(*inp, order[k * C:(k + 1) * C], nxt):
+            same(f"{label} row {t}", out[t], row)
+            n += 1
+    return n
+
+
+def phase_16(model, bench, launches: dict, max_err: dict) -> dict:
+    """The probes of K13 (module docstring). Returns ntc_bwd_variant's and
+    ntc_microop's timing entries."""
+    import torch
+
+    from dynamont_tpu_torch import probes
+    from dynamont_tpu_torch.models.batch import BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_probe_kernels as pk
+    from dynamont_tpu_torch.probes import ntc_bwd_synth, ntc_bwd_variants, ntc_microops
+
+    dev = torch.device("cuda")
+    names = probes.ALL_VARIANTS
+    # every variant and block against its plain version at a short size
+    short = ntc_bwd_synth.synth_inputs(256, 1024, nb.PlanDims(2, CN, CN + CK0, 4), seed=16,
+                                       device=dev)
+    plain, ran = {}, []
+    for name in names:
+        kw = probes.variant_kwargs(name)
+        if pk.smem_bytes(short.dims, kw["C"], kw["stage"]) > pk.SMEM_LIMIT:
+            continue  # reported with its bytes by the runs below
+        key = (kw["reverse"], 0 if kw["reverse"] else kw["C"], kw["store"])
+        if key not in plain:
+            plain[key] = timed_once(lambda: pk.bwd_variant_plain(*short, **kw))
+        same(f"ntc_bwd_variant {name} at (2, 256)", pk.bwd_variant(*short, **kw), plain[key][0])
+        ran.append(name)
+    rev_kw = probes.variant_kwargs("rev")
+    short_ms = cuda_ms(lambda: pk.bwd_variant(*short, **rev_kw), 3)
+    plain_short_ms = plain[(True, 0, "full")][1]
+    del plain, short
+    micro_plain_ms, checked = 0.0, 0
+    for block in pk.MICRO_BLOCKS:
+        for kind in dict.fromkeys(("normal", pk.MICRO_KIND.get(block, "normal"))):
+            x, aux = (torch.from_numpy(a).to(dev) for a in pk.micro_inputs(0, kind))
+            want, ms = timed_once(lambda: pk.microop_plain(block, x, aux, 64))
+            same(f"ntc_microop {block} ({kind} tiles) at ITERS 64", pk.microop(block, x, aux, 64),
+                 want)
+            micro_plain_ms += ms if kind == "normal" else 0.0
+            checked += 1
+    log(f"[16] at (2, 256): {', '.join(ran)} bit for bit with their plain versions; "
+        f"{checked} microop runs at ITERS 64 bit for bit with theirs")
+
+    # the references: K13 on the synthetic inputs (a), the engine's K13 on its bucket (b)
+    dims = nb.PlanDims(NTC_READS, CN, CN + CK0, 4)
+    ref_a = kern.bwd(*ntc_bwd_synth.synth_inputs(PROBE_T_PAD, 1024, dims, seed=0, device=dev))
+    eng = NTCBatchEngine(model, "rna002", device=dev)
+    k = {}
+    eng._dispatch(list(range(NTC_READS)), [BatchItem(s, r) for s, r in bench[:NTC_READS]],
+                  eng.cap_n, eng.cap_k, keep=k)
+    ref_b = k["bwd"]
+    for f in ("bwd", "lp", "choices", "slots", "rec"):
+        del k[f]
+    torch.cuda.empty_cache()
+    matched, stepped = [], []
+
+    def against(ref, label):
+        def check(name, inp, out):
+            kw = probes.variant_kwargs(name)
+            if kw["reverse"]:
+                same(f"ntc_bwd_variant {name} ({label}) against ntc_bwd", out,
+                     ref if kw["store"] == "full" else ref[0])
+                matched.append(f"{name} ({label})")
+            if kw["store"] == "full":
+                stepped.append(same_steps(f"ntc_bwd_variant {name} ({label})", inp, kw, out))
+        return check
+
+    pk.reset_counts()
+    log("[16] (a) #19, synthetic inputs:")
+    synth_ms = ntc_bwd_synth.run(PROBE_T_PAD, names + ("pv",), dev, against(ref_a, "synthetic"),
+                                 lambda m: log(f"    {m}"))
+    log("[16] (b) #20, the engine's bucket of the phase-9 reads:")
+    real_ms = ntc_bwd_variants.run(T_TRIM, N_BASES, dev, check=against(ref_b, "real"),
+                                   log=lambda m: log(f"    {m}"))
+    log("[16] (c) #21, K13's building blocks on one (128, 128) tile:")
+    micro = ntc_microops.run(MICRO_ITERS, dev, lambda m: log(f"    {m}"))
+    torch.cuda.synchronize()
+    used, plain_runs = dict(pk.LAUNCHES), dict(pk.PLAIN_RUNS)
+    if any(v == 0 for v in used.values()) or any(plain_runs.values()):
+        raise AssertionError(f"the probes missed a kernel or ran a plain version: {used} "
+                             f"{plain_runs}")
+    log(f"[16] launches {used}; bit for bit ntc_bwd: {', '.join(matched)}; "
+        f"{len(stepped)} full stores, {sum(stepped)} rows in all, bit for bit with the "
+        f"plain column from the row stored before them")
+    del ref_a, ref_b
+    log("[16] variant: synthetic | real ms (us per column step), the card of phase 1")
+    steps = (PROBE_T_PAD, k["sig"].shape[1] + 1)
+    for name in names:
+        cells = [f"{d[name]:.3f} ({d[name] * 1e3 / n:.3f})" if name in d else "not run"
+                 for d, n in zip((synth_ms, real_ms), steps)]
+        log(f"    {name:7s} {cells[0]:>22s} | {cells[1]:>22s}")
+    log(f"    pv (K15 on the prod store, synthetic) {synth_ms['pv']:.3f} ms")
+    launches.update(used)
+    max_err.update({n: 0.0 for n in pk.KERNELS})  # bit for bit, or a check raised
+
+    p, prm, sig, N_r, T_r = k["plan"], k["prm"], k["sig"], k["N_r"], k["T_r"]
+    bwd_in = [sig, p.cand_n, p.allowed, p.hd, p.d01, p.d02, p.brow_same, p.brow_next,
+              p.bcol_same, p.bcol_suc, *prm, N_r, T_r]
+    store = sig.shape[0] * (sig.shape[1] + 1) * 5 * CN * (CN + CK0) * 4
+    b_ms, b_by = bound("ntc_bwd_variant", nbytes(*bwd_in) + store,
+                       int(T_r.sum()) * CN * (CN + CK0))
+    nb_ = len(pk.MICRO_BLOCKS)
+    m_ms, m_by = bound("ntc_microop", 3 * pk.M_RC * pk.M_CK * 4 * nb_,
+                       MICRO_ITERS * pk.M_RC * pk.M_CK * nb_)
+    return {
+        "ntc_bwd_variant": {
+            "ms": real_ms["rev"], "plain_ms": plain_short_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "variant": "rev", "plain_at": [2, 256],
+            "short_ms": short_ms, "pv_ms": synth_ms["pv"],
+            "variants_ms": {n: {"synthetic": synth_ms.get(n), "real": real_ms.get(n)}
+                            for n in names}},
+        "ntc_microop": {
+            "ms": sum(ms for ms, _ in micro.values()), "plain_ms": micro_plain_ms,
+            "bound_ms": m_ms, "bound_by": m_by, "library_ms": None, "plain_iters": 64,
+            "us_per_iter": {b: us for b, (_, us) in micro.items()}},
+    }
+
+
 def ntc_train_split(eng, items) -> dict:
     """ms of each stage of one training bucket as ntc_train_bucket_program
     runs it (CUDA events), and of the host post-processing (host clock)."""
@@ -2407,6 +2580,10 @@ def main(argv=None) -> int:
     phase.start("15")
     if want("15"):
         times.update(phase_15(model, bench, small, launches, max_err))
+    # 16. the probes of K13
+    phase.start("16")
+    if want("16"):
+        times.update(phase_16(model, bench, launches, max_err))
     phase.end()
 
     kernels = []

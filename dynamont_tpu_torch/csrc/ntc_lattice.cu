@@ -8,6 +8,8 @@
 //   ntc_pv          replaces dynamont_tpu/ops/ntc_pallas.py::_pv_kernel
 //   ntc_pv_ckpt     _pv_kernel's checkpoint branch (ckpt=True)
 //   ntc_walk        replaces dynamont_tpu/ops/ntc_pallas.py::_walk_kernel
+//   ntc_bwd_variant replaces scripts/probe_ntc_bwd_synth.py::variant_bwd and
+//                   scripts/probe_ntc_bwd_variants.py::variant_bwd (probes)
 //
 // Plain-torch versions of all of them and the layouts of every argument are in
 // ops/ntc_kernels.py (ops/ntc_batch.py and ops/ntc_walk.py hold the plain
@@ -220,10 +222,13 @@ __host__ __device__ inline size_t bwd_smem(int NC) {
 // Column t of read r into `o` (5, CN, CK) from column t + 1 at `nx`; the
 // terminal column at t = T_r-1 and -inf past it (nx is then not read).
 // Ends with a block barrier, so `o` is visible to the whole block.
+// `in`'s arrays are read at row ti of read ri: (t, r) itself, or a staged
+// copy of the read's rows (ntc_bwd_variant: R = 1, ti the row within the
+// chunk, sig[ti - 1] the sample before it); t stays the global row.
 template <typename S>
-__device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL],
-                                           int t, int r, int nm1, int tm1,
-                                           const S* nx, S* o, unsigned char* smem) {
+__device__ __forceinline__ void bwd_column_at(const BwdIn<S>& in, const S (&tl)[NTL],
+                                              int t, int ti, int ri, int nm1, int tm1,
+                                              const S* nx, S* o, unsigned char* smem) {
   const int tid = threadIdx.x, NT = blockDim.x;
   const int R = in.R, CN = in.CN, CK = in.CK, A = in.A;
   const int NC = CN * CK, RC = R * CN;
@@ -233,7 +238,7 @@ __device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL
   S* sX = sB + NC;
   unsigned char* sOk = reinterpret_cast<unsigned char*>(sX + NC);
   const S NEG = neg_inf<S>();
-  const size_t rt = (size_t)t * R + r;
+  const size_t rt = (size_t)ti * R + ri;
   const unsigned char* al = in.allowed + rt * NC;
   const int* cn_t = in.cand_n + rt * CN;
   if (t >= tm1) {  // the terminal column, then dead rows
@@ -244,11 +249,11 @@ __device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL
     __syncthreads();
     return;
   }
-  const S* sig_r = in.sig + (size_t)r * (in.T_pad - 1);
-  const S x = sig_r[t];
-  const S xm = t > 0 ? sig_r[t - 1] : S(0);
-  const S* ns = in.nsl + (size_t)t * 3 * 2 * RC;
-  const S* sk = in.suc + (size_t)t * 3 * R * A * CK;
+  const S* sig_r = in.sig + (size_t)ri * (in.T_pad - 1);
+  const S x = sig_r[ti];
+  const S xm = t > 0 ? sig_r[ti - 1] : S(0);
+  const S* ns = in.nsl + (size_t)ti * 3 * 2 * RC;
+  const S* sk = in.suc + (size_t)ti * 3 * R * A * CK;
   for (int c = tid; c < NC; c += NT) {
     const int i = c / CK, j = c % CK;
     const int cn = cn_t[i];
@@ -256,7 +261,7 @@ __device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL
     const int h = (int)in.hd[rt * NC + c];
     const S hd1 = S(-2.0) * S(h & 15), hd2 = S(-2.0) * S((h >> 4) & 15);
     const S hd1s = S((h >> 8) & 15), hd2s = S((h >> 12) & 15);
-    const int q = r * CN + i;
+    const int q = ri * CN + i;
     const S mun2 = ns[RC + q], c1n2 = ns[2 * RC + RC + q], c2n2 = ns[4 * RC + RC + q];
     const S scn = sc_(x, ns[q], ns[2 * RC + q], ns[4 * RC + q]);
     const S scn2 = sc_(x, mun2, c1n2, c2n2);
@@ -279,7 +284,7 @@ __device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL
 #pragma unroll
     for (int ai = 0; ai < MAX_A; ++ai) {
       const int cu = in.bcol_suc[(rt * A + ai) * CK + j];
-      const size_t so = (size_t)r * A * CK + ai * CK + j;
+      const size_t so = (size_t)ri * A * CK + ai * CK + j;
       const S scs = sc_(x, sk[so], sk[(size_t)R * A * CK + so],
                         sk[2 * (size_t)R * A * CK + so]);
       const S m1 = dd1 != ai ? S(1) : S(0);
@@ -329,6 +334,13 @@ __device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL
     }
   }
   __syncthreads();
+}
+
+template <typename S>
+__device__ __forceinline__ void bwd_column(const BwdIn<S>& in, const S (&tl)[NTL],
+                                           int t, int r, int nm1, int tm1,
+                                           const S* nx, S* o, unsigned char* smem) {
+  bwd_column_at(in, tl, t, t, r, nm1, tm1, nx, o, smem);
 }
 
 template <typename S>
@@ -384,6 +396,154 @@ bwd_ckpt_kernel(BwdIn<S> in, const S* __restrict__ tlog,
                            : buf + (size_t)(t & 1) * col;
     bwd_column(in, tl, t, r, nm1, tm1, nx, o, smem);
     nx = o;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ntc_bwd_variant: K13's recurrence under the axes of the TPU probes
+// scripts/probe_ntc_bwd_synth.py and probe_ntc_bwd_variants.py (#19, #20),
+// for timing only: chunks of C rows, each staged into shared memory first
+// (stage) or read from device memory as K13 reads them; chunks descending
+// (reverse, K13's order) or ascending with the rows of a chunk descending
+// (each row then reads the row visited just before it: wrong values, the
+// TPU forward grid's access pattern); every row stored (full) or only row
+// 0, the rows between in a per-read double buffer as in ntc_bwd_ckpt.
+// Every row goes through bwd_column, so the reverse-order variants equal
+// ntc_bwd bit for bit. Threads per read are the launch's (128-1024). The
+// staged and the unstaged path each pass bwd_column_at a struct of their
+// own (one instance each, STAGE). Do not merge them into one view that is
+// either the kernel's input or the staged rows: nvcc 12.9 compiled that
+// form so that the samples x and xm were read through the kernel
+// parameter's sig pointer on both paths, and every staged row read the
+// wrong samples (tools/staged_view_repro.py shows it).
+// What bounds it: K13's chain of dependent columns; the probe measures how
+// the chain's time moves with each axis.
+// ---------------------------------------------------------------------------
+__host__ __device__ inline size_t al16(size_t b) { return (b + 15) & ~(size_t)15; }
+
+// Bytes of C staged rows of one read: the float parameters and C + 1
+// samples, the int maps, hd, then allowed, d01 and d02 (each region
+// 16-byte aligned); ops/ntc_probe_kernels.stage_bytes repeats the sum.
+template <typename S>
+__host__ __device__ inline size_t stage_bytes(int C, int CN, int CK, int A) {
+  const size_t NC = (size_t)CN * CK;
+  return al16(((size_t)C * (3 * CK + 3 * A * CK + 6 * CN) + C + 1) * sizeof(S)) +
+         al16((size_t)C * (3 * CN + CK + A * CK) * sizeof(int)) +
+         al16((size_t)C * NC * sizeof(short)) + al16((size_t)C * (NC + 2 * CN));
+}
+
+// Copies rows t0 .. t0 + C - 1 of read r into `st` and returns the BwdIn
+// view of them (R = 1, row ti = t - t0; sig[-1] is the sample before).
+template <typename S>
+__device__ __forceinline__ BwdIn<S> stage_rows(const BwdIn<S>& in, int r, int t0, int C,
+                                               unsigned char* st) {
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int R = in.R, CN = in.CN, CK = in.CK, A = in.A;
+  const int NC = CN * CK, RC = R * CN, ACK = A * CK;
+  S* mu_k = reinterpret_cast<S*>(st);
+  S* c1_k = mu_k + (size_t)C * CK;
+  S* c2_k = c1_k + (size_t)C * CK;
+  S* suc = c2_k + (size_t)C * CK;
+  S* nsl = suc + (size_t)C * 3 * ACK;
+  S* sig = nsl + (size_t)C * 6 * CN;
+  int* cand_n = reinterpret_cast<int*>(
+      st + al16(((size_t)C * (3 * CK + 3 * ACK + 6 * CN) + C + 1) * sizeof(S)));
+  int* brow_same = cand_n + (size_t)C * CN;
+  int* brow_next = brow_same + (size_t)C * CN;
+  int* bcol_same = brow_next + (size_t)C * CN;
+  int* bcol_suc = bcol_same + (size_t)C * CK;
+  short* hd = reinterpret_cast<short*>(
+      reinterpret_cast<unsigned char*>(cand_n) + al16((size_t)C * (3 * CN + CK + ACK) * sizeof(int)));
+  unsigned char* allowed = reinterpret_cast<unsigned char*>(hd) + al16((size_t)C * NC * sizeof(short));
+  signed char* d01 = reinterpret_cast<signed char*>(allowed + (size_t)C * NC);
+  signed char* d02 = d01 + (size_t)C * CN;
+  const S* sig_r = in.sig + (size_t)r * (in.T_pad - 1);
+  for (int i = tid; i <= C; i += NT) {  // sig[t0 - 1 + i]; none past T_pad - 2
+    const int t = t0 - 1 + i;
+    sig[i] = (t >= 0 && t < in.T_pad - 1) ? sig_r[t] : S(0);
+  }
+  for (int e = tid; e < C * CK; e += NT) {
+    const int i = e / CK, j = e % CK;
+    const size_t g = ((size_t)(t0 + i) * R + r) * CK + j;
+    mu_k[e] = in.mu_k[g];
+    c1_k[e] = in.c1_k[g];
+    c2_k[e] = in.c2_k[g];
+    bcol_same[e] = in.bcol_same[g];
+  }
+  for (int e = tid; e < C * 3 * ACK; e += NT) {
+    const int i = e / (3 * ACK), s = (e / ACK) % 3, w = e % ACK;
+    suc[e] = in.suc[(((size_t)(t0 + i) * 3 + s) * R + r) * ACK + w];
+  }
+  for (int e = tid; e < C * ACK; e += NT) {
+    const int i = e / ACK, w = e % ACK;
+    bcol_suc[e] = in.bcol_suc[((size_t)(t0 + i) * R + r) * ACK + w];
+  }
+  for (int e = tid; e < C * 6 * CN; e += NT) {
+    const int i = e / (6 * CN), s = (e / (2 * CN)) % 3, o = (e / CN) % 2, n = e % CN;
+    nsl[e] = in.nsl[((size_t)(t0 + i) * 3 + s) * 2 * RC + o * RC + r * CN + n];
+  }
+  for (int e = tid; e < C * CN; e += NT) {
+    const int i = e / CN, n = e % CN;
+    const size_t g = ((size_t)(t0 + i) * R + r) * CN + n;
+    cand_n[e] = in.cand_n[g];
+    brow_same[e] = in.brow_same[g];
+    brow_next[e] = in.brow_next[g];
+    d01[e] = in.d01[g];
+    d02[e] = in.d02[g];
+  }
+  for (int e = tid; e < C * NC; e += NT) {
+    const int i = e / NC, c = e % NC;
+    const size_t g = ((size_t)(t0 + i) * R + r) * NC + c;
+    hd[e] = in.hd[g];
+    allowed[e] = in.allowed[g];
+  }
+  return BwdIn<S>{sig + 1, cand_n, allowed, hd, d01, d02, brow_same, brow_next,
+                  bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc, nsl, 1, in.T_pad,
+                  CN, CK, A};
+}
+
+template <typename S, int MAXT, bool STAGE>
+__global__ void __launch_bounds__(MAXT)
+bwd_variant_kernel(BwdIn<S> in, const S* __restrict__ tlog,
+                   const int* __restrict__ N_r, const int* __restrict__ T_r,
+                   S* out, S* row0, S* scratch, int C, int reverse, int full) {
+  extern __shared__ unsigned char smem[];
+  const int r = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  S tl[NTL];
+  load_tl(tl, tlog);
+  const int nm1 = N_r[r] - 1, tm1 = T_r[r] - 1;
+  const int R = in.R, nc = in.T_pad / C;
+  const size_t col = 5 * (size_t)in.CN * in.CK;
+  unsigned char* st = smem;
+  unsigned char* csm = smem + (STAGE ? stage_bytes<S>(C, in.CN, in.CK, in.A) : 0);
+  S* buf = scratch + (size_t)r * 2 * col;
+  for (size_t c = tid; c < col; c += NT) buf[col + c] = neg_inf<S>();
+  __syncthreads();
+  const S* nx = buf + col;  // what the first row visited reads: -inf
+  int k = 0;
+  for (int ci = 0; ci < nc; ++ci) {
+    const int t0 = (reverse ? nc - 1 - ci : ci) * C;
+    if constexpr (STAGE) {
+      const BwdIn<S> view = stage_rows(in, r, t0, C, st);
+      __syncthreads();
+      for (int i = C - 1; i >= 0; --i, ++k) {
+        const int t = t0 + i;
+        S* o = full ? out + ((size_t)t * R + r) * col
+               : t == 0 ? row0 + (size_t)r * col
+                        : buf + (size_t)(k & 1) * col;
+        bwd_column_at(view, tl, t, i, 0, nm1, tm1, nx, o, csm);
+        nx = o;
+      }
+    } else {
+      for (int i = C - 1; i >= 0; --i, ++k) {
+        const int t = t0 + i;
+        S* o = full ? out + ((size_t)t * R + r) * col
+               : t == 0 ? row0 + (size_t)r * col
+                        : buf + (size_t)(k & 1) * col;
+        bwd_column(in, tl, t, r, nm1, tm1, nx, o, csm);
+        nx = o;
+      }
+    }
   }
 }
 
@@ -782,6 +942,31 @@ int bwd_ckpt(const BwdIn<S>& in, const S* tlog, const int* N_r, const int* T_r,
   return (int)cudaGetLastError();
 }
 
+template <int MAXT, bool STAGE>
+int bwd_variant_launch(const BwdIn<float>& in, const float* tlog, const int* N_r,
+                       const int* T_r, float* out, float* row0, float* scratch,
+                       int NT, int C, int reverse, int full, size_t smem,
+                       cudaStream_t stream) {
+  cudaError_t err = launch_smem(bwd_variant_kernel<float, MAXT, STAGE>, smem);
+  if (err != cudaSuccess) return (int)err;
+  bwd_variant_kernel<float, MAXT, STAGE><<<in.R, NT, smem, stream>>>(
+      in, tlog, N_r, T_r, out, row0, scratch, C, reverse, full);
+  return (int)cudaGetLastError();
+}
+
+int bwd_variant(const BwdIn<float>& in, const float* tlog, const int* N_r,
+                const int* T_r, float* out, float* row0, float* scratch, int NT,
+                int C, int stage, int reverse, int full, cudaStream_t stream) {
+  const size_t smem = (stage ? stage_bytes<float>(C, in.CN, in.CK, in.A) : 0) +
+                      bwd_smem<float>(in.CN * in.CK);
+  auto go = [&](auto launch) {
+    return launch(in, tlog, N_r, T_r, out, row0, scratch, NT, C, reverse, full, smem, stream);
+  };
+  if (NT > 512)
+    return stage ? go(bwd_variant_launch<1024, true>) : go(bwd_variant_launch<1024, false>);
+  return stage ? go(bwd_variant_launch<512, true>) : go(bwd_variant_launch<512, false>);
+}
+
 template <typename S>
 size_t pv_smem(int CN, int CK, int NT) {
   const size_t NC = (size_t)CN * CK;
@@ -923,6 +1108,22 @@ int walk(const S* lp, const short* choices, const int* slots,
 
 NTC_LATTICE_ENTRIES(float, f32)
 NTC_LATTICE_ENTRIES(double, f64)
+
+extern "C" int ntc_bwd_variant_f32(
+    const float* sig, const int* cand_n, const unsigned char* allowed,
+    const short* hd, const signed char* d01, const signed char* d02,
+    const int* brow_same, const int* brow_next, const int* bcol_same,
+    const int* bcol_suc, const float* mu_k, const float* c1_k, const float* c2_k,
+    const float* suc, const float* nsl, const float* tlog, const int* N_r,
+    const int* T_r, float* out, float* row0, float* scratch, int R, int T_pad,
+    int CN, int CK, int A, int NT, int C, int stage, int reverse, int full,
+    void* stream) {
+  const BwdIn<float> in{sig, cand_n, allowed, hd, d01, d02, brow_same,
+                        brow_next, bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc,
+                        nsl, R, T_pad, CN, CK, A};
+  return bwd_variant(in, tlog, N_r, T_r, out, row0, scratch, NT, C, stage,
+                     reverse, full, (cudaStream_t)stream);
+}
 
 extern "C" int ntc_table_gather_f32(const int* ks, const float* tab,
                                     float* out, int T, int J, int K,
