@@ -7,9 +7,10 @@ result line):
   2. a fresh nvcc build of the kernels from dynamont_tpu_torch/csrc/;
   3. each kernel against its plain-torch version on the card, on the CPU
      tests' three short reads in fp32 and fp64 and on one (2, 16384, 512)
-     bucket in fp64 (fp32 at full width is phase 5's): band cells within
-     1e-5, Z within rtol 1e-6, choice bits, walked paths and segment
-     starts identical, walk probabilities within 1e-6 (both compute the
+     bucket in fp64 (fp32 at full width is phase 5's): K1 (banded_bwd),
+     K2 (banded_fwd_vit) and K3 (banded_walk) bit for bit (bM, bE, choice
+     bits, LPM, LPE and Zf, band rows after the same -inf pattern on rows
+     < T; walked paths, probabilities and segment starts: both compute the
      same float operations in the same order); the matrix route's K4
      (banded_vit) over K5's and K1's stored rows: ch, LPM and LPE bit for
      bit, and bb.banded_batch_run's PM, PE and choices bit for bit those of
@@ -280,7 +281,6 @@ MAIN_RUNG = ("ntc_tab_gather", "ntc_bwd", "ntc_pv", "ntc_walk")  # K11, K13, K15
 CKPT_ROUTE = ("ntc_tab_gather", "ntc_bwd_ckpt", "ntc_pv_ckpt", "ntc_walk")
 PV_OUTS = ("lp", "choices", "slots", "apEf", "fwdEf")  # K15's outputs, in order
 FP32_EPSILON = 1e-6  # per-cell Z tolerance of the fp32 engine gates
-CELL_ATOL = 1e-5
 RUNS = 5
 STEPS = 5  # timed training steps after a warm-up
 PROBE_T_PAD, MICRO_ITERS = 16384, 16384  # phase 16's synthetic bucket, microop iterations
@@ -297,25 +297,6 @@ def smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def band_err(got, want, T):
-    """Max |got - want| over finite band cells of rows < T; raises if the
-    -inf patterns differ or a cell is off by more than CELL_ATOL."""
-    import torch
-
-    err = 0.0
-    for i, t in enumerate(T.tolist()):
-        x, y = got[i, :t], want[i, :t]
-        if not torch.equal(torch.isneginf(x), torch.isneginf(y)):
-            raise AssertionError(f"read {i}: -inf patterns differ")
-        fin = torch.isfinite(y)
-        d = (x[fin] - y[fin]).abs()
-        if d.numel():
-            err = max(err, d.max().item())
-            if err > CELL_ATOL:
-                raise AssertionError(f"read {i}: band cell off by {err}")
-    return err
-
-
 def plain_run(name: str, fn, plain_ms: dict | None):
     """fn(), its CUDA-event time put into plain_ms[name] when given."""
     if plain_ms is None:
@@ -324,10 +305,23 @@ def plain_run(name: str, fn, plain_ms: dict | None):
     return out
 
 
+def band_same(name: str, got, want, T) -> None:
+    """Raise unless got equals want bit for bit on every read's rows < T:
+    the same -inf pattern first, then every cell."""
+    import torch
+
+    for i, t in enumerate(T.tolist()):
+        x, y = got[i, :t], want[i, :t]
+        if not torch.equal(torch.isneginf(x), torch.isneginf(y)):
+            raise AssertionError(f"{name} read {i}: -inf patterns differ")
+        same(f"{name} read {i}", x, y)
+
+
 def compare_kernels(batch, N_max, lm, le, plain_ms: dict | None = None):
     """Run each kernel and its plain version on one batch; returns the max
-    abs error per kernel and raises on disagreement. plain_ms, if given,
-    receives each plain version's CUDA-event time."""
+    abs error per kernel (0.0: K1, K2 and K3 bit for bit) and raises on
+    disagreement. plain_ms, if given, receives each plain version's
+    CUDA-event time."""
     import torch
 
     from dynamont_tpu_torch.ops import nt_banded_batch as bb
@@ -337,7 +331,9 @@ def compare_kernels(batch, N_max, lm, le, plain_ms: dict | None = None):
     errs = {}
     bM, bE = kk.backward(batch, lm, le)
     pM, pE = plain_run("banded_bwd", lambda: kk.backward_plain(batch, lm, le), plain_ms)
-    errs["banded_bwd"] = max(band_err(bM, pM, T), band_err(bE, pE, T))
+    band_same("banded_bwd bM", bM, pM, T)
+    band_same("banded_bwd bE", bE, pE, T)
+    errs["banded_bwd"] = 0.0
     del bM, bE
     r = torch.arange(T.numel(), device=pE.device)
     Zb = pE[r, 0, batch.bw.long() + 1]
@@ -347,18 +343,18 @@ def compare_kernels(batch, N_max, lm, le, plain_ms: dict | None = None):
     del pM, pE
     if not torch.equal(ch, pch):
         raise AssertionError(f"fwd_vit: {(ch != pch).sum().item()} choice bits differ")
-    torch.testing.assert_close(Zf, pZf, rtol=1e-6, atol=0)
-    errs["banded_fwd_vit"] = max(band_err(LPM, pLPM, T),
-                                 band_err(LPE, pLPE, T),
-                                 (Zf - pZf).abs().max().item())
+    band_same("fwd_vit LPM", LPM, pLPM, T)
+    band_same("fwd_vit LPE", LPE, pLPE, T)
+    same("fwd_vit Zf", Zf, pZf)
+    errs["banded_fwd_vit"] = 0.0  # bit for bit, or the checks raised
     del ch, LPM, LPE
     walked = kk.walk(pLPM, pLPE, pch, batch, N_max)
     plain = plain_run("banded_walk", lambda: kk.walk_plain(pLPM, pLPE, pch, batch, N_max),
                       plain_ms)
     if not (torch.equal(walked[0], plain[0]) and torch.equal(walked[2], plain[2])):
         raise AssertionError("walk: paths differ")
-    torch.testing.assert_close(walked[1], plain[1], rtol=0, atol=1e-6)
-    errs["banded_walk"] = (walked[1] - plain[1]).abs().max().item()
+    same("walk prob", walked[1], plain[1])
+    errs["banded_walk"] = 0.0
     s_k, _ = bb.path_summaries(*walked, N_max)
     s_p, _ = bb.path_summaries(*plain, N_max)
     if not torch.equal(s_k, s_p):

@@ -96,6 +96,51 @@ __device__ S block_sum(S v, S* red, int tid, int B) {
   return a[0];
 }
 
+// Asynchronous copies from device to shared memory (cp.async, sm_80+):
+// each thread's copies join a group at commit; wait_all blocks the thread
+// until its own groups have landed, and a barrier after it publishes them
+// to the block. `gmem` and `smem` of a 16-byte copy are 16-byte aligned.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(smem_addr(smem)), "l"(gmem)
+               : "memory");
+}
+// one element of 4 or 8 bytes
+template <typename V>
+__device__ __forceinline__ void cp_async_elem(V* smem, const V* gmem) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8,
+                "cp.async takes 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               ::"r"(smem_addr(smem)), "l"(gmem), "n"(sizeof(V))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy n elements (n * sizeof(V) bytes, a multiple of 16, both ends
+// 16-byte aligned) as 16-byte pieces, piece p by thread p mod nt.
+template <typename V>
+__device__ __forceinline__ void cp_async_rows(V* smem, const V* gmem, size_t n,
+                                              int tid, int nt) {
+  const size_t pieces = n * sizeof(V) / 16;
+  for (size_t p = tid; p < pieces; p += nt)
+    cp_async16(reinterpret_cast<unsigned char*>(smem) + 16 * p,
+               reinterpret_cast<const unsigned char*>(gmem) + 16 * p);
+}
+// Copy n elements one by one, element i by thread i mod nt.
+template <typename V>
+__device__ __forceinline__ void cp_async_elems(V* smem, const V* gmem, int n,
+                                               int tid, int nt) {
+  for (int i = tid; i < n; i += nt) cp_async_elem(smem + i, gmem + i);
+}
+
 // Dynamic shared memory above the 48 KB default needs the attribute.
 template <typename F>
 cudaError_t launch_smem(F* kernel, size_t bytes) {

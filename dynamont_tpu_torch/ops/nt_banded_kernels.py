@@ -31,6 +31,7 @@ is ops/nt_banded_batch.banded_batch_run.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +45,38 @@ KERNELS = SEGMENT_KERNELS + TRAIN_KERNELS + ("banded_vit",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 MAX_B = 1024  # one thread per band column
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+FWD_VIT_MAX_ROWS = 32  # rows per staged chunk of banded_fwd_vit, at most
+
+
+class Staging(NamedTuple):
+    """Chunks of banded_fwd_vit (K2) at one band width: rows per chunk
+    and the block's shared memory in bytes."""
+
+    fwd_vit_rows: int
+    fwd_vit_bytes: int
+
+
+def staging(B: int, itemsize: int) -> Staging:
+    """The chunk geometry K2 is launched with at band width B and element
+    size `itemsize` (4 or 8). The byte count repeats csrc/nt_banded.cu's
+    fwd_vit_smem_bytes: K2 keeps its four previous rows and two stages of
+    C rows of bM and bE, a window of C + B emission parameters of each of
+    mu/c1/c2, C samples and C + 1 band starts. It takes the most rows, up
+    to FWD_VIT_MAX_ROWS, that fit in SMEM_LIMIT. (K3's chunk is a constant
+    of the kernel, csrc/nt_banded.cu's WALK_ROWS.)"""
+
+    def fwd_vit_bytes(C):
+        stage = 2 * C * B + 3 * (B + C) + C
+        return (8 * B + 2 * stage) * itemsize + 2 * (C + 1) * 4
+
+    fits = [C for C in range(1, FWD_VIT_MAX_ROWS + 1)
+            if fwd_vit_bytes(C) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"banded_fwd_vit: no chunk fits B={B}, "
+                         f"itemsize {itemsize} in {SMEM_LIMIT} bytes")
+    C = fits[-1]
+    return Staging(C, fwd_vit_bytes(C))
 
 
 def reset_counts() -> None:
@@ -55,7 +88,7 @@ def reset_counts() -> None:
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = {
     "nt_banded_bwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
-    "nt_banded_fwd_vit": [_P] * 15 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_fwd_vit": [_P] * 15 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
     "nt_banded_vit": [_P] * 12 + [_I] * 3 + [_P],
     "nt_banded_fwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
@@ -108,6 +141,13 @@ def _check_batch(name: str, batch: bb.BandedBatch) -> None:
     if batch.B % 32 or not 0 < batch.B <= MAX_B:
         raise ValueError(f"{name}: band width B={batch.B} must be a multiple "
                          f"of 32 in (0, {MAX_B}]")
+
+
+def _check_aligned(name: str, **tensors) -> None:
+    """The kernels copy these in 16-byte pieces."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} does not start 16-byte aligned")
 
 
 def _raise_on(name: str, rc: int) -> None:
@@ -172,6 +212,7 @@ def fwd_vit(batch: bb.BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):
     if bM.shape != (R, T_pad, batch.B) or bE.shape != bM.shape \
             or Zb.shape != (R,) or {bM.dtype, bE.dtype, Zb.dtype} != {dtype}:
         raise ValueError("banded_fwd_vit: bM/bE/Zb do not match the batch")
+    _check_aligned("banded_fwd_vit", bM=bM, bE=bE)
     ch = torch.empty(bM.shape, dtype=torch.uint8, device=bM.device)
     LPM = torch.empty_like(bM)
     LPE = torch.empty_like(bM)
@@ -181,7 +222,8 @@ def fwd_vit(batch: bb.BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):
         _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
         _ptr(batch.bw), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(ch), _ptr(LPM),
         _ptr(LPE), _ptr(Zf), R, T_pad, batch.mu_pad.shape[1], batch.B,
-        batch.pad, log_m1, log_e2, _stream(bM.device))
+        batch.pad, staging(batch.B, bM.element_size()).fwd_vit_rows, log_m1,
+        log_e2, _stream(bM.device))
     _raise_on("banded_fwd_vit", rc)
     LAUNCHES["banded_fwd_vit"] += 1
     return ch, LPM, LPE, Zf
@@ -208,6 +250,10 @@ def walk(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
             or LPE.dtype != dtype or ch.dtype != torch.uint8 \
             or batch.bstart.shape != (R, T_pad):
         raise ValueError("banded_walk: LPM/LPE/ch do not match the batch")
+    if B % 32 or not 0 < B <= MAX_B:
+        raise ValueError(f"banded_walk: band width B={B} must be a multiple "
+                         f"of 32 in (0, {MAX_B}]")
+    _check_aligned("banded_walk", ch=ch)
     path_n = torch.empty((R, T_pad - 1), dtype=torch.int32, device=LPM.device)
     prob = torch.empty((R, T_pad - 1), dtype=dtype, device=LPM.device)
     close = torch.empty((R, T_pad - 1), dtype=torch.uint8, device=LPM.device)

@@ -185,3 +185,22 @@ def test_fwd_vit_rows_past_T_are_filled(reads):
         assert torch.all(ch[i, T:] == 0)
         assert torch.isfinite(LPE[i, T - 1]).any()
     assert torch.isfinite(Zf).all()
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staging_fits_shared_memory(dtype):
+    """K2's staged chunks fit one block's shared memory at every band width
+    the kernel takes (multiples of 32 up to 1024), with at least one row a
+    chunk, and K2 takes the most rows that fit (at most FWD_VIT_MAX_ROWS).
+    The bytes are csrc/nt_banded.cu's fwd_vit_smem_bytes, written out."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    fwd_vit_bytes = lambda B, C: ((8 * B + 2 * (2 * C * B + 3 * (B + C) + C)) * itemsize
+                                  + 2 * (C + 1) * 4)
+    for B in range(32, kk.MAX_B + 1, 32):
+        st = kk.staging(B, itemsize)
+        assert st.fwd_vit_rows >= 1, B
+        assert st.fwd_vit_bytes == fwd_vit_bytes(B, st.fwd_vit_rows), B
+        assert st.fwd_vit_bytes <= kk.SMEM_LIMIT == 232448, B
+        assert st.fwd_vit_rows == kk.FWD_VIT_MAX_ROWS or \
+            fwd_vit_bytes(B, st.fwd_vit_rows + 1) > kk.SMEM_LIMIT, B

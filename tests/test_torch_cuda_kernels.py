@@ -5,9 +5,8 @@ card. JAX-free, so it runs where the port runs:
 
 (--noconftest: tests/conftest.py configures JAX). Cases marked `cuda`
 skip without a CUDA device. Kernel and plain version compute the same
-float operations in the same order on the same device inputs, so band
-cells agree to 1e-5 (the training kernels', the NTC pre-pass and lattice
-kernels' bit for bit), choice bits and walked paths exactly.
+float operations in the same order on the same device inputs, so every
+kernel's outputs equal its plain version's bit for bit.
 """
 
 import math
@@ -26,14 +25,12 @@ from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
 LM, LE = math.log(0.019889650396799997), math.log(0.9801103496029998)
 
 
-def _close_band(got, want, T, atol=1e-5):
-    got, want = got.cpu().numpy(), want.cpu().numpy()
+def _same_band(got, want, T):
+    """Bit for bit on every read's rows < T, after the same -inf pattern."""
     for i in range(got.shape[0]):
         x, y = got[i, : int(T[i])], want[i, : int(T[i])]
-        assert np.array_equal(np.isneginf(x), np.isneginf(y)), f"read {i}: -inf pattern"
-        fin = np.isfinite(y)
-        d = np.abs(x[fin] - y[fin])
-        assert d.size == 0 or d.max() <= atol, f"read {i}: max diff {d.max()}"
+        assert torch.equal(torch.isneginf(x), torch.isneginf(y)), f"read {i}: -inf pattern"
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
 
 
 def test_wrappers_refuse_other_devices():
@@ -78,24 +75,122 @@ def test_kernels_match_plain_on_cuda(card, dtype):
 
     bM, bE = kk.backward(b, LM, LE)
     pM, pE = kk.backward_plain(b, LM, LE)
-    _close_band(bM, pM, T)
-    _close_band(bE, pE, T)
+    _same_band(bM, pM, T)
+    _same_band(bE, pE, T)
 
     Zb = pE[torch.arange(3, device="cuda"), 0, b.bw.long() + 1]
     ch, LPM, LPE, Zf = kk.fwd_vit(b, pM, pE, Zb, LM, LE)
     pch, pLPM, pLPE, pZf = kk.fwd_vit_plain(b, pM, pE, Zb, LM, LE)
     assert torch.equal(ch, pch)
-    _close_band(LPM, pLPM, T)
-    _close_band(LPE, pLPE, T)
-    torch.testing.assert_close(Zf, pZf, rtol=1e-6, atol=0)
+    _same_band(LPM, pLPM, T)
+    _same_band(LPE, pLPE, T)
+    torch.testing.assert_close(Zf, pZf, rtol=0, atol=0)
 
     path_n, prob, close = kk.walk(pLPM, pLPE, pch, b, N_max)
     p_path_n, p_prob, p_close = kk.walk_plain(pLPM, pLPE, pch, b, N_max)
     torch.cuda.synchronize()
     assert torch.equal(path_n, p_path_n)
     assert torch.equal(close, p_close)
-    torch.testing.assert_close(prob, p_prob, rtol=0, atol=1e-6)
+    torch.testing.assert_close(prob, p_prob, rtol=0, atol=0)
     assert all(kk.LAUNCHES[k] == launches[k] + 1 for k in kk.SEGMENT_KERNELS)
+
+
+def _widened(b, B):
+    """The batch at band width B >= 2*max_bw + 3: the parameter arrays
+    padded on the right so that every band window stays in range."""
+    import torch.nn.functional as F
+
+    pad = lambda x: F.pad(x, (0, max(0, B - b.B)))
+    return b._replace(mu_pad=pad(b.mu_pad), c1_pad=pad(b.c1_pad),
+                      c2_pad=pad(b.c2_pad), B=B)
+
+
+def _staging_case(case, dtype, device="cuda"):
+    """A bucket for each edge of K2's and K3's staged chunks (K2's C rows a
+    chunk from kk.staging, at most 32; K3's 64, a constant of the kernel):
+    reads of different T; T > C and not a multiple of C; T <= C; T = T_pad
+    for every read; B 32; the largest B (1024)."""
+    model = load_model_for_pore("rna002")
+    n_bases, t_pad_to, band, B = {
+        "ragged": ([40, 50, 60], 256, 400, None),
+        "t_not_multiple": ([45], 256, 400, None),
+        "t_within_chunk": ([12], 64, 400, None),
+        "t_eq_t_pad": ([50, 55], 1, 400, None),
+        "b32": ([40, 50, 60], 256, 20, 32),
+        "b_max": ([120], 1, 1000, kk.MAX_B),
+    }[case]
+    short = {"mean_dwell": 2.0, "polya_prefix": False} if case == "t_within_chunk" else {}
+    items = [make_read(model, n_bases=n, seed=7 + s, **short) for s, n in enumerate(n_bases)]
+    C = kk.staging(128, torch.empty((), dtype=dtype).element_size()).fwd_vit_rows
+    T_cut = {"t_not_multiple": 7 * C + 3,
+             "t_eq_t_pad": min(len(sig) for sig, _ in items) + 1}.get(case)
+    if T_cut is not None:
+        items = [(sig[: T_cut - 1], r) for sig, r in items]
+    kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in items]
+    b = bb.prepare_batch([s for s, _ in items], kids, model, band, device=device,
+                         dtype=dtype, t_pad_to=t_pad_to)
+    assert b.B == 128 or case in ("b32", "b_max")
+    return b if B is None else _widened(b, B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "t_not_multiple", "t_within_chunk",
+                                  "t_eq_t_pad", "b32", "b_max", "walk_leaves_band"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_kernels_match_plain_on_cuda(card, dtype, case):
+    """K2 and K3 at the edges of their staged chunks: every output (ch,
+    LPM, LPE, Zf; path_n, prob, close) bit for bit its plain version's.
+    walk_leaves_band walks random choice bits over random posteriors
+    (NaN, -inf and positive values among them), so that paths leave the
+    band array [0, B) and the walk reads lp 0 / choice 0 there."""
+    b = _staging_case("b32" if case == "walk_leaves_band" else case, dtype)
+    T = b.T.cpu().numpy()
+    C = kk.staging(b.B, b.sig.element_size()).fwd_vit_rows
+    assert {"t_not_multiple": T[0] % C and T[0] > C, "t_within_chunk": T[0] <= C,
+            "t_eq_t_pad": (T == b.bstart.shape[1]).all()}.get(case, True)
+    N_max = int(b.N.max())
+    bM, bE = kk.backward_plain(b, LM, LE)
+    Zb = bE[torch.arange(len(T), device="cuda"), 0, b.bw.long() + 1]
+    got = kk.fwd_vit(b, bM, bE, Zb, LM, LE)
+    want = kk.fwd_vit_plain(b, bM, bE, Zb, LM, LE)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    _same_band(got[1], want[1], T)
+    _same_band(got[2], want[2], T)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=0)
+    assert torch.isfinite(got[3]).all()
+    ch, LPM, LPE = want[:3]
+    if case == "walk_leaves_band":
+        g = torch.Generator().manual_seed(3)
+        ch = (torch.rand(ch.shape, generator=g) < 0.7).to(torch.uint8).cuda()
+        LPM = (torch.randn(LPM.shape, generator=g, dtype=dtype) * 3).cuda()
+        LPE = (torch.randn(LPE.shape, generator=g, dtype=dtype) * 3).cuda()
+        LPM[..., ::5] = float("nan")
+        LPE[..., 1::7] = float("-inf")
+    walked = kk.walk(LPM, LPE, ch, b, N_max)
+    plain = kk.walk_plain(LPM, LPE, ch, b, N_max)
+    torch.cuda.synchronize()
+    for g, w in zip(walked, plain):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    if case == "walk_leaves_band":  # the walk did leave [0, B)
+        assert _leaves_band(plain, b, N_max)
+
+
+def _leaves_band(walked, b, N_max) -> bool:
+    """Whether some read's walk reaches a column outside [0, B): replayed
+    on the host from the recorded bases and closes."""
+    path_n, _, close = (x.cpu() for x in walked)
+    bs = b.bstart.cpu()
+    for i in range(path_n.shape[0]):
+        j, T = int(b.bw[i]) + 1, int(b.T[i])
+        for t in range(T - 1, 0, -1):
+            if int(path_n[i, t - 1]) == N_max:
+                break
+            if not 0 <= j < b.B:
+                return True
+            s = int(bs[i, t] != bs[i, t - 1])
+            j = j - 1 + s if bool(close[i, t - 1]) else j + s
+    return False
 
 
 @pytest.mark.cuda

@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""CUDA-event times of the main path's K2 (banded_fwd_vit) and K3
+(banded_walk) for the checkout at --root, on one GPU:
+
+    python3 tools/banded_times.py [--root DIR] [--reps 3] [--sweep]
+
+From the package of --root (default: this checkout), on the buckets
+chip_smoke.py builds (rna002 reads of 1800 bases, mean dwell 9, T trimmed
+to 16000, decoded as the engine decodes them): (32, 16384, 512) in fp32,
+the main path's, and (2, 16384, 512) in fp64, phase 3's, at the band width
+the exact per-read fp64 rung takes for such reads. Each time is the mean of
+--reps launches after one. With --sweep, where the checkout's K2 takes its
+chunk rows from ops/nt_banded_kernels.staging, K2 is also timed at each
+smaller chunk in SWEEP that fits. Prints the card's name and power limit,
+then one JSON line per time. Comparing two checkouts: run each in its own
+process, in one call (parent, change, change, parent).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+
+SWEEP = {"float32": (4, 8, 12, 16), "float64": (2, 4, 6, 8)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("banded_times: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from dynamont_tpu_torch.constants import NT_TRANSITIONS
+    from dynamont_tpu_torch.models.packing import t_pad_ladder
+    from dynamont_tpu_torch.models.params import params_from_numpy
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.ops import nt_banded_device as dv
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+    from dynamont_tpu_torch.utils.synthetic import make_read
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0], flush=True)
+    model = load_model_for_pore("rna002")
+    m1, e2 = NT_TRANSITIONS["rna002"]["m1"], NT_TRANSITIONS["rna002"]["e2"]
+    lm, le = math.log(m1), math.log(e2)
+    reads = []
+    for s in range(32):
+        sig, read = make_read(model, n_bases=1800, mean_dwell=9.0, seed=s)
+        reads.append((sig[:16000], read))
+
+    def bucket(items, dtype):
+        kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in items]
+        t_pad = t_pad_ladder(max(len(s) for s, _ in items) + 1, 512)
+        wire = dv.prepare_wire([s for s, _ in items], kids, device="cuda", t_pad=t_pad)
+        p = params_from_numpy(model, m1, e2, device="cuda", dtype=dtype)
+        return dv.decode(wire, p.means, p.c1, p.c2, dtype), wire.N_max
+
+    def cuda_ms(fn) -> float:
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(args.reps):
+            fn()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]) / args.reps
+
+    for items, dtype in ((reads, torch.float32), (reads[:2], torch.float64)):
+        b, nmax = bucket(items, dtype)
+        shape = [b.sig.shape[0], b.bstart.shape[1], b.B]
+        dname = str(dtype).removeprefix("torch.")
+        bM, bE = kk.backward(b, lm, le)
+        Zb = bE[torch.arange(shape[0], device="cuda"), 0, b.bw.long() + 1]
+        ch, LPM, LPE, _ = kk.fwd_vit(b, bM, bE, Zb, lm, le)
+        rows = None
+        if hasattr(kk, "staging"):
+            rows = kk.staging(b.B, bM.element_size()).fwd_vit_rows
+        line = dict(root=root, dtype=dname, shape=shape)
+        print(json.dumps(dict(line, kernel="banded_fwd_vit", C=rows,
+                              ms=cuda_ms(lambda: kk.fwd_vit(b, bM, bE, Zb, lm, le)))),
+              flush=True)
+        print(json.dumps(dict(line, kernel="banded_walk",
+                              ms=cuda_ms(lambda: kk.walk(LPM, LPE, ch, b, nmax)))),
+              flush=True)
+        if args.sweep and rows is not None:
+            staging = kk.staging
+            for C in (c for c in SWEEP[dname] if c < rows):
+                kk.staging = lambda B, itemsize, C=C: staging(B, itemsize)._replace(
+                    fwd_vit_rows=C)
+                try:
+                    got = kk.fwd_vit(b, bM, bE, Zb, lm, le)
+                    same = all(torch.equal(x, y) for x, y in zip(got, (ch, LPM, LPE)))
+                    ms = cuda_ms(lambda: kk.fwd_vit(b, bM, bE, Zb, lm, le))
+                finally:
+                    kk.staging = staging
+                print(json.dumps(dict(line, kernel="banded_fwd_vit", C=C, ms=ms,
+                                      same_outputs=same)), flush=True)
+        del bM, bE, ch, LPM, LPE
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
