@@ -7,7 +7,8 @@ result line):
   2. a fresh nvcc build of the kernels from dynamont_tpu_torch/csrc/;
   3. each kernel against its plain-torch version on the card, on the CPU
      tests' three short reads in fp32 and fp64 and on one (2, 16384, 512)
-     bucket in fp64 (fp32 at full width is phase 5's): K1 (banded_bwd),
+     bucket in fp64 (fp32 at full width is phase 5's): K1 (banded_bwd,
+     its rows' inputs staged in chunks of up to 256 rows, top down),
      K2 (banded_fwd_vit) and K3 (banded_walk) bit for bit (bM, bE, choice
      bits, LPM, LPE and Zf, band rows after the same -inf pattern on rows
      < T; walked paths, probabilities and segment starts: both compute the
@@ -82,7 +83,8 @@ result line):
  12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
-     and read right after: K7-K11, K13, K15, K16 all launched, no plain
+     and read right after: K7-K11, K13, K15, K16 all launched, every K15
+     launch in its shared-column instance (pv_shared_kernel), no plain
      version; at most 2 reads on the exact rung; the engine's profile,
      reads/s and peak memory; read 0 against phase 10's exact fp64 run
      (at most max(1, segments/50) borders differ, Z within rel 1e-3); no
@@ -103,7 +105,8 @@ result line):
      plain version, no exact retry, each read within the bounds above of
      its main-rung result; wall time and peak memory. That wide bucket
      through both routes: each route's wall time and peak memory, the
-     outputs bit for bit equal, K14's checkpoints and row 0 bit for bit
+     outputs bit for bit equal (the full store's K15 in its device-memory
+     instance, pv_kernel), K14's checkpoints and row 0 bit for bit
      its plain version's (run in the parent beside the spawned processes),
      K15's checkpoint mode's lp, choices, slots and both finals bit for bit
      its plain version's (run in a spawned process), and the kernels' times
@@ -179,7 +182,9 @@ Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
-ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_vit's
+ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
+banded_fwd_vit's and ntc_pv's (and its `ckpt`'s) say which design ran
+(`design`: the staged chunks, the instance); banded_vit's
 launches are phase 15(a)'s, ntc_table_gather's the one run of its own
 entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
 ntc_microop's those of phase 16's probe runs (no path runs them):
@@ -1212,7 +1217,7 @@ def phase_12(model, bench, launches: dict, long_ref):
                                "rna002", "--device", "cuda", "--profile"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        lat, pre = dict(kern.LAUNCHES), dict(kn.LAUNCHES)
+        lat, pre, pv_inst = dict(kern.LAUNCHES), dict(kn.LAUNCHES), dict(kern.PV_LAUNCHES)
         plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
         peak = torch.cuda.max_memory_allocated() / 2**30
         pr = eng.profile
@@ -1221,13 +1226,15 @@ def phase_12(model, bench, launches: dict, long_ref):
             f"collect {pr['collect_s']:.3f} s = "
             f"{NTC_READS / (pr['dispatch_s'] + pr['collect_s']):.2f} reads/s | wide "
             f"retries {pr['wide_retries']} ({pr['wide_s']:.2f} s), exact retries "
-            f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat} | "
-            f"plain {plain} | peak device memory {peak:.2f} GiB")
+            f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat}, ntc_pv "
+            f"by instance {pv_inst} | plain {plain} | peak device memory {peak:.2f} GiB")
         if (any(lat[k] == 0 for k in MAIN_RUNG) or any(v == 0 for v in pre.values())
                 or any(plain.values()) or any(kk.LAUNCHES.values())
                 or any(tk.LAUNCHES.values())):
             raise AssertionError("the engine missed a kernel, ran a plain version or a "
                                  "training kernel")
+        if pv_inst["shared"] != lat["ntc_pv"]:
+            raise AssertionError("ntc_pv ran its device-memory instance on the main rung")
         if pr["exact_retries"] > 2:
             raise AssertionError(f"{pr['exact_retries']} reads reached the exact rung")
         errors = os.path.join(tmp, "out.errors")
@@ -1363,13 +1370,24 @@ def lattice_times(k: dict, plain_ms: dict) -> dict:
         "ntc_bwd": timed(
             "ntc_bwd", lambda: kern.bwd(plan, dims, prm, sig, tl, N_r, T_r),
             plain_ms["ntc_bwd"], bwd_in, cells, 2),
-        "ntc_pv": timed(
+        "ntc_pv": dict(timed(
             "ntc_pv", lambda: kern.pv(plan, dims, prm, sig, bwd, Zb, tl, T_r),
-            plain_ms["ntc_pv"], pv_in, cells, 2),
+            plain_ms["ntc_pv"], pv_in, cells, 2), design=pv_design(dims, sig)),
         "ntc_walk": timed(
             "ntc_walk", lambda: kern.walk(*walk_args), plain_ms["ntc_walk"],
             [k["start"][-1], N_r, T_r], steps, 2, walk_reads),
     }
+
+
+def pv_design(dims, sig) -> str:
+    """Which instance ntc_pv's full store takes at these dims and dtype."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    inst = kern.pv_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    if inst.name == "shared":
+        return (f"pv_shared_kernel: columns, backward column and plan rows in shared memory "
+                f"({inst.shared_bytes} B)")
+    return "pv_kernel: columns in a device-memory double buffer"
 
 
 def train_times(kt: dict, plain_ms: dict) -> dict:
@@ -1454,8 +1472,12 @@ def wide_routes(eng, items, plain_ms: dict) -> dict:
     eng._dispatch(gidx, items, *WIDE_CAPS, keep=kf, ckpt=False)
     p, dims, prm, sig, tl = kf["plan"], kf["dims"], kf["prm"], kf["sig"], kf["trans_log"]
     N_r, T_r, Zb = kf["N_r"], kf["T_r"], kf["Zb"]
+    before = dict(kern.PV_LAUNCHES)
     ms_full = {"ntc_bwd": cuda_ms(lambda: kern.bwd(p, dims, prm, sig, tl, N_r, T_r), 1),
                "ntc_pv": cuda_ms(lambda: kern.pv(p, dims, prm, sig, kf["bwd"], Zb, tl, T_r), 1)}
+    if kern.PV_LAUNCHES["shared"] != before["shared"]:
+        raise AssertionError("the wide full store ran ntc_pv's shared-column instance")
+    full_design = pv_design(dims, sig)
     C = nb.C_CKPT
     kf["ckpt_rows"], kf["row0"] = kf["bwd"][C::C].clone(), kf["bwd"][0].clone()
     del kf["bwd"], p, prm, sig
@@ -1474,15 +1496,17 @@ def wide_routes(eng, items, plain_ms: dict) -> dict:
     pv_in = bwd_in + [p.row_same, p.row_prev, p.col_same, p.col_prec, ckpt, Zb]
     log(f"[12] the wide rung's bucket {dims} fp32: outputs of both routes bit for bit "
         f"(checkpoints = the store's rows (c+1)*{C}, row 0, Zb, lp, choices, slots, finals, "
-        f"walk); full store K13 {ms_full['ntc_bwd']:.3f} ms, K15 {ms_full['ntc_pv']:.3f} ms; "
+        f"walk); full store K13 {ms_full['ntc_bwd']:.3f} ms, K15 {ms_full['ntc_pv']:.3f} ms "
+        f"({full_design}); "
         "checkpointed route (plain: the runs beside the spawned processes):")
     times = {
         "ntc_bwd_ckpt": timed(
             "ntc_bwd_ckpt", lambda: kern.bwd_ckpt(p, dims, prm, sig, tl, N_r, T_r),
             plain_ms["ntc_bwd_ckpt"], bwd_in, cells, 2),
-        "ntc_pv_ckpt": timed(
+        "ntc_pv_ckpt": dict(timed(
             "ntc_pv_ckpt", lambda: kern.pv_ckpt(p, dims, prm, sig, ckpt, Zb, tl, N_r, T_r),
             plain_ms["ntc_pv_ckpt"], pv_in, cells, 2),
+            design="pv_kernel<S, true>: columns in a device-memory double buffer"),
     }
     del kc, p, prm, sig, ckpt
     torch.cuda.empty_cache()
@@ -2401,6 +2425,11 @@ def main(argv=None) -> int:
         }
         for name, (kern, inputs, units, extra) in runs.items():
             times[name] = timed(name, kern, plain_ms[name], inputs, units, 3, extra)
+        st = kk.staging(main_b.B, main_b.sig.element_size())
+        times["banded_bwd"]["design"] = (f"staged: chunks of {st.bwd_rows} rows, "
+                                         f"{st.bwd_bytes} B of shared memory")
+        times["banded_fwd_vit"]["design"] = (f"staged: chunks of {st.fwd_vit_rows} rows, "
+                                             f"{st.fwd_vit_bytes} B of shared memory")
         # the matrix route's K4 over K5's and K1's rows of the same bucket:
         # against its plain version, then against K2's (ch, LPM, LPE)
         vfM, vfE = kk.forward(main_b, lm, le)

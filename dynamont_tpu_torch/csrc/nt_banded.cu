@@ -29,11 +29,11 @@
 // 32); the t-loop runs inside the kernel; the previous row lives in shared
 // memory, double-buffered, so each row costs one __syncthreads(). The TPU
 // kernels' (G, B) read groups, packed row lanes and T-major layout do not
-// exist here. banded_bwd reads the emission parameters straight from
-// mu[bstart[t] + j - 2 + pad]. banded_fwd_vit copies its rows' inputs
-// (bM, bE, bstart, sig and a window of the emission parameters) into
-// shared memory in chunks of C rows, one chunk ahead of the chain, as the
-// TPU kernel streamed them into VMEM. banded_walk runs two warps per read:
+// exist here. banded_bwd copies its rows' inputs (bstart, sig and a
+// window of the emission parameters) into shared memory in chunks of C
+// rows, from the top down, one chunk ahead of the chain; banded_fwd_vit
+// does the same from the bottom up and adds the chunk's bM and bE rows,
+// as the TPU kernels streamed them into VMEM. banded_walk runs two warps per read:
 // thread 0 walks choice rows staged in shared memory, and warp 1 copies
 // the next chunk in and gathers the recorded cells' posteriors.
 //
@@ -43,10 +43,12 @@
 // fp32 tensors written by banded_bwd, two read and three written by
 // banded_fwd_vit) are far below what the memory system could carry in the
 // same time. Where a row waited on its own loads from device memory
-// (banded_fwd_vit's bM/bE and the gathers from bstart[t], one round trip
-// each; banded_walk's one load per step at an address the previous step
-// chose), staging takes them off the chain: what is left is the row's
-// arithmetic and barrier, and the walk's one shared-memory load per step.
+// (banded_bwd's and banded_fwd_vit's gathers from bstart[t],
+// banded_fwd_vit's bM/bE, one round trip each; banded_walk's one load per
+// step at an address the previous step chose), staging takes them off the
+// chain: what is left is the row's arithmetic and barrier, and the walk's
+// one shared-memory load per step. banded_bwd's stage holds no band rows,
+// so its chunks are long (up to 256 rows) and their handovers few.
 // Packing several reads per block and filling the SMs is later work.
 // banded_vit has no recurrence besides the Viterbi step: it streams four
 // stored (T, B) tensors in and writes three, 25 bytes per band cell in
@@ -105,6 +107,62 @@ __device__ __forceinline__ uint8_t viterbi_step(const S* VMs, const S* VEs,
 // ---------------------------------------------------------------------------
 // banded_bwd: backward M/E recurrence in reverse t (ref: NT_banded.cpp:64-123)
 // ---------------------------------------------------------------------------
+// The rows' inputs arrive in chunks of C rows, from the top down, copied
+// into shared memory (cp.async) one chunk ahead of the chain: chunk k + 1
+// is in flight while chunk k's rows run. Chunk k holds rows hi = T-2 - k*C
+// down to lo = max(0, hi - C + 1); its stage holds bstart and sig of those
+// rows, bstart of row hi + 1, and the window of the emission parameters
+// the chunk's rows gather: C + B + 2 entries of mu/c1/c2 from index
+// bstart[hi + 1] - C - 2 + pad (clamped at 0). Going down, bstart falls by
+// 0 or 1 a row (the input contract banded_fwd_vit relies on), so every row
+// of the chunk gathers inside the window. A row whose band start leaves it
+// (bstart climbing faster) turns row 0 of bM and bE into NaN, so Zb is NaN
+// and every Z gate rejects the read. The window of chunk k + 1 is anchored
+// at chunk k's lowest band start, which has landed when k + 1 is issued.
+// Every row reads the staged copy (one struct of shared pointers, BwdStage:
+// no pointer is shared memory on one path and device memory on another).
+template <typename S>
+struct BwdStage {
+  S* mu;    // [C + B + 2] emission window
+  S* c1;
+  S* c2;
+  S* sig;   // [C] sig[lo + i]
+  int* bs;  // [C + 1] bstart[lo + i]
+};
+
+// Shared memory of banded_bwd at band width B, C rows per chunk and element
+// size es: the two previous rows [2][B] of M and E, two stages of S arrays
+// (the window of mu/c1/c2, sig), then two stages of bstart.
+// ops/nt_banded_kernels.staging repeats the sum.
+__host__ __device__ inline size_t bwd_window(int B, int C) {
+  return (size_t)C + B + 2;
+}
+__host__ __device__ inline size_t bwd_stage_elems(int B, int C) {
+  return 3 * bwd_window(B, C) + C;
+}
+__host__ __device__ inline size_t bwd_smem_bytes(int B, int C, int es) {
+  return (4 * (size_t)B + 2 * bwd_stage_elems(B, C)) * es +
+         2 * (size_t)(C + 1) * sizeof(int);
+}
+
+template <typename S>
+__device__ __forceinline__ BwdStage<S> bwd_stage(unsigned char* smem, int B,
+                                                 int C, int st) {
+  S* w = reinterpret_cast<S*>(smem) + 4 * (size_t)B +
+         st * bwd_stage_elems(B, C);
+  const size_t nw = bwd_window(B, C);
+  int* bs = reinterpret_cast<int*>(reinterpret_cast<S*>(smem) + 4 * (size_t)B +
+                                   2 * bwd_stage_elems(B, C)) +
+            st * (C + 1);
+  return {w, w + nw, w + 2 * nw, w + 3 * nw, bs};
+}
+
+// First index of the emission window anchored at band start abs.
+__device__ __forceinline__ int bwd_window_start(int abs, int C, int pad) {
+  const int w0 = abs - C - 2 + pad;
+  return w0 > 0 ? w0 : 0;
+}
+
 template <typename S>
 __global__ void banded_bwd_kernel(
     const S* __restrict__ sig, const S* __restrict__ mu,
@@ -112,8 +170,8 @@ __global__ void banded_bwd_kernel(
     const int* __restrict__ bstart, const int* __restrict__ T_arr,
     const int* __restrict__ N_arr, const int* __restrict__ bw_arr,
     S* __restrict__ bM, S* __restrict__ bE, int T_pad, int N_pad, int B,
-    int pad, S log_m1, S log_e2) {
-  extern __shared__ unsigned char smem[];
+    int pad, int C, S log_m1, S log_e2) {
+  extern __shared__ __align__(16) unsigned char smem[];
   S* Ms = reinterpret_cast<S*>(smem);  // [2][B]
   S* Es = Ms + 2 * B;                  // [2][B]
   const int r = blockIdx.x;
@@ -127,6 +185,25 @@ __global__ void banded_bwd_kernel(
   const int* bs_r = bstart + (size_t)r * T_pad;
   S* bM_r = bM + (size_t)r * T_pad * B;
   S* bE_r = bE + (size_t)r * T_pad * B;
+  const int nchunks = (T - 1 + C - 1) / C;  // rows T-2 .. 0
+  auto hi_of = [&](int k) { return T - 2 - k * C; };
+  auto lo_of = [&](int k) { return hi_of(k) >= C ? hi_of(k) - C + 1 : 0; };
+  const int W = (int)bwd_window(B, C);
+
+  // start the copies of chunk k into its stage, the emission window
+  // anchored at band start abs (that of row hi + 1)
+  auto issue = [&](int k, int abs) {
+    const BwdStage<S> s = bwd_stage<S>(smem, B, C, k & 1);
+    const int hi = hi_of(k), lo = lo_of(k);
+    cp_async_elems(s.bs, bs_r + lo, hi - lo + 2, j, B);
+    cp_async_elems(s.sig, sig_r + lo, hi - lo + 1, j, B);
+    const int w0 = bwd_window_start(abs, C, pad);
+    const int nw = N_pad - w0 < W ? N_pad - w0 : W;
+    cp_async_elems(s.mu, mu_r + w0, nw, j, B);
+    cp_async_elems(s.c1, c1_r + w0, nw, j, B);
+    cp_async_elems(s.c2, c2_r + w0, nw, j, B);
+    cp_async_commit();
+  };
 
   for (int t = T; t < T_pad; ++t) {  // dead rows above the terminal row
     bM_r[(size_t)t * B + j] = NEG;
@@ -139,35 +216,67 @@ __global__ void banded_bwd_kernel(
   int cur = 0;
   Ms[j] = m;
   Es[j] = e;
+  int abs = bs_r[T - 1];
+  if (nchunks > 0) {
+    issue(0, abs);
+    cp_async_wait_all();
+  }
   __syncthreads();
-  for (int t = T - 2; t >= 0; --t) {
-    const S* Mn = Ms + cur * B;
-    const S* En = Es + cur * B;
-    const int bs = bs_r[t];
-    const bool sb = bs_r[t + 1] != bs;
-    const S x = sig_r[t];
-    const int ib = bs + j - 2 + pad;
-    const S sc_b = score(x, mu_r, c1_r, c2_r, ib);      // k-mer position n-1
-    const S sc_a = score(x, mu_r, c1_r, c2_r, ib + 1);  // k-mer position n
-    const int n = bs + j - 1;
-    const S E_n = sb ? (j > 0 ? En[j - 1] : NEG) : En[j];
-    const S M_n = sb ? Mn[j] : (j + 1 < B ? Mn[j + 1] : NEG);
-    S ext = (n + 1 < N) ? (M_n + sc_a) + log_m1 : NEG;
-    S M_new = NEG;
-    if (n > 0) {
-      M_new = E_n + sc_b;
-      ext = logaddexp(ext, (E_n + sc_b) + log_e2);
+  bool outside = false;  // a row's band left the staged window
+  const size_t top = nchunks > 0 ? (size_t)(T - 2) * B + j : j;
+  S* bM_t = bM_r + top;  // this thread's cell of row t, walking down
+  S* bE_t = bE_r + top;
+  for (int k = 0; k < nchunks; ++k) {
+    const BwdStage<S> s = bwd_stage<S>(smem, B, C, k & 1);
+    const int hi = hi_of(k), lo = lo_of(k);
+    const int w0 = bwd_window_start(abs, C, pad);
+    // chunk k's lowest band start anchors chunk k + 1's window
+    if (k + 1 < nchunks) {
+      abs = s.bs[0];
+      issue(k + 1, abs);
     }
-    if (!in_band(j, bs, bw, N, 0)) {
-      M_new = NEG;
-      ext = NEG;
+    for (int t = hi; t >= lo; --t) {
+      const int i = t - lo;
+      const S* Mn = Ms + cur * B;
+      const S* En = Es + cur * B;
+      const int bs = s.bs[i];
+      int off = bs - 2 + pad - w0;
+      if (off < 0 || off > C + 1) {
+        outside = true;
+        off = 0;
+      }
+      // a cell outside the band is -inf whatever its terms: its thread
+      // skips them (columns j >= 2*bw + 2 never enter the band)
+      S M_new = NEG, ext = NEG;
+      if (in_band(j, bs, bw, N, 0)) {
+        const bool sb = s.bs[i + 1] != bs;
+        const S x = s.sig[i];
+        const S sc_b = score(x, s.mu, s.c1, s.c2, off + j);      // k-mer position n-1
+        const S sc_a = score(x, s.mu, s.c1, s.c2, off + j + 1);  // k-mer position n
+        const int n = bs + j - 1;
+        const S E_n = sb ? (j > 0 ? En[j - 1] : NEG) : En[j];
+        const S M_n = sb ? Mn[j] : (j + 1 < B ? Mn[j + 1] : NEG);
+        ext = (n + 1 < N) ? (M_n + sc_a) + log_m1 : NEG;
+        if (n > 0) {
+          M_new = E_n + sc_b;
+          ext = logaddexp(ext, (E_n + sc_b) + log_e2);
+        }
+      }
+      *bM_t = M_new;
+      *bE_t = ext;
+      bM_t -= B;
+      bE_t -= B;
+      cur ^= 1;
+      Ms[cur * B + j] = M_new;
+      Es[cur * B + j] = ext;
+      __syncthreads();
     }
-    bM_r[(size_t)t * B + j] = M_new;
-    bE_r[(size_t)t * B + j] = ext;
-    cur ^= 1;
-    Ms[cur * B + j] = M_new;
-    Es[cur * B + j] = ext;
+    cp_async_wait_all();  // chunk k + 1 has landed
     __syncthreads();
+  }
+  if (__syncthreads_or(outside)) {  // Zb = bE[0, bw + 1] is then NaN
+    bM_r[j] = static_cast<S>(NAN);
+    bE_r[j] = static_cast<S>(NAN);
   }
 }
 
@@ -562,14 +671,15 @@ template <typename S>
 int launch_bwd(const S* sig, const S* mu, const S* c1, const S* c2,
                const int* bstart, const int* T, const int* N, const int* bw,
                S* bM, S* bE, int R, int T_pad, int N_pad, int B, int pad,
-               double log_m1, double log_e2, void* stream) {
-  const size_t smem = 4 * (size_t)B * sizeof(S);
+               int C, double log_m1, double log_e2, void* stream) {
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_bytes(B, C, sizeof(S));
   cudaError_t err = cudaFuncSetAttribute(
       banded_bwd_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   banded_bwd_kernel<S><<<R, B, smem, (cudaStream_t)stream>>>(
-      sig, mu, c1, c2, bstart, T, N, bw, bM, bE, T_pad, N_pad, B, pad,
+      sig, mu, c1, c2, bstart, T, N, bw, bM, bE, T_pad, N_pad, B, pad, C,
       static_cast<S>(log_m1), static_cast<S>(log_e2));
   return (int)cudaGetLastError();
 }
@@ -628,11 +738,11 @@ int launch_vit(const S* fM, const S* fE, const S* bM, const S* bE,
       const void* sig, const void* mu, const void* c1, const void* c2,       \
       const void* bstart, const void* T, const void* N, const void* bw,      \
       void* bM, void* bE, int R, int T_pad, int N_pad, int B, int pad,       \
-      double log_m1, double log_e2, void* stream) {                          \
+      int C, double log_m1, double log_e2, void* stream) {                   \
     return launch_bwd<S>((const S*)sig, (const S*)mu, (const S*)c1,          \
                          (const S*)c2, (const int*)bstart, (const int*)T,    \
                          (const int*)N, (const int*)bw, (S*)bM, (S*)bE, R,   \
-                         T_pad, N_pad, B, pad, log_m1, log_e2, stream);      \
+                         T_pad, N_pad, B, pad, C, log_m1, log_e2, stream);   \
   }                                                                           \
   extern "C" int nt_banded_fwd_vit_##SUFFIX(                                  \
       const void* sig, const void* mu, const void* c1, const void* c2,       \

@@ -123,6 +123,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// blocks until at most the N groups committed last are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // Copy n elements (n * sizeof(V) bytes, a multiple of 16, both ends
 // 16-byte aligned) as 16-byte pieces, piece p by thread p mod nt.

@@ -28,14 +28,17 @@
 // the slot maps. Phase 2: one thread per k-slot j folds the I chain over
 // the n-slots of its column, sequentially (ascending in the forward,
 // descending in the backward) — the association order the plain version
-// uses; the JAX scan runs the same maps as an associative scan. The
-// neighbouring column is read from device memory: the backward store
-// itself in ntc_bwd (row t+1, written by the same block one step before),
-// a per-read double buffer in ntc_pv (`scratch`). A column is 20 KB in
-// fp32 at (8, 128) but 160 KB in fp64 at (16, 256), and ntc_pv needs two
-// (forward and Viterbi): they would not fit next to the chain scratch in
-// 227 KB of shared memory, while L1 holds the recently written rows. Shared
-// memory holds only what phase 2 needs from phase 1.
+// uses; the JAX scan runs the same maps as an associative scan. In ntc_bwd
+// the neighbouring column is read from device memory (the backward store
+// itself, row t+1, written by the same block one step before). ntc_pv keeps
+// four columns (the previous and current forward and Viterbi columns): at
+// the main rung (8, 128) they are 80 KB in fp32 and 160 KB in fp64, and
+// its shared-column instance (pv_shared_kernel) holds them in shared
+// memory with the backward column and its row inputs staged one row ahead;
+// at the wide rung (16, 256) they are 320 KB in fp32, more than a block's
+// 227 KB, and pv_kernel keeps them in a per-read device-memory double
+// buffer (`scratch`), shared memory holding only what phase 2 needs from
+// phase 1. ops/ntc_kernels.pv_instance picks the instance from the shape.
 //
 // The checkpointed route (the engine's wide rung, CK > 128): ntc_bwd_ckpt
 // runs ntc_bwd's recurrence but keeps only the column entering each chunk
@@ -548,6 +551,71 @@ bwd_variant_kernel(BwdIn<S> in, const S* __restrict__ tlog,
 }
 
 // ---------------------------------------------------------------------------
+// one cell of K15's step at t > 0, phase 1 (ref: NTC.cpp:595-669): the
+// forward states A, P, S, E (-inf where !ok) into f and the Viterbi states
+// over fwd + bwd - Z into v, from the previous forward and Viterbi columns
+// Fp and Vp through the slot maps (n-slots rs, rp; k-slots cs, cp), with
+// the cell's score sc and backward values bwv (A, P, S, E); returns the
+// choice word of A, P, S and E (first match on ties). Every instance of
+// ntc_pv calls it, so they round alike.
+// ---------------------------------------------------------------------------
+template <typename S>
+__device__ __forceinline__ int pv_cell(const S* Fp, const S* Vp, const S (&tl)[NTL],
+                                       int rs, int rp, int cs, const int (&cp)[MAX_A],
+                                       S sc, bool ok, const S (&bwv)[4], S Zr, int CN,
+                                       int CK, S (&f)[4], S (&v)[4]) {
+  const S NEG = neg_inf<S>();
+  {
+    S a_t[2 * MAX_A], p_t[3 * MAX_A];
+#pragma unroll
+    for (int a = 0; a < MAX_A; ++a) {
+      a_t[2 * a] = gat(Fp, ST_E, rp, cp[a], CN, CK) + tl[TA1];
+      a_t[2 * a + 1] = gat(Fp, ST_I, rp, cp[a], CN, CK) + tl[TA2];
+      p_t[3 * a] = gat(Fp, ST_S, rs, cp[a], CN, CK) + tl[TP1];
+      p_t[3 * a + 1] = gat(Fp, ST_E, rs, cp[a], CN, CK) + tl[TP2];
+      p_t[3 * a + 2] = gat(Fp, ST_I, rs, cp[a], CN, CK) + tl[TP3];
+    }
+    const S s_t[3] = {gat(Fp, ST_P, rp, cs, CN, CK) + tl[TS1],
+                      gat(Fp, ST_E, rp, cs, CN, CK) + tl[TS2],
+                      gat(Fp, ST_I, rp, cs, CN, CK) + tl[TS3]};
+    const S e_t[4] = {gat(Fp, ST_A, rs, cs, CN, CK),
+                      gat(Fp, ST_P, rs, cs, CN, CK) + tl[TE2],
+                      gat(Fp, ST_S, rs, cs, CN, CK) + tl[TE3],
+                      gat(Fp, ST_E, rs, cs, CN, CK) + tl[TE4]};
+    f[ST_A] = ok ? lse(a_t) + sc : NEG;
+    f[ST_P] = ok ? lse(p_t) + sc : NEG;
+    f[ST_S] = ok ? lse(s_t) + sc : NEG;
+    f[ST_E] = ok ? lse(e_t) + sc : NEG;
+  }
+  // Viterbi over fwd + bwd - Z, first-match choices
+  S ac[2 * MAX_A], pc[3 * MAX_A];
+#pragma unroll
+  for (int a = 0; a < MAX_A; ++a) {
+    ac[2 * a] = gat(Vp, ST_E, rp, cp[a], CN, CK);
+    ac[2 * a + 1] = gat(Vp, ST_I, rp, cp[a], CN, CK);
+    pc[3 * a] = gat(Vp, ST_E, rs, cp[a], CN, CK);
+    pc[3 * a + 1] = gat(Vp, ST_S, rs, cp[a], CN, CK);
+    pc[3 * a + 2] = gat(Vp, ST_I, rs, cp[a], CN, CK);
+  }
+  const S scand[3] = {gat(Vp, ST_E, rp, cs, CN, CK),
+                      gat(Vp, ST_P, rp, cs, CN, CK),
+                      gat(Vp, ST_I, rp, cs, CN, CK)};
+  const S ecand[4] = {gat(Vp, ST_E, rs, cs, CN, CK),
+                      gat(Vp, ST_A, rs, cs, CN, CK),
+                      gat(Vp, ST_S, rs, cs, CN, CK),
+                      gat(Vp, ST_P, rs, cs, CN, CK)};
+  int ch_a, ch_p, ch_s, ch_e;
+  const S mx[4] = {first_match(ac, ch_a), first_match(pc, ch_p),
+                   first_match(scand, ch_s), first_match(ecand, ch_e)};
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+    const S lpst = (f[st] + bwv[st]) - Zr;
+    v[st] = ok ? mx[st] + lpst : NEG;
+  }
+  return ch_e | (ch_a << 2) | (ch_p << 5) | (ch_s << 9);
+}
+
+// ---------------------------------------------------------------------------
 // ntc_pv: forward, posteriors and the 5-state Viterbi (ref: NTC.cpp:595-669).
 // CKPT (ntc_pv_ckpt): the backward rows come from ntc_bwd_ckpt's
 // checkpoints instead of a full store: at the first row of each chunk of C
@@ -635,7 +703,9 @@ pv_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
       const int cn = cn_t[i];
       const bool ok = al[c] && cn >= 1;
       const bool cond = ok && i > 0 && cn_t[i - 1] == cn - 1;
-      S f[4], v[4];
+      S f[4], v[4], bwv[4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) bwv[st] = bw[st * (size_t)NC + c];
       S sc = S(0);
       int chp = 0;
       if (t == 0) {
@@ -647,61 +717,11 @@ pv_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
         sc = (sc_(x, ns[q], ns[2 * RC + q], ns[4 * RC + q])
               + sc_(x, mu_k[kj], c1_k[kj], c2_k[kj]))
              + S(-2.0) * S((int)hd[rt * NC + c] & 15);
-        const int rs = row_same[rt * CN + i], rp = row_prev[rt * CN + i];
-        const int cs = col_same[kj];
         int cp[MAX_A];
 #pragma unroll
         for (int a = 0; a < MAX_A; ++a) cp[a] = col_prec[(rt * A + a) * CK + j];
-        S a_t[2 * MAX_A], p_t[3 * MAX_A];
-#pragma unroll
-        for (int a = 0; a < MAX_A; ++a) {
-          a_t[2 * a] = gat(Fp, ST_E, rp, cp[a], CN, CK) + tl[TA1];
-          a_t[2 * a + 1] = gat(Fp, ST_I, rp, cp[a], CN, CK) + tl[TA2];
-          p_t[3 * a] = gat(Fp, ST_S, rs, cp[a], CN, CK) + tl[TP1];
-          p_t[3 * a + 1] = gat(Fp, ST_E, rs, cp[a], CN, CK) + tl[TP2];
-          p_t[3 * a + 2] = gat(Fp, ST_I, rs, cp[a], CN, CK) + tl[TP3];
-        }
-        const S s_t[3] = {gat(Fp, ST_P, rp, cs, CN, CK) + tl[TS1],
-                          gat(Fp, ST_E, rp, cs, CN, CK) + tl[TS2],
-                          gat(Fp, ST_I, rp, cs, CN, CK) + tl[TS3]};
-        const S e_t[4] = {gat(Fp, ST_A, rs, cs, CN, CK),
-                          gat(Fp, ST_P, rs, cs, CN, CK) + tl[TE2],
-                          gat(Fp, ST_S, rs, cs, CN, CK) + tl[TE3],
-                          gat(Fp, ST_E, rs, cs, CN, CK) + tl[TE4]};
-        f[ST_A] = ok ? lse(a_t) + sc : NEG;
-        f[ST_P] = ok ? lse(p_t) + sc : NEG;
-        f[ST_S] = ok ? lse(s_t) + sc : NEG;
-        f[ST_E] = ok ? lse(e_t) + sc : NEG;
-
-        // Viterbi over fwd + bwd - Z, first-match choices
-        S ac[2 * MAX_A], pc[3 * MAX_A];
-#pragma unroll
-        for (int a = 0; a < MAX_A; ++a) {
-          ac[2 * a] = gat(Vp, ST_E, rp, cp[a], CN, CK);
-          ac[2 * a + 1] = gat(Vp, ST_I, rp, cp[a], CN, CK);
-          pc[3 * a] = gat(Vp, ST_E, rs, cp[a], CN, CK);
-          pc[3 * a + 1] = gat(Vp, ST_S, rs, cp[a], CN, CK);
-          pc[3 * a + 2] = gat(Vp, ST_I, rs, cp[a], CN, CK);
-        }
-        const S scand[3] = {gat(Vp, ST_E, rp, cs, CN, CK),
-                            gat(Vp, ST_P, rp, cs, CN, CK),
-                            gat(Vp, ST_I, rp, cs, CN, CK)};
-        const S ecand[4] = {gat(Vp, ST_E, rs, cs, CN, CK),
-                            gat(Vp, ST_A, rs, cs, CN, CK),
-                            gat(Vp, ST_S, rs, cs, CN, CK),
-                            gat(Vp, ST_P, rs, cs, CN, CK)};
-        int ch_a, ch_p, ch_s, ch_e;
-        const S a_max = first_match(ac, ch_a);
-        const S p_max = first_match(pc, ch_p);
-        const S s_max = first_match(scand, ch_s);
-        const S e_max = first_match(ecand, ch_e);
-        const S mx[4] = {a_max, p_max, s_max, e_max};
-#pragma unroll
-        for (int st = 0; st < 4; ++st) {
-          const S lpst = (f[st] + bw[st * (size_t)NC + c]) - Zr;
-          v[st] = ok ? mx[st] + lpst : NEG;
-        }
-        chp = ch_e | (ch_a << 2) | (ch_p << 5) | (ch_s << 9);
+        chp = pv_cell(Fp, Vp, tl, row_same[rt * CN + i], row_prev[rt * CN + i],
+                      col_same[kj], cp, sc, ok, bwv, Zr, CN, CK, f, v);
       }
       if (t == 0) {
 #pragma unroll
@@ -709,7 +729,7 @@ pv_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
       }
 #pragma unroll
       for (int st = 0; st < 4; ++st) {
-        const S ap = f[st] + bw[st * (size_t)NC + c];
+        const S ap = f[st] + bwv[st];
         lo[st * (size_t)NC + c] = normalize ? ap : ap - Zr;
         Fc[st * (size_t)NC + c] = f[st];
         Vc[st * (size_t)NC + c] = v[st];
@@ -795,6 +815,289 @@ pv_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
       slots[rt * NC + c] = (col_same[kj] + 1)
                            | ((col_prec[(rt * A + ai_a) * CK + j] + 1) << slb)
                            | ((col_prec[(rt * A + ai_p) * CK + j] + 1) << (2 * slb));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// ntc_pv's shared-column instance (pv_shared_kernel): the full-store mode
+// where its columns fit one block's shared memory, the main rung (CK <= 128,
+// NC 1024) in fp32 and fp64. The same step as pv_kernel<S, false>, the same
+// arithmetic through pv_cell, with every operand of the chain in shared
+// memory:
+//   - the previous and current forward and Viterbi columns (4 x 5 x NC), so
+//     phase 1's 54 gathers a cell and phase 2's I chain read shared memory;
+//   - row t's plan inputs (cand_n, allowed, hd, row_same, row_prev,
+//     col_same, col_prec, mu_k/c1_k/c2_k, the n-slots' parameters and the
+//     sample) in one of two stages, PvStage; row t + 1's are copied in
+//     (cp.async) while row t's phase 2, normalization and epilogue run;
+//   - row t's backward column in one buffer: states A, P, S, E of row t + 1
+//     are copied in once phase 1 of row t has read them (they land during
+//     phase 2), state I once phase 2 has (it lands during the next phase 1);
+//   - in fp32, the column's lp until it is normalized, then written once.
+// The cell's score is recomputed in phase 2 from the stage instead of kept
+// (the same expression, so the same value), and the I choice bit joins the
+// choice word in place: the fp64 instance then fits (224864 of 232448
+// bytes; fp32 141856). pv_shared_bytes counts the bytes;
+// ops/ntc_kernels.pv_instance repeats it and picks this instance where it
+// fits and NC is a multiple of 16 (the 16-byte copies of hd, allowed and
+// the backward column). Every row reads the stage and the columns through
+// this kernel's own shared pointers, never a pointer that is device memory
+// on another path (nvcc 12.9 miscompiled such a view, see ntc_bwd_variant).
+// ---------------------------------------------------------------------------
+template <typename S>
+struct PvStage {           // row t's plan inputs
+  int* cand_n;             // [CN]
+  int* row_same;           // [CN]
+  int* row_prev;           // [CN]
+  int* col_same;           // [CK]
+  int* col_prec;           // [A][CK]
+  short* hd;               // [NC]
+  unsigned char* allowed;  // [NC]
+  S* mu_k;                 // [CK]
+  S* c1_k;                 // [CK]
+  S* c2_k;                 // [CK]
+  S* nsl;                  // [3][CN] the n-slots' mu, c1, c2
+  S* x;                    // [1] sig[t - 1]
+};
+
+// Bytes of one PvStage (each region 16-byte aligned).
+template <typename S>
+__host__ __device__ inline size_t pv_stage_bytes(int CN, int CK, int A) {
+  const size_t NC = (size_t)CN * CK;
+  return al16((3 * (size_t)CN + CK + (size_t)A * CK) * sizeof(int)) +
+         al16(NC * sizeof(short)) + al16(NC) +
+         al16((3 * (size_t)CK + 3 * (size_t)CN + 1) * sizeof(S));
+}
+
+// Shared memory of pv_shared_kernel: the four columns [2][F | V][5][NC],
+// the backward column [5][NC], in fp32 lp [5][NC] and the block reduction's
+// [32 + NT], the choice words [NC], two stages.
+template <typename S>
+__host__ __device__ inline size_t pv_shared_bytes(int CN, int CK, int A, int NT) {
+  const size_t col = 5 * (size_t)CN * CK;
+  const size_t norm = sizeof(S) == 4 ? col * sizeof(S) + al16((32 + (size_t)NT) * sizeof(S)) : 0;
+  return 5 * col * sizeof(S) + norm + al16((size_t)CN * CK * sizeof(short)) +
+         2 * pv_stage_bytes<S>(CN, CK, A);
+}
+
+template <typename S>
+__device__ __forceinline__ PvStage<S> pv_stage(unsigned char* base, int CN, int CK,
+                                               int A) {
+  const size_t NC = (size_t)CN * CK;
+  int* cand_n = reinterpret_cast<int*>(base);
+  int* col_same = cand_n + 3 * CN;
+  short* hd = reinterpret_cast<short*>(
+      base + al16((3 * (size_t)CN + CK + (size_t)A * CK) * sizeof(int)));
+  unsigned char* allowed = reinterpret_cast<unsigned char*>(hd) + al16(NC * sizeof(short));
+  S* mu_k = reinterpret_cast<S*>(allowed + al16(NC));
+  return {cand_n,    cand_n + CN, cand_n + 2 * CN, col_same,       col_same + CK,
+          hd,        allowed,     mu_k,            mu_k + CK,      mu_k + 2 * CK,
+          mu_k + 3 * CK, mu_k + 3 * CK + 3 * CN};
+}
+
+template <typename S>
+__global__ void __launch_bounds__(MAX_THREADS)
+pv_shared_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
+                 const unsigned char* __restrict__ allowed,
+                 const short* __restrict__ hd, const int* __restrict__ row_same,
+                 const int* __restrict__ row_prev, const int* __restrict__ col_same,
+                 const int* __restrict__ col_prec, const S* __restrict__ mu_k,
+                 const S* __restrict__ c1_k, const S* __restrict__ c2_k,
+                 const S* __restrict__ nsl, const S* __restrict__ tlog,
+                 const S* __restrict__ Z, const int* __restrict__ T_r,
+                 const S* bwd, S* lp, short* __restrict__ choices,
+                 int* __restrict__ slots, S* __restrict__ apEf,
+                 S* __restrict__ fwdEf, int R, int T_pad, int CN, int CK, int A,
+                 int slb) {
+  constexpr bool NORM = sizeof(S) == 4;  // fp32 columns are normalized
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  const int NC = CN * CK, RC = R * CN;
+  const size_t col = 5 * (size_t)NC;
+  S* cols = reinterpret_cast<S*>(smem);  // [2][forward | Viterbi][5][NC]
+  S* bws = cols + 4 * col;                // the backward column [5][NC]
+  S* lps = bws + col;                     // fp32: lp before normalization
+  S* red = lps + (NORM ? col : 0);        // fp32: [32] block max, [NT] block sum
+  short* sCh = reinterpret_cast<short*>(
+      reinterpret_cast<unsigned char*>(red) + (NORM ? al16((32 + (size_t)NT) * sizeof(S)) : 0));
+  unsigned char* stages = reinterpret_cast<unsigned char*>(sCh) + al16(NC * sizeof(short));
+  const size_t stb = pv_stage_bytes<S>(CN, CK, A);
+  const S NEG = neg_inf<S>();
+  S tl[NTL];
+  load_tl(tl, tlog);
+  const int tm1 = T_r[r] - 1;
+  const S Zr = Z[r];
+  const S* sig_r = sig + (size_t)r * (T_pad - 1);
+
+  // row t's plan inputs into stage t & 1 and its backward states A, P, S, E
+  // into the buffer: one group
+  auto issue_row = [&](int t) {
+    const PvStage<S> s = pv_stage<S>(stages + (t & 1) * stb, CN, CK, A);
+    const size_t rt = (size_t)t * R + r;
+    cp_async_elems(s.cand_n, cand_n + rt * CN, CN, tid, NT);
+    cp_async_elems(s.row_same, row_same + rt * CN, CN, tid, NT);
+    cp_async_elems(s.row_prev, row_prev + rt * CN, CN, tid, NT);
+    cp_async_elems(s.col_same, col_same + rt * CK, CK, tid, NT);
+    cp_async_elems(s.col_prec, col_prec + rt * A * CK, A * CK, tid, NT);
+    cp_async_rows(s.hd, hd + rt * NC, NC, tid, NT);
+    cp_async_rows(s.allowed, allowed + rt * NC, NC, tid, NT);
+    cp_async_elems(s.mu_k, mu_k + rt * CK, CK, tid, NT);
+    cp_async_elems(s.c1_k, c1_k + rt * CK, CK, tid, NT);
+    cp_async_elems(s.c2_k, c2_k + rt * CK, CK, tid, NT);
+    const S* ns = nsl + (size_t)t * 6 * RC + (size_t)r * CN;
+    for (int q = 0; q < 3; ++q)
+      cp_async_elems(s.nsl + q * CN, ns + 2 * (size_t)q * RC, CN, tid, NT);
+    if (tid == 0 && t > 0) cp_async_elem(s.x, sig_r + t - 1);
+    cp_async_rows(bws, bwd + rt * col, 4 * (size_t)NC, tid, NT);
+    cp_async_commit();
+  };
+  // row t's backward state I into the buffer: one group
+  auto issue_bw_i = [&](int t) {
+    cp_async_rows(bws + ST_I * (size_t)NC, bwd + ((size_t)t * R + r) * col + ST_I * (size_t)NC,
+                  NC, tid, NT);
+    cp_async_commit();
+  };
+
+  for (int c = tid; c < NC; c += NT) {
+    apEf[(size_t)r * NC + c] = NEG;
+    fwdEf[(size_t)r * NC + c] = NEG;
+  }
+  issue_row(0);
+  issue_bw_i(0);
+  for (int t = 0; t < T_pad; ++t) {
+    const PvStage<S> s = pv_stage<S>(stages + (t & 1) * stb, CN, CK, A);
+    S* Fc = cols + (2 * (t & 1)) * col;
+    S* Vc = Fc + col;
+    const S* Fp = cols + (2 * ((t & 1) ^ 1)) * col;
+    const S* Vp = Fp + col;
+    const size_t rt = (size_t)t * R + r;
+    S* lo = lp + rt * col;
+    cp_async_wait_group<1>();  // row t's group (its state I may still fly)
+    __syncthreads();
+    const S x = t > 0 ? s.x[0] : S(0);
+    // phase 1: every cell but the I chain
+    for (int c = tid; c < NC; c += NT) {
+      const int i = c / CK, j = c % CK;
+      const int cn = s.cand_n[i];
+      const bool al = s.allowed[c];
+      const bool ok = al && cn >= 1;
+      S f[4], v[4], bwv[4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) bwv[st] = bws[st * (size_t)NC + c];
+      int chp = 0;
+      if (t == 0) {
+        f[ST_A] = f[ST_P] = f[ST_S] = NEG;
+        f[ST_E] = (cn == 0 && al) ? S(0) : NEG;
+#pragma unroll
+        for (int st = 0; st < 4; ++st) v[st] = f[st];
+      } else {
+        const S sc = (sc_(x, s.nsl[i], s.nsl[CN + i], s.nsl[2 * CN + i])
+                      + sc_(x, s.mu_k[j], s.c1_k[j], s.c2_k[j]))
+                     + S(-2.0) * S((int)s.hd[c] & 15);
+        int cp[MAX_A];
+#pragma unroll
+        for (int a = 0; a < MAX_A; ++a) cp[a] = s.col_prec[a * CK + j];
+        chp = pv_cell(Fp, Vp, tl, s.row_same[i], s.row_prev[i], s.col_same[j], cp,
+                      sc, ok, bwv, Zr, CN, CK, f, v);
+      }
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const S ap = f[st] + bwv[st];
+        if constexpr (NORM) {
+          lps[st * (size_t)NC + c] = ap;
+        } else {
+          lo[st * (size_t)NC + c] = ap - Zr;
+        }
+        Fc[st * (size_t)NC + c] = f[st];
+        Vc[st * (size_t)NC + c] = v[st];
+      }
+      sCh[c] = (short)chp;
+      if (t == tm1) {
+        apEf[(size_t)r * NC + c] = v[ST_E];
+        fwdEf[(size_t)r * NC + c] = f[ST_E];
+      }
+    }
+    cp_async_wait_group<0>();  // row t's state I
+    __syncthreads();
+    if (t + 1 < T_pad) issue_row(t + 1);
+    // phase 2: the I chains of column j, ascending over the n-slots
+    // (ref: NTC.cpp:474-477), forward then Viterbi
+    for (int j = tid; j < CK; j += NT) {
+      S fi = NEG, vi = NEG;
+      for (int i = 0; i < CN; ++i) {
+        const int c = i * CK + j;
+        S fI = NEG, vI = NEG;
+        int chi = 0;
+        bool cond = false;
+        if (t > 0 && i > 0) {
+          const int cn = s.cand_n[i];
+          cond = s.allowed[c] && cn >= 1 && s.cand_n[i - 1] == cn - 1;
+          const S sc = (sc_(x, s.nsl[i], s.nsl[CN + i], s.nsl[2 * CN + i])
+                        + sc_(x, s.mu_k[j], s.c1_k[j], s.c2_k[j]))
+                       + S(-2.0) * S((int)s.hd[c] & 15);
+          const S iA = cond ? (Fc[ST_E * (size_t)NC + c - CK] + tl[TI1]) + sc : NEG;
+          const S iB = cond ? tl[TI2] + sc : NEG;
+          fI = logaddexp(iA, fi + iB);
+        }
+        const S apI = fI + bws[ST_I * (size_t)NC + c];
+        const S lpI = apI - Zr;
+        if (t > 0 && i > 0) {
+          const S ve = Vc[ST_E * (size_t)NC + c - CK];
+          chi = ve >= vi ? 0 : 1;  // E overrides I on ties (ref: NTC.cpp:884-893)
+          const S viA = cond ? ve + lpI : NEG;
+          const S viB = cond ? lpI : NEG;
+          vI = max_nan(viA, vi + viB);
+        }
+        Fc[ST_I * (size_t)NC + c] = fI;
+        Vc[ST_I * (size_t)NC + c] = vI;
+        if constexpr (NORM) {
+          lps[ST_I * (size_t)NC + c] = apI;
+        } else {
+          lo[ST_I * (size_t)NC + c] = lpI;
+        }
+        sCh[c] = (short)((int)sCh[c] | (chi << 11));
+        fi = fI;
+        vi = vI;
+      }
+    }
+    __syncthreads();
+    if (t + 1 < T_pad) issue_bw_i(t + 1);
+    // phase 3: fp32 columns normalized by their own logsumexp, written once
+    if constexpr (NORM) {
+      S m = NEG;
+      for (int st = 0; st < 5; ++st)
+        for (int c = tid; c < NC; c += NT) m = max_nan(m, lps[st * (size_t)NC + c]);
+      m = block_max(m, red, tid, NT);
+      const bool fin = isfinite(m);
+      const S ms = fin ? m : S(0);
+      S acc = S(0);
+      bool first = true;
+      for (int st = 0; st < 5; ++st) {
+        for (int c = tid; c < NC; c += NT) {
+          const S e = exp_(lps[st * (size_t)NC + c] - ms);
+          acc = first ? e : acc + e;
+          first = false;
+        }
+      }
+      const S tot = block_sum<MAX_THREADS>(acc, red + 32, tid, NT);
+      const S colZ = ms + log_(tot);
+      for (int st = 0; st < 5; ++st) {
+        for (int c = tid; c < NC; c += NT) {
+          const size_t o = st * (size_t)NC + c;
+          lo[o] = fin ? lps[o] - colZ : NEG;
+        }
+      }
+    }
+    // the choice and predecessor-slot words
+    for (int c = tid; c < NC; c += NT) {
+      const int j = c % CK;
+      const int packed = (int)sCh[c];
+      choices[rt * NC + c] = (short)packed;
+      const int ai_a = (packed >> 3) & 3, ai_p = ((packed >> 5) & 15) / 3;
+      slots[rt * NC + c] = (s.col_same[j] + 1)
+                           | ((s.col_prec[ai_a * CK + j] + 1) << slb)
+                           | ((s.col_prec[ai_p * CK + j] + 1) << (2 * slb));
     }
   }
 }
@@ -980,7 +1283,17 @@ int pv(const S* sig, const int* cand_n, const unsigned char* allowed,
        const S* c2_k, const S* nsl, const S* tlog, const S* Z, const int* T_r,
        const S* bwd_in, S* lp, short* choices, int* slots, S* apEf, S* fwdEf,
        S* scratch, int R, int T_pad, int CN, int CK, int A, int NT, int slb,
-       cudaStream_t stream) {
+       int shared, cudaStream_t stream) {
+  if (shared) {
+    const size_t smem = pv_shared_bytes<S>(CN, CK, A, NT);
+    cudaError_t err = launch_smem(pv_shared_kernel<S>, smem);
+    if (err != cudaSuccess) return (int)err;
+    pv_shared_kernel<S><<<R, NT, smem, stream>>>(
+        sig, cand_n, allowed, hd, row_same, row_prev, col_same, col_prec, mu_k,
+        c1_k, c2_k, nsl, tlog, Z, T_r, bwd_in, lp, choices, slots, apEf, fwdEf,
+        R, T_pad, CN, CK, A, slb);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = pv_smem<S>(CN, CK, NT);
   cudaError_t err = launch_smem(pv_kernel<S, false>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1072,11 +1385,11 @@ int walk(const S* lp, const short* choices, const int* slots,
       const S* c2_k, const S* nsl, const S* tlog, const S* Z, const int* T_r, \
       const S* bwd_in, S* lp, short* choices, int* slots, S* apEf, S* fwdEf,  \
       S* scratch, int R, int T_pad, int CN, int CK, int A, int NT, int slb,   \
-      void* stream) {                                                          \
+      int shared, void* stream) {                                              \
     return pv<S>(sig, cand_n, allowed, hd, row_same, row_prev, col_same,      \
                  col_prec, mu_k, c1_k, c2_k, nsl, tlog, Z, T_r, bwd_in, lp,   \
                  choices, slots, apEf, fwdEf, scratch, R, T_pad, CN, CK, A,   \
-                 NT, slb, (cudaStream_t)stream);                               \
+                 NT, slb, shared, (cudaStream_t)stream);                       \
   }                                                                            \
   extern "C" int ntc_pv_ckpt_##SUF(                                            \
       const S* sig, const int* cand_n, const unsigned char* allowed,          \

@@ -47,36 +47,50 @@ PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 MAX_B = 1024  # one thread per band column
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 FWD_VIT_MAX_ROWS = 32  # rows per staged chunk of banded_fwd_vit, at most
+BWD_MAX_ROWS = 256  # rows per staged chunk of banded_bwd, at most
 
 
 class Staging(NamedTuple):
-    """Chunks of banded_fwd_vit (K2) at one band width: rows per chunk
-    and the block's shared memory in bytes."""
+    """Chunks of banded_fwd_vit (K2) and banded_bwd (K1) at one band
+    width: rows per chunk and the block's shared memory in bytes."""
 
     fwd_vit_rows: int
     fwd_vit_bytes: int
+    bwd_rows: int
+    bwd_bytes: int
+
+
+def _most_rows(name: str, nbytes, most: int, B: int, itemsize: int) -> int:
+    fits = [C for C in range(1, most + 1) if nbytes(C) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"{name}: no chunk fits B={B}, "
+                         f"itemsize {itemsize} in {SMEM_LIMIT} bytes")
+    return fits[-1]
 
 
 def staging(B: int, itemsize: int) -> Staging:
-    """The chunk geometry K2 is launched with at band width B and element
-    size `itemsize` (4 or 8). The byte count repeats csrc/nt_banded.cu's
-    fwd_vit_smem_bytes: K2 keeps its four previous rows and two stages of
-    C rows of bM and bE, a window of C + B emission parameters of each of
-    mu/c1/c2, C samples and C + 1 band starts. It takes the most rows, up
-    to FWD_VIT_MAX_ROWS, that fit in SMEM_LIMIT. (K3's chunk is a constant
+    """The chunk geometry K2 and K1 are launched with at band width B and
+    element size `itemsize` (4 or 8); each takes the most rows, up to
+    FWD_VIT_MAX_ROWS and BWD_MAX_ROWS, that fit in SMEM_LIMIT. The byte
+    counts repeat csrc/nt_banded.cu's fwd_vit_smem_bytes and
+    bwd_smem_bytes. K2 keeps its four previous rows and two stages of C
+    rows of bM and bE, a window of C + B emission parameters of each of
+    mu/c1/c2, C samples and C + 1 band starts. K1 keeps its two previous
+    rows and two stages of a window of C + B + 2 parameters of each of
+    mu/c1/c2, C samples and C + 1 band starts. (K3's chunk is a constant
     of the kernel, csrc/nt_banded.cu's WALK_ROWS.)"""
 
     def fwd_vit_bytes(C):
         stage = 2 * C * B + 3 * (B + C) + C
         return (8 * B + 2 * stage) * itemsize + 2 * (C + 1) * 4
 
-    fits = [C for C in range(1, FWD_VIT_MAX_ROWS + 1)
-            if fwd_vit_bytes(C) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(f"banded_fwd_vit: no chunk fits B={B}, "
-                         f"itemsize {itemsize} in {SMEM_LIMIT} bytes")
-    C = fits[-1]
-    return Staging(C, fwd_vit_bytes(C))
+    def bwd_bytes(C):
+        stage = 3 * (C + B + 2) + C
+        return (4 * B + 2 * stage) * itemsize + 2 * (C + 1) * 4
+
+    C2 = _most_rows("banded_fwd_vit", fwd_vit_bytes, FWD_VIT_MAX_ROWS, B, itemsize)
+    C1 = _most_rows("banded_bwd", bwd_bytes, BWD_MAX_ROWS, B, itemsize)
+    return Staging(C2, fwd_vit_bytes(C2), C1, bwd_bytes(C1))
 
 
 def reset_counts() -> None:
@@ -87,7 +101,7 @@ def reset_counts() -> None:
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = {
-    "nt_banded_bwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_bwd": [_P] * 10 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_fwd_vit": [_P] * 15 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
     "nt_banded_vit": [_P] * 12 + [_I] * 3 + [_P],
@@ -173,7 +187,10 @@ def backward_plain(batch: bb.BandedBatch, log_m1: float, log_e2: float):
 
 
 def backward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
-    """(bM, bE), each (R, T_pad, B)."""
+    """(bM, bE), each (R, T_pad, B). A read whose band start climbs by
+    more than a column a row, far enough that a row leaves the kernel's
+    staged emission window, gets NaN in row 0, so its Zb is NaN (inputs
+    the CLIs refuse; the plain version has no window)."""
     if _on_cpu(batch.sig):
         return backward_plain(batch, log_m1, log_e2)
     _check_batch("banded_bwd", batch)
@@ -185,7 +202,8 @@ def backward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
         _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
         _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
         _ptr(batch.bw), _ptr(bM), _ptr(bE), R, T_pad, batch.mu_pad.shape[1],
-        batch.B, batch.pad, log_m1, log_e2, _stream(bM.device))
+        batch.B, batch.pad, staging(batch.B, bM.element_size()).bwd_rows,
+        log_m1, log_e2, _stream(bM.device))
     _raise_on("banded_bwd", rc)
     LAUNCHES["banded_bwd"] += 1
     return bM, bE

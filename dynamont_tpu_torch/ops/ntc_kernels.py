@@ -8,6 +8,7 @@ versions:
   bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
   bwd_ckpt   / bwd_ckpt_plain    K14 ntc_bwd_ckpt    replaces _bwd_ckpt_kernel
   pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
+                                 (two instances, pv_instance)
   pv_ckpt    / pv_ckpt_plain     K15 ntc_pv_ckpt     its checkpoint branch
   walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
 
@@ -45,6 +46,7 @@ Layouts (one bucket of R reads, T_pad rows, CN n-slots, CK k-slots, A = 4):
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -52,7 +54,7 @@ from dynamont_tpu_torch import _build
 from dynamont_tpu_torch.ops import ntc_batch as nb
 from dynamont_tpu_torch.ops import ntc_walk as nw
 from dynamont_tpu_torch.ops.nt_banded_kernels import (
-    _check, _on_cpu, _ptr, _raise_on, _stream,
+    SMEM_LIMIT, _check, _check_aligned, _on_cpu, _ptr, _raise_on, _stream,
 )
 from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
 
@@ -61,12 +63,52 @@ LATTICE_KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_bwd_ckpt", "ntc_pv",
 KERNELS = LATTICE_KERNELS + ("ntc_table_gather",)  # #12 lies on no path
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
+# ntc_pv's launches by instance (pv_instance): "shared" columns or "device"
+PV_LAUNCHES = {"shared": 0, "device": 0}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_RUNS[k] = 0
+    for k in PV_LAUNCHES:
+        PV_LAUNCHES[k] = 0
+
+
+class PvInstance(NamedTuple):
+    """Which kernel ntc_pv's full-store mode launches at one shape:
+    "shared" (csrc/ntc_lattice.cu pv_shared_kernel, its columns, the
+    backward column and two stages of plan inputs in shared memory) or
+    "device" (pv_kernel<S, false>, the columns in a per-read device-memory
+    double buffer); `shared_bytes` is what the shared instance would take."""
+
+    name: str
+    shared_bytes: int
+
+
+def _al16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def pv_instance(CN: int, CK: int, A: int, itemsize: int) -> PvInstance:
+    """ntc_pv's instance at CN n-slots, CK k-slots, alphabet A and element
+    size `itemsize`: the shared one where NC = CN*CK is a multiple of 16
+    (it copies hd, allowed and the backward column in 16-byte pieces) and
+    its bytes fit SMEM_LIMIT; the device-memory one otherwise. The byte
+    count repeats csrc/ntc_lattice.cu's pv_shared_bytes: the four columns
+    and the backward column (5 x NC each), in fp32 the column's lp (5 x NC)
+    and the block reduction's 32 + NT values, the choice words (NC int16),
+    and two stages of row inputs (cand_n, row_same, row_prev: CN int32
+    each; col_same CK and col_prec A*CK int32; hd NC int16; allowed NC
+    bytes; mu_k/c1_k/c2_k 3*CK, the n-slots' 3*CN and the sample)."""
+    NC = CN * CK
+    col = 5 * NC * itemsize
+    norm = col + _al16((32 + threads(NC)) * itemsize) if itemsize == 4 else 0
+    stage = (_al16((3 * CN + CK + A * CK) * 4) + _al16(NC * 2) + _al16(NC)
+             + _al16((3 * CK + 3 * CN + 1) * itemsize))
+    nbytes = 5 * col + norm + _al16(NC * 2) + 2 * stage
+    fits = NC % 16 == 0 and nbytes <= SMEM_LIMIT
+    return PvInstance("shared" if fits else "device", nbytes)
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -75,7 +117,7 @@ _ARGTYPES = {
     "ntc_table_gather": [_P] * 3 + [_I] * 3 + [_P],
     "ntc_bwd": [_P] * 19 + [_I] * 6 + [_P],
     "ntc_bwd_ckpt": [_P] * 21 + [_I] * 7 + [_P],
-    "ntc_pv": [_P] * 22 + [_I] * 7 + [_P],
+    "ntc_pv": [_P] * 22 + [_I] * 8 + [_P],
     "ntc_pv_ckpt": [_P] * 31 + [_I] * 8 + [_P],
     "ntc_walk": [_P] * 13 + [_I] * 10 + [_P],
 }
@@ -334,18 +376,25 @@ def pv(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     slots = torch.empty((T_pad, R, CN, CK), dtype=torch.int32, device=dev)
     apEf = torch.empty((R, CN, CK), dtype=dtype, device=dev)
     fwdEf = torch.empty_like(apEf)
-    scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
-    tl = tl_tensor(trans_log, dtype, dev)
+    inst = pv_instance(CN, CK, A, bwd_store.element_size()).name
     p = plan
+    if inst == "shared":
+        _check_aligned(name, hd=p.hd, allowed=p.allowed, bwd_store=bwd_store)
+        scratch = None
+    else:
+        scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
+    tl = tl_tensor(trans_log, dtype, dev)
     rc = _entry(name, dtype)(
         _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
         _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
         _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
         _ptr(tl), _ptr(Z_norm), _ptr(T_r), _ptr(bwd_store), _ptr(lp),
-        _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf), _ptr(scratch),
-        R, T_pad, CN, CK, A, threads(CN * CK), nb.slot_bits(CK), _stream(dev))
+        _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf),
+        None if scratch is None else _ptr(scratch), R, T_pad, CN, CK, A,
+        threads(CN * CK), nb.slot_bits(CK), int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    PV_LAUNCHES[inst] += 1
     return lp, choices, slots, apEf, fwdEf
 
 

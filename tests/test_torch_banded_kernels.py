@@ -204,3 +204,21 @@ def test_staging_fits_shared_memory(dtype):
         assert st.fwd_vit_bytes <= kk.SMEM_LIMIT == 232448, B
         assert st.fwd_vit_rows == kk.FWD_VIT_MAX_ROWS or \
             fwd_vit_bytes(B, st.fwd_vit_rows + 1) > kk.SMEM_LIMIT, B
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bwd_staging_fits_shared_memory(dtype):
+    """K1's staged chunks fit one block's shared memory at every band width
+    the kernel takes (multiples of 32 up to 1024), and K1 takes the most
+    rows that fit, at most BWD_MAX_ROWS: two previous rows, two stages of a
+    C + B + 2 window of mu/c1/c2, C samples and C + 1 band starts. The
+    bytes are csrc/nt_banded.cu's bwd_smem_bytes, written out."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    bwd_bytes = lambda B, C: ((4 * B + 2 * (3 * (C + B + 2) + C)) * itemsize
+                              + 2 * (C + 1) * 4)
+    for B in range(32, kk.MAX_B + 1, 32):
+        st = kk.staging(B, itemsize)
+        assert st.bwd_bytes == bwd_bytes(B, st.bwd_rows), B
+        assert st.bwd_bytes <= kk.SMEM_LIMIT == 232448, B
+        assert st.bwd_rows == kk.BWD_MAX_ROWS == 256 or \
+            bwd_bytes(B, st.bwd_rows + 1) > kk.SMEM_LIMIT, B

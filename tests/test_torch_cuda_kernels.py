@@ -106,14 +106,15 @@ def _widened(b, B):
 
 
 def _staging_case(case, dtype, device="cuda"):
-    """A bucket for each edge of K2's and K3's staged chunks (K2's C rows a
-    chunk from kk.staging, at most 32; K3's 64, a constant of the kernel):
-    reads of different T; T > C and not a multiple of C; T <= C; T = T_pad
-    for every read; B 32; the largest B (1024)."""
+    """A bucket for each edge of K1's, K2's and K3's staged chunks (K1's
+    and K2's C rows a chunk from kk.staging, at most 256 and 32; K3's 64,
+    a constant of the kernel): reads of different T; T > C and not a
+    multiple of C (K1's T - 1 rows not a multiple of its C either); T <= C;
+    T = T_pad for every read; B 32; the largest B (1024)."""
     model = load_model_for_pore("rna002")
     n_bases, t_pad_to, band, B = {
         "ragged": ([40, 50, 60], 256, 400, None),
-        "t_not_multiple": ([45], 256, 400, None),
+        "t_not_multiple": ([60], 256, 400, None),
         "t_within_chunk": ([12], 64, 400, None),
         "t_eq_t_pad": ([50, 55], 1, 400, None),
         "b32": ([40, 50, 60], 256, 20, 32),
@@ -121,8 +122,8 @@ def _staging_case(case, dtype, device="cuda"):
     }[case]
     short = {"mean_dwell": 2.0, "polya_prefix": False} if case == "t_within_chunk" else {}
     items = [make_read(model, n_bases=n, seed=7 + s, **short) for s, n in enumerate(n_bases)]
-    C = kk.staging(128, torch.empty((), dtype=dtype).element_size()).fwd_vit_rows
-    T_cut = {"t_not_multiple": 7 * C + 3,
+    st = kk.staging(128, torch.empty((), dtype=dtype).element_size())
+    T_cut = {"t_not_multiple": st.bwd_rows + 7 * st.fwd_vit_rows + 3,
              "t_eq_t_pad": min(len(sig) for sig, _ in items) + 1}.get(case)
     if T_cut is not None:
         items = [(sig[: T_cut - 1], r) for sig, r in items]
@@ -138,18 +139,25 @@ def _staging_case(case, dtype, device="cuda"):
                                   "t_eq_t_pad", "b32", "b_max", "walk_leaves_band"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_staged_kernels_match_plain_on_cuda(card, dtype, case):
-    """K2 and K3 at the edges of their staged chunks: every output (ch,
-    LPM, LPE, Zf; path_n, prob, close) bit for bit its plain version's.
-    walk_leaves_band walks random choice bits over random posteriors
-    (NaN, -inf and positive values among them), so that paths leave the
-    band array [0, B) and the walk reads lp 0 / choice 0 there."""
+    """K1, K2 and K3 at the edges of their staged chunks: every output (bM,
+    bE; ch, LPM, LPE, Zf; path_n, prob, close) bit for bit its plain
+    version's. walk_leaves_band walks random choice bits over random
+    posteriors (NaN, -inf and positive values among them), so that paths
+    leave the band array [0, B) and the walk reads lp 0 / choice 0 there."""
     b = _staging_case("b32" if case == "walk_leaves_band" else case, dtype)
     T = b.T.cpu().numpy()
-    C = kk.staging(b.B, b.sig.element_size()).fwd_vit_rows
-    assert {"t_not_multiple": T[0] % C and T[0] > C, "t_within_chunk": T[0] <= C,
+    st = kk.staging(b.B, b.sig.element_size())
+    C, C1 = st.fwd_vit_rows, st.bwd_rows
+    assert {"t_not_multiple": T[0] % C and T[0] > C and (T[0] - 1) % C1 and T[0] > C1,
+            "t_within_chunk": T[0] <= C and T[0] <= C1,
             "t_eq_t_pad": (T == b.bstart.shape[1]).all()}.get(case, True)
     N_max = int(b.N.max())
     bM, bE = kk.backward_plain(b, LM, LE)
+    kM, kE = kk.backward(b, LM, LE)
+    torch.cuda.synchronize()
+    _same_band(kM, bM, T)
+    _same_band(kE, bE, T)
+    del kM, kE
     Zb = bE[torch.arange(len(T), device="cuda"), 0, b.bw.long() + 1]
     got = kk.fwd_vit(b, bM, bE, Zb, LM, LE)
     want = kk.fwd_vit_plain(b, bM, bE, Zb, LM, LE)
@@ -174,6 +182,49 @@ def test_staged_kernels_match_plain_on_cuda(card, dtype, case):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     if case == "walk_leaves_band":  # the walk did leave [0, B)
         assert _leaves_band(plain, b, N_max)
+
+
+def _climbing_case(dtype, device="cuda"):
+    """Two reads of 300 bases cut to T 400; read 0's band start climbs by
+    one column a row over its top 300 rows and by two at row 300, so that
+    the lowest row of K1's top chunk lies a column outside the chunk's
+    staged emission window; read 1 keeps its own band starts."""
+    model = load_model_for_pore("rna002")
+    items = [make_read(model, n_bases=300, seed=11 + s) for s in range(2)]
+    items = [(sig[:399], r) for sig, r in items]
+    kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in items]
+    b = bb.prepare_batch([s for s, _ in items], kids, model, 400, device=device,
+                         dtype=dtype, t_pad_to=512)
+    T, N = int(b.T[0]), int(b.N[0])
+    t = torch.arange(b.bstart.shape[1], device=b.bstart.device)
+    climb = (t - (T - N)).clamp(min=0) + (t >= 300).to(t.dtype)
+    bstart = b.bstart.clone()
+    bstart[0] = torch.where(t < T, climb, bstart[0, T - 1]).to(torch.int32)
+    return b._replace(bstart=bstart)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_banded_bwd_window_exit_gives_nan_z_on_cuda(card, dtype):
+    """A band start that climbs by 2 in a row where every other row of
+    K1's chunk climbs by 1 leaves the chunk's staged window: K1 turns
+    that read's row 0 into NaN, so its Zb is NaN and the Z gate rejects
+    it; the other read stays bit for bit its plain version's."""
+    b = _climbing_case(dtype)
+    T = b.T.cpu().numpy()
+    C1 = kk.staging(b.B, b.sig.element_size()).bwd_rows
+    assert T[0] - 2 - 300 < C1 <= T[0] - 2 - (T[0] - int(b.N[0]))
+    bM, bE = kk.backward(b, LM, LE)
+    pM, pE = kk.backward_plain(b, LM, LE)
+    torch.cuda.synchronize()
+    Zb = bE[torch.arange(2, device="cuda"), 0, b.bw.long() + 1].cpu()
+    pZb = pE[torch.arange(2, device="cuda"), 0, b.bw.long() + 1].cpu()
+    assert torch.isnan(Zb[0]) and not torch.isnan(pZb[0])
+    assert torch.isnan(bM[0, 0]).all() and torch.isnan(bE[0, 0]).all()
+    _same_band(bM[1:], pM[1:], T[1:])
+    _same_band(bE[1:], pE[1:], T[1:])
+    ok = bb.check_z_batch(np.zeros(2), Zb.double().numpy(), T, b.B, dtype)
+    assert not ok[0]
 
 
 def _leaves_band(walked, b, N_max) -> bool:
@@ -256,17 +307,21 @@ def test_batch_train_repeats_bit_for_bit_on_cuda(card):
         assert torch.equal(x, y)
 
 
-def _ntc_bucket(dtype):
+def _ntc_bucket(dtype, full_row=False):
     """The three ragged reads of tests/test_torch_ntc_pre.py on the card,
-    padded to (3, 320) with N2 48, and the model tables."""
+    padded to (3, 320) with N2 48, and the model tables; with full_row a
+    fourth read of 36 bases cut to T_r = T_pad = 320."""
     from dynamont_tpu_torch.ops import ntc_batch as nb
 
     model = load_model_for_pore("rna002")
-    reads = [make_read(model, n_bases=n, seed=s) for s, n in ((0, 25), (1, 31), (2, 18))]
-    sig = np.zeros((3, 319))
-    kid = np.zeros((3, 47), np.int32)
-    T, N = np.zeros(3, np.int32), np.zeros(3, np.int32)
+    spec = ((0, 25), (1, 31), (2, 18)) + (((3, 36),) if full_row else ())
+    reads = [make_read(model, n_bases=n, seed=s) for s, n in spec]
+    R = len(reads)
+    sig = np.zeros((R, 319))
+    kid = np.zeros((R, 47), np.int32)
+    T, N = np.zeros(R, np.int32), np.zeros(R, np.int32)
     for i, (s, r) in enumerate(reads):
+        s = s[:319]
         k = seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
         sig[i, : len(s)], kid[i, : len(k)] = s, k
         T[i], N[i] = len(s) + 1, len(k) + 1
@@ -419,6 +474,46 @@ def test_ntc_lattice_kernels_match_plain_on_cuda(card, dtype, caps):
     for g, w in zip(kern.walk(*args), kern.walk_plain(*args)):
         same(g, w)
     assert all(kern.LAUNCHES[k] == launches[k] + 1 for k in kern.LATTICE_KERNELS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_pv_instances_match_plain_on_cuda(card, dtype, caps):
+    """K15's full store in the instance its shape takes (the shared-column
+    one at (8, 120), CK 128; the device-memory one at (16, 240), CK 256)
+    against pv_plain on four reads of different T_r, one at T_r = T_pad:
+    lp (written over the store), choices, slots, apEf and fwdEf bit for
+    bit, and the launch counted under that instance."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype, full_row=True)
+    assert len(set(T.tolist())) == 4 and int(T.max()) == sig.shape[1] + 1
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    prm = kern.tab_gather_plain(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4,
+                                                                          dtype), dims)
+    bwd = kern.bwd_plain(plan, dims, prm, sig, tl, N, T)
+    Zb = nb.ntc_zb_batch(plan, bwd[0])
+    inst = kern.pv_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    assert (dims.CK, inst.name) == {(8, 120): (128, "shared"), (16, 240): (256, "device")}[caps]
+    before = dict(kern.PV_LAUNCHES)
+    store = bwd.clone()
+    got = kern.pv(plan, dims, prm, sig, store, Zb, tl, T, out=store)
+    want = kern.pv_plain(plan, dims, prm, sig, bwd, Zb, tl, T)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert {k: kern.PV_LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == inst.name) for k in before}
 
 
 def test_train_wrappers_refuse_other_devices():

@@ -304,3 +304,33 @@ def test_walk_records_finish_to_summaries(port):
     assert st[0, :2].tolist() == [0, 1] and bp[0, :2].tolist() == [7, 9]
     assert start[0, :2].tolist() == [2, 5] and k[0, :2].tolist() == [11, 12]
     assert med[0].tolist() == pytest.approx([0.3, 0.3, 0.0, 0.0])
+
+
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240), (16, 256)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_pv_instance_at_engine_caps(caps, itemsize):
+    """K15's instance at the engine's caps: its main rung (8, 120) (CK
+    128) takes the shared-column instance in fp32 and fp64, the wide rungs
+    (16, 240) and (16, 256) (CK 256, 272) the device-memory one. The
+    bytes are csrc/ntc_lattice.cu's pv_shared_bytes, written out: five
+    columns of 5*NC, in fp32 lp (5*NC) and the reduction's 32 + NT values,
+    the choice words, and two stages of row inputs (NT = threads(NC): 512
+    at CK 128 and 256, 256 at CK 272)."""
+    from dynamont_tpu_torch.models import ntc_batch as engine
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops.ntc_pre_kernels import threads
+
+    cn, ck0 = caps
+    assert caps in ((8, 120), engine.WIDE_CAPS, engine.BIGK_WIDE_CAPS)
+    CN, CK, A = cn, ck0 + cn, 4
+    NC = CN * CK
+    al = lambda b: -(-b // 16) * 16
+    stage = al((3 * CN + CK + A * CK) * 4) + al(2 * NC) + al(NC) + al((3 * CK + 3 * CN + 1) * itemsize)
+    norm = 5 * NC * itemsize + al((32 + threads(NC)) * itemsize) if itemsize == 4 else 0
+    nbytes = 25 * NC * itemsize + norm + al(2 * NC) + 2 * stage
+    inst = kern.pv_instance(CN, CK, A, itemsize)
+    assert inst.shared_bytes == nbytes
+    assert inst.name == ("shared" if caps == (8, 120) else "device")
+    assert (inst.shared_bytes <= kern.SMEM_LIMIT == 232448) == (inst.name == "shared")
+    if caps == (8, 120):
+        assert inst.shared_bytes == {4: 141856, 8: 224864}[itemsize]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the main path's K2 (banded_fwd_vit) and K3
-(banded_walk) for the checkout at --root, on one GPU:
+"""CUDA-event times of the main path's K1 (banded_bwd), K2
+(banded_fwd_vit) and K3 (banded_walk) for the checkout at --root, on one
+GPU:
 
     python3 tools/banded_times.py [--root DIR] [--reps 3] [--sweep]
 
@@ -9,10 +10,11 @@ chip_smoke.py builds (rna002 reads of 1800 bases, mean dwell 9, T trimmed
 to 16000, decoded as the engine decodes them): (32, 16384, 512) in fp32,
 the main path's, and (2, 16384, 512) in fp64, phase 3's, at the band width
 the exact per-read fp64 rung takes for such reads. Each time is the mean of
---reps launches after one. With --sweep, where the checkout's K2 takes its
-chunk rows from ops/nt_banded_kernels.staging, K2 is also timed at each
-smaller chunk in SWEEP that fits. Prints the card's name and power limit,
-then one JSON line per time. Comparing two checkouts: run each in its own
+--reps launches after one. With --sweep, where the checkout's K2 and K1
+take their chunk rows from ops/nt_banded_kernels.staging, each is also
+timed at every smaller chunk in SWEEP and BWD_SWEEP, its outputs compared
+with those at its own chunk. Prints the card's name and power limit, then
+one JSON line per time. Comparing two checkouts: run each in its own
 process, in one call (parent, change, change, parent).
 """
 
@@ -26,6 +28,7 @@ import subprocess
 import sys
 
 SWEEP = {"float32": (4, 8, 12, 16), "float64": (2, 4, 6, 8)}
+BWD_SWEEP = (16, 32, 64, 128)
 
 
 def main(argv=None) -> int:
@@ -86,10 +89,13 @@ def main(argv=None) -> int:
         bM, bE = kk.backward(b, lm, le)
         Zb = bE[torch.arange(shape[0], device="cuda"), 0, b.bw.long() + 1]
         ch, LPM, LPE, _ = kk.fwd_vit(b, bM, bE, Zb, lm, le)
-        rows = None
+        rows = bwd_rows = None
         if hasattr(kk, "staging"):
-            rows = kk.staging(b.B, bM.element_size()).fwd_vit_rows
+            st = kk.staging(b.B, bM.element_size())
+            rows, bwd_rows = st.fwd_vit_rows, getattr(st, "bwd_rows", None)
         line = dict(root=root, dtype=dname, shape=shape)
+        print(json.dumps(dict(line, kernel="banded_bwd", C=bwd_rows,
+                              ms=cuda_ms(lambda: kk.backward(b, lm, le)))), flush=True)
         print(json.dumps(dict(line, kernel="banded_fwd_vit", C=rows,
                               ms=cuda_ms(lambda: kk.fwd_vit(b, bM, bE, Zb, lm, le)))),
               flush=True)
@@ -108,6 +114,20 @@ def main(argv=None) -> int:
                 finally:
                     kk.staging = staging
                 print(json.dumps(dict(line, kernel="banded_fwd_vit", C=C, ms=ms,
+                                      same_outputs=same)), flush=True)
+        if args.sweep and bwd_rows is not None:
+            staging = kk.staging
+            for C in (c for c in BWD_SWEEP if c < bwd_rows):
+                kk.staging = lambda B, itemsize, C=C: staging(B, itemsize)._replace(
+                    bwd_rows=C)
+                try:
+                    got = kk.backward(b, lm, le)
+                    same = all(torch.equal(x, y) for x, y in zip(got, (bM, bE)))
+                    del got
+                    ms = cuda_ms(lambda: kk.backward(b, lm, le))
+                finally:
+                    kk.staging = staging
+                print(json.dumps(dict(line, kernel="banded_bwd", C=C, ms=ms,
                                       same_outputs=same)), flush=True)
         del bM, bE, ch, LPM, LPE
         torch.cuda.empty_cache()
