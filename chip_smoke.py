@@ -47,15 +47,17 @@ result line):
      short reads in fp32 and fp64, and on one (2, 16384) bucket at N2 2048
      and K 1024 in fp64 (fp32 at full width is phase 9's): every output bit
      for bit (both stores, the TN pack, E0, U, finalE), then identical
-     candidates, counts and overflow flags;
+     candidates, counts and overflow flags (ntc_tn_bwd_sel is two kernels,
+     the chain into a u store, then the selection, one warp a row);
   9. the batched pre-pass at the resquiggle engine's bucket shape: 16
      reads of the phase-4 shape, (16, 16384), N2 2048, K 1024, CN 8,
      CK0 120, fp32, through pre_tn_batch and pre_tk_batch with the launch
      counters reset right before and read right after (all four kernels,
-     no plain version); the preProcTN/TK Z gates per read (at most one may
-     fail); overflowing reads and the share of columns at the cap; each
-     kernel against its plain version there, every output bit for bit,
-     and its CUDA-event time beside the plain version's; peak memory;
+     both of ntc_tn_bwd_sel's, no plain version); the preProcTN/TK Z gates
+     per read (at most one may fail); overflowing reads and the share of
+     columns at the cap; each kernel against its plain version there, every
+     output bit for bit, and its CUDA-event time beside the plain version's
+     (and ntc_tn_bwd_sel's two kernels alone); peak memory;
  10. the exact per-read NTC through dynamont_tpu_torch.cli.ntc_main.main in
      process: three short reads in segment, calcZ and train mode on cuda
      against cpu (borders and polish k-mers identical, probabilities and
@@ -84,9 +86,10 @@ result line):
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
      and read right after: K7-K11, K13, K15, K16 all launched, every K15
-     launch in its shared-column instance (pv_shared_kernel), no plain
-     version; at most 2 reads on the exact rung; the engine's profile,
-     reads/s and peak memory; read 0 against phase 10's exact fp64 run
+     launch in its shared-column instance (pv_shared_kernel) and every K13
+     launch in its (bwd_shared_kernel), no plain version; at most 2 reads
+     on the exact rung; the engine's profile, reads/s and peak memory;
+     read 0 against phase 10's exact fp64 run
      (at most max(1, segments/50) borders differ, Z within rel 1e-3); no
      training kernel launched. Then the engine's (16, 16384) bucket again,
      fp32, N2 2048, through the resquiggle and the training bucket
@@ -105,9 +108,10 @@ result line):
      plain version, no exact retry, each read within the bounds above of
      its main-rung result; wall time and peak memory. That wide bucket
      through both routes: each route's wall time and peak memory, the
-     outputs bit for bit equal (the full store's K15 in its device-memory
-     instance, pv_kernel), K14's checkpoints and row 0 bit for bit
-     its plain version's (run in the parent beside the spawned processes),
+     outputs bit for bit equal (the full store's K15 and K13 in their
+     device-memory instances, pv_kernel and bwd_kernel), K14's checkpoints
+     and row 0 bit for bit its plain version's (run in the parent beside
+     the spawned processes),
      K15's checkpoint mode's lp, choices, slots and both finals bit for bit
      its plain version's (run in a spawned process), and the kernels' times
      beside their plain versions';
@@ -737,11 +741,14 @@ def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     pre_launches, pre_plain = dict(kn.LAUNCHES), dict(kn.PLAIN_RUNS)
+    k8_parts = dict(kn.TN_BWD_SEL_LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[9] pre-pass ({NTC_READS}, {t_full}) N2 {n_full} K {model.num_kmers} CN {CN} "
-        f"CK0 {CK0} fp32: {wall * 1e3:.1f} ms wall | launches {pre_launches} | plain "
-        f"{pre_plain} | peak device memory {peak:.2f} GiB")
-    if any(v == 0 for v in pre_launches.values()) or any(pre_plain.values()):
+        f"CK0 {CK0} fp32: {wall * 1e3:.1f} ms wall | launches {pre_launches}, "
+        f"ntc_tn_bwd_sel's kernels {k8_parts} | plain {pre_plain} | peak device memory "
+        f"{peak:.2f} GiB")
+    if (any(v == 0 for v in pre_launches.values()) or any(pre_plain.values())
+            or any(v != pre_launches["ntc_tn_bwd_sel"] for v in k8_parts.values())):
         raise AssertionError("the pre-pass missed a kernel or ran a plain version")
     launches.update(pre_launches)
     fails = []
@@ -796,7 +803,16 @@ def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
             same(f"{name} output {i}", g, w)
         del want
         times[name] = timed(name, kern, plain_ms, inputs, units, 2)
-    del fwd, bwd, runs, tab, tabk, sig
+    # K8's two kernels alone, and the u store between them
+    u, _ = kn.tn_bwd_u(sig, tab, N_r, T_r, fwd, lm, le)
+    parts = {"tn_bwd_u": cuda_ms(lambda: kn.tn_bwd_u(sig, tab, N_r, T_r, fwd, lm, le), 2),
+             "tn_sel": cuda_ms(lambda: kn.tn_sel(u, kid, CN), 2)}
+    log(f"  ntc_tn_bwd_sel's kernels: the chain (tn_bwd_u) {parts['tn_bwd_u']:.3f} ms, the "
+        f"selection (tn_sel) {parts['tn_sel']:.3f} ms; u store {u.numel() * u.element_size() / 1e9:.2f} GB")
+    times["ntc_tn_bwd_sel"].update(
+        parts=parts, design="tn_bwd_u_kernel (the chain, one block a read) into a u store, "
+                            "then tn_sel_kernel (one warp a row)")
+    del fwd, bwd, runs, tab, tabk, sig, u
     torch.cuda.empty_cache()
     return times
 
@@ -1218,6 +1234,7 @@ def phase_12(model, bench, launches: dict, long_ref):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lat, pre, pv_inst = dict(kern.LAUNCHES), dict(kn.LAUNCHES), dict(kern.PV_LAUNCHES)
+        bwd_inst, k8_parts = dict(kern.BWD_LAUNCHES), dict(kn.TN_BWD_SEL_LAUNCHES)
         plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
         peak = torch.cuda.max_memory_allocated() / 2**30
         pr = eng.profile
@@ -1227,7 +1244,8 @@ def phase_12(model, bench, launches: dict, long_ref):
             f"{NTC_READS / (pr['dispatch_s'] + pr['collect_s']):.2f} reads/s | wide "
             f"retries {pr['wide_retries']} ({pr['wide_s']:.2f} s), exact retries "
             f"{pr['exact_retries']} ({pr['exact_s']:.2f} s) | launches {pre} {lat}, ntc_pv "
-            f"by instance {pv_inst} | plain {plain} | peak device memory {peak:.2f} GiB")
+            f"by instance {pv_inst}, ntc_bwd by instance {bwd_inst}, ntc_tn_bwd_sel's kernels "
+            f"{k8_parts} | plain {plain} | peak device memory {peak:.2f} GiB")
         if (any(lat[k] == 0 for k in MAIN_RUNG) or any(v == 0 for v in pre.values())
                 or any(plain.values()) or any(kk.LAUNCHES.values())
                 or any(tk.LAUNCHES.values())):
@@ -1235,6 +1253,10 @@ def phase_12(model, bench, launches: dict, long_ref):
                                  "training kernel")
         if pv_inst["shared"] != lat["ntc_pv"]:
             raise AssertionError("ntc_pv ran its device-memory instance on the main rung")
+        if bwd_inst["shared"] != lat["ntc_bwd"]:
+            raise AssertionError("ntc_bwd ran its device-memory instance on the main rung")
+        if any(v != pre["ntc_tn_bwd_sel"] for v in k8_parts.values()):
+            raise AssertionError(f"ntc_tn_bwd_sel's two kernels ran {k8_parts} times")
         if pr["exact_retries"] > 2:
             raise AssertionError(f"{pr['exact_retries']} reads reached the exact rung")
         errors = os.path.join(tmp, "out.errors")
@@ -1367,9 +1389,9 @@ def lattice_times(k: dict, plain_ms: dict) -> dict:
             "ntc_tab_gather", lambda: kern.tab_gather(ks, table, dims),
             plain_ms["ntc_tab_gather"], [ks, table], ks.numel(), 3,
             library=lambda: table[:, ks64]),
-        "ntc_bwd": timed(
+        "ntc_bwd": dict(timed(
             "ntc_bwd", lambda: kern.bwd(plan, dims, prm, sig, tl, N_r, T_r),
-            plain_ms["ntc_bwd"], bwd_in, cells, 2),
+            plain_ms["ntc_bwd"], bwd_in, cells, 2), design=bwd_design(dims, sig)),
         "ntc_pv": dict(timed(
             "ntc_pv", lambda: kern.pv(plan, dims, prm, sig, bwd, Zb, tl, T_r),
             plain_ms["ntc_pv"], pv_in, cells, 2), design=pv_design(dims, sig)),
@@ -1388,6 +1410,17 @@ def pv_design(dims, sig) -> str:
         return (f"pv_shared_kernel: columns, backward column and plan rows in shared memory "
                 f"({inst.shared_bytes} B)")
     return "pv_kernel: columns in a device-memory double buffer"
+
+
+def bwd_design(dims, sig) -> str:
+    """Which instance ntc_bwd takes at these dims and dtype."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    inst = kern.bwd_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    if inst.name == "shared":
+        return (f"bwd_shared_kernel: rows t + 1 and t and two stages of row inputs in "
+                f"shared memory ({inst.nbytes} B)")
+    return "bwd_kernel: row t + 1 read back from the device store"
 
 
 def train_times(kt: dict, plain_ms: dict) -> dict:
@@ -1472,12 +1505,15 @@ def wide_routes(eng, items, plain_ms: dict) -> dict:
     eng._dispatch(gidx, items, *WIDE_CAPS, keep=kf, ckpt=False)
     p, dims, prm, sig, tl = kf["plan"], kf["dims"], kf["prm"], kf["sig"], kf["trans_log"]
     N_r, T_r, Zb = kf["N_r"], kf["T_r"], kf["Zb"]
-    before = dict(kern.PV_LAUNCHES)
+    before, before_bwd = dict(kern.PV_LAUNCHES), dict(kern.BWD_LAUNCHES)
     ms_full = {"ntc_bwd": cuda_ms(lambda: kern.bwd(p, dims, prm, sig, tl, N_r, T_r), 1),
                "ntc_pv": cuda_ms(lambda: kern.pv(p, dims, prm, sig, kf["bwd"], Zb, tl, T_r), 1)}
     if kern.PV_LAUNCHES["shared"] != before["shared"]:
         raise AssertionError("the wide full store ran ntc_pv's shared-column instance")
-    full_design = pv_design(dims, sig)
+    if (kern.BWD_LAUNCHES["shared"] != before_bwd["shared"]
+            or kern.BWD_LAUNCHES["device"] == before_bwd["device"]):
+        raise AssertionError("the wide full store did not run ntc_bwd's bwd_kernel")
+    full_design = f"{pv_design(dims, sig)}; K13 {bwd_design(dims, sig)}"
     C = nb.C_CKPT
     kf["ckpt_rows"], kf["row0"] = kf["bwd"][C::C].clone(), kf["bwd"][0].clone()
     del kf["bwd"], p, prm, sig

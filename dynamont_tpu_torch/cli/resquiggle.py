@@ -63,8 +63,9 @@ def main(argv=None):
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
         raise SystemExit(2)
-    if args.batch_size is None:
-        args.batch_size = 32 if args.mode == "basic" else 16
+    # reads per bucket: the flag, else the mode's default (32 basic, 16
+    # resquiggle); the chunk (_pump_engine) reads the flag as given
+    bucket = args.batch_size or (32 if args.mode == "basic" else 16)
 
     import os
 
@@ -112,13 +113,13 @@ def main(argv=None):
     try:
         if args.mode == "basic":
             eng = BandedBatchEngine(model, args.pore, device=device,
-                                    batch_size=args.batch_size)
+                                    batch_size=bucket)
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: 3, ")
         else:
             # cap-overflow reads re-run inside the engine (wide rung, then
             # the exact per-read path)
             eng = NTCBatchEngine(model, args.pore, device=device,
-                                 batch_size=args.batch_size,
+                                 batch_size=bucket,
                                  native_kmer=args.ntc_native_9mer)
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: ")
     finally:
@@ -172,8 +173,10 @@ def _dump_failed_input(job) -> str:
     return path
 
 
-# chunks dispatched ahead of collection, as in the JAX CLI: queued
-# launches hold their inputs and outputs, the DP working set is per launch
+# chunks dispatched ahead of collection, as in the JAX CLI: 3 chunks of
+# (--batch_size or 32) * 4 reads, 128 by default in both modes (8 buckets
+# of 16 in resquiggle mode); queued launches hold their inputs and outputs,
+# the DP working set is per launch
 INFLIGHT = 3
 
 
@@ -182,11 +185,13 @@ def _pump_engine(args, eng, jobs, writer, rna, model, err_prefix: str) -> None:
     chunks are dispatched before the oldest is collected, so the device
     does not drain between chunks. A chunk whose run raises is re-run read
     by read, so one bad read costs only itself a sidecar line and a repro
-    dump (_dump_failed_input, in the working directory). A chunk is four
-    buckets of the mode's batch size."""
+    dump (_dump_failed_input, in the working directory). A chunk is
+    (--batch_size, or 32) * 4 reads in both modes, as in dynamont_tpu: four
+    buckets in basic mode, eight of the 16-read default buckets in
+    resquiggle mode."""
     from dynamont_tpu_torch.models.batch import BatchItem
 
-    chunk_size = args.batch_size * 4
+    chunk_size = (args.batch_size or 32) * 4
     window: deque = deque()
 
     def emit(outs):

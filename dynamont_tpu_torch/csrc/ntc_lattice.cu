@@ -28,9 +28,12 @@
 // the slot maps. Phase 2: one thread per k-slot j folds the I chain over
 // the n-slots of its column, sequentially (ascending in the forward,
 // descending in the backward) — the association order the plain version
-// uses; the JAX scan runs the same maps as an associative scan. In ntc_bwd
-// the neighbouring column is read from device memory (the backward store
-// itself, row t+1, written by the same block one step before). ntc_pv keeps
+// uses; the JAX scan runs the same maps as an associative scan. ntc_bwd at
+// the main rung (bwd_shared_kernel) keeps rows t + 1 and t and a stage of
+// row inputs, prefetched a row ahead, in shared memory; at the wide rung
+// (bwd_kernel) it reads row t + 1 back from device memory (the backward
+// store itself, written by the same block one step before);
+// ops/ntc_kernels.bwd_instance picks the instance from the shape. ntc_pv keeps
 // four columns (the previous and current forward and Viterbi columns): at
 // the main rung (8, 128) they are 80 KB in fp32 and 160 KB in fp64, and
 // its shared-column instance (pv_shared_kernel) holds them in shared
@@ -222,16 +225,26 @@ __host__ __device__ inline size_t bwd_smem(int NC) {
   return 4 * (size_t)NC * sizeof(S) + (size_t)NC;
 }
 
+// What the threads left out of bwd_column's phase 2 do meanwhile: nothing,
+// or the caller's work, idle(i, n) on thread i of n.
+struct NoIdle {
+  __device__ void operator()(int, int) const {}
+};
+
 // Column t of read r into `o` (5, CN, CK) from column t + 1 at `nx`; the
 // terminal column at t = T_r-1 and -inf past it (nx is then not read).
 // Ends with a block barrier, so `o` is visible to the whole block.
 // `in`'s arrays are read at row ti of read ri: (t, r) itself, or a staged
 // copy of the read's rows (ntc_bwd_variant: R = 1, ti the row within the
 // chunk, sig[ti - 1] the sample before it); t stays the global row.
-template <typename S>
+// `idle` runs once a column before its last barrier: on the NT - CK
+// threads that phase 2's I chains leave free (on all NT when there are
+// none, and in a terminal or dead column).
+template <typename S, typename Idle = NoIdle>
 __device__ __forceinline__ void bwd_column_at(const BwdIn<S>& in, const S (&tl)[NTL],
                                               int t, int ti, int ri, int nm1, int tm1,
-                                              const S* nx, S* o, unsigned char* smem) {
+                                              const S* nx, S* o, unsigned char* smem,
+                                              const Idle& idle = Idle()) {
   const int tid = threadIdx.x, NT = blockDim.x;
   const int R = in.R, CN = in.CN, CK = in.CK, A = in.A;
   const int NC = CN * CK, RC = R * CN;
@@ -249,6 +262,7 @@ __device__ __forceinline__ void bwd_column_at(const BwdIn<S>& in, const S (&tl)[
       const S e = (t == tm1 && al[c] && cn_t[c / CK] == nm1) ? S(0) : NEG;
       for (int st = 0; st < 5; ++st) o[st * (size_t)NC + c] = st == ST_E ? e : NEG;
     }
+    idle(tid, NT);
     __syncthreads();
     return;
   }
@@ -335,6 +349,11 @@ __device__ __forceinline__ void bwd_column_at(const BwdIn<S>& in, const S (&tl)[
       o[ST_E * (size_t)NC + c] = al[c] ? e : NEG;
       below = inew;
     }
+  }
+  if (NT <= CK) {
+    idle(tid, NT);
+  } else if (tid >= CK) {
+    idle(tid - CK, NT - CK);
   }
   __syncthreads();
 }
@@ -435,6 +454,51 @@ __host__ __device__ inline size_t stage_bytes(int C, int CN, int CK, int A) {
          al16((size_t)C * NC * sizeof(short)) + al16((size_t)C * (NC + 2 * CN));
 }
 
+// Where C staged rows of one read lie in `st` (stage_bytes' regions).
+template <typename S>
+struct StagePtrs {
+  S *mu_k, *c1_k, *c2_k, *suc, *nsl, *sig;
+  int *cand_n, *brow_same, *brow_next, *bcol_same, *bcol_suc;
+  short* hd;
+  unsigned char* allowed;
+  signed char *d01, *d02;
+};
+
+template <typename S>
+__device__ __forceinline__ StagePtrs<S> stage_ptrs(unsigned char* st, int C, int CN,
+                                                   int CK, int A) {
+  const size_t NC = (size_t)CN * CK, ACK = (size_t)A * CK;
+  StagePtrs<S> p;
+  p.mu_k = reinterpret_cast<S*>(st);
+  p.c1_k = p.mu_k + (size_t)C * CK;
+  p.c2_k = p.c1_k + (size_t)C * CK;
+  p.suc = p.c2_k + (size_t)C * CK;
+  p.nsl = p.suc + (size_t)C * 3 * ACK;
+  p.sig = p.nsl + (size_t)C * 6 * CN;
+  p.cand_n = reinterpret_cast<int*>(
+      st + al16(((size_t)C * (3 * CK + 3 * ACK + 6 * CN) + C + 1) * sizeof(S)));
+  p.brow_same = p.cand_n + (size_t)C * CN;
+  p.brow_next = p.brow_same + (size_t)C * CN;
+  p.bcol_same = p.brow_next + (size_t)C * CN;
+  p.bcol_suc = p.bcol_same + (size_t)C * CK;
+  p.hd = reinterpret_cast<short*>(
+      reinterpret_cast<unsigned char*>(p.cand_n) + al16((size_t)C * (3 * CN + CK + ACK) * sizeof(int)));
+  p.allowed = reinterpret_cast<unsigned char*>(p.hd) + al16((size_t)C * NC * sizeof(short));
+  p.d01 = reinterpret_cast<signed char*>(p.allowed + (size_t)C * NC);
+  p.d02 = p.d01 + (size_t)C * CN;
+  return p;
+}
+
+// The BwdIn view of staged rows: R = 1, row ti of the stage; sig[-1] is
+// the sample before its first row.
+template <typename S>
+__device__ __forceinline__ BwdIn<S> stage_in(const StagePtrs<S>& p, int T_pad, int CN,
+                                             int CK, int A) {
+  return BwdIn<S>{p.sig + 1, p.cand_n, p.allowed, p.hd, p.d01, p.d02, p.brow_same,
+                  p.brow_next, p.bcol_same, p.bcol_suc, p.mu_k, p.c1_k, p.c2_k, p.suc,
+                  p.nsl, 1, T_pad, CN, CK, A};
+}
+
 // Copies rows t0 .. t0 + C - 1 of read r into `st` and returns the BwdIn
 // view of them (R = 1, row ti = t - t0; sig[-1] is the sample before).
 template <typename S>
@@ -443,66 +507,48 @@ __device__ __forceinline__ BwdIn<S> stage_rows(const BwdIn<S>& in, int r, int t0
   const int tid = threadIdx.x, NT = blockDim.x;
   const int R = in.R, CN = in.CN, CK = in.CK, A = in.A;
   const int NC = CN * CK, RC = R * CN, ACK = A * CK;
-  S* mu_k = reinterpret_cast<S*>(st);
-  S* c1_k = mu_k + (size_t)C * CK;
-  S* c2_k = c1_k + (size_t)C * CK;
-  S* suc = c2_k + (size_t)C * CK;
-  S* nsl = suc + (size_t)C * 3 * ACK;
-  S* sig = nsl + (size_t)C * 6 * CN;
-  int* cand_n = reinterpret_cast<int*>(
-      st + al16(((size_t)C * (3 * CK + 3 * ACK + 6 * CN) + C + 1) * sizeof(S)));
-  int* brow_same = cand_n + (size_t)C * CN;
-  int* brow_next = brow_same + (size_t)C * CN;
-  int* bcol_same = brow_next + (size_t)C * CN;
-  int* bcol_suc = bcol_same + (size_t)C * CK;
-  short* hd = reinterpret_cast<short*>(
-      reinterpret_cast<unsigned char*>(cand_n) + al16((size_t)C * (3 * CN + CK + ACK) * sizeof(int)));
-  unsigned char* allowed = reinterpret_cast<unsigned char*>(hd) + al16((size_t)C * NC * sizeof(short));
-  signed char* d01 = reinterpret_cast<signed char*>(allowed + (size_t)C * NC);
-  signed char* d02 = d01 + (size_t)C * CN;
+  const StagePtrs<S> p = stage_ptrs<S>(st, C, CN, CK, A);
   const S* sig_r = in.sig + (size_t)r * (in.T_pad - 1);
   for (int i = tid; i <= C; i += NT) {  // sig[t0 - 1 + i]; none past T_pad - 2
     const int t = t0 - 1 + i;
-    sig[i] = (t >= 0 && t < in.T_pad - 1) ? sig_r[t] : S(0);
+    p.sig[i] = (t >= 0 && t < in.T_pad - 1) ? sig_r[t] : S(0);
   }
   for (int e = tid; e < C * CK; e += NT) {
     const int i = e / CK, j = e % CK;
     const size_t g = ((size_t)(t0 + i) * R + r) * CK + j;
-    mu_k[e] = in.mu_k[g];
-    c1_k[e] = in.c1_k[g];
-    c2_k[e] = in.c2_k[g];
-    bcol_same[e] = in.bcol_same[g];
+    p.mu_k[e] = in.mu_k[g];
+    p.c1_k[e] = in.c1_k[g];
+    p.c2_k[e] = in.c2_k[g];
+    p.bcol_same[e] = in.bcol_same[g];
   }
   for (int e = tid; e < C * 3 * ACK; e += NT) {
     const int i = e / (3 * ACK), s = (e / ACK) % 3, w = e % ACK;
-    suc[e] = in.suc[(((size_t)(t0 + i) * 3 + s) * R + r) * ACK + w];
+    p.suc[e] = in.suc[(((size_t)(t0 + i) * 3 + s) * R + r) * ACK + w];
   }
   for (int e = tid; e < C * ACK; e += NT) {
     const int i = e / ACK, w = e % ACK;
-    bcol_suc[e] = in.bcol_suc[((size_t)(t0 + i) * R + r) * ACK + w];
+    p.bcol_suc[e] = in.bcol_suc[((size_t)(t0 + i) * R + r) * ACK + w];
   }
   for (int e = tid; e < C * 6 * CN; e += NT) {
     const int i = e / (6 * CN), s = (e / (2 * CN)) % 3, o = (e / CN) % 2, n = e % CN;
-    nsl[e] = in.nsl[((size_t)(t0 + i) * 3 + s) * 2 * RC + o * RC + r * CN + n];
+    p.nsl[e] = in.nsl[((size_t)(t0 + i) * 3 + s) * 2 * RC + o * RC + r * CN + n];
   }
   for (int e = tid; e < C * CN; e += NT) {
     const int i = e / CN, n = e % CN;
     const size_t g = ((size_t)(t0 + i) * R + r) * CN + n;
-    cand_n[e] = in.cand_n[g];
-    brow_same[e] = in.brow_same[g];
-    brow_next[e] = in.brow_next[g];
-    d01[e] = in.d01[g];
-    d02[e] = in.d02[g];
+    p.cand_n[e] = in.cand_n[g];
+    p.brow_same[e] = in.brow_same[g];
+    p.brow_next[e] = in.brow_next[g];
+    p.d01[e] = in.d01[g];
+    p.d02[e] = in.d02[g];
   }
   for (int e = tid; e < C * NC; e += NT) {
     const int i = e / NC, c = e % NC;
     const size_t g = ((size_t)(t0 + i) * R + r) * NC + c;
-    hd[e] = in.hd[g];
-    allowed[e] = in.allowed[g];
+    p.hd[e] = in.hd[g];
+    p.allowed[e] = in.allowed[g];
   }
-  return BwdIn<S>{sig + 1, cand_n, allowed, hd, d01, d02, brow_same, brow_next,
-                  bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc, nsl, 1, in.T_pad,
-                  CN, CK, A};
+  return stage_in(p, in.T_pad, CN, CK, A);
 }
 
 template <typename S, int MAXT, bool STAGE>
@@ -548,6 +594,118 @@ bwd_variant_kernel(BwdIn<S> in, const S* __restrict__ tlog,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// ntc_bwd's shared-column instance (bwd_shared_kernel): the full store where
+// its columns fit one block's shared memory, the main rung (CK <= 128, NC
+// 1024) in fp32 and fp64. The same column function as bwd_kernel
+// (bwd_column_at: the same arithmetic, the same store), with every operand
+// of the chain in shared memory:
+//   - rows t + 1 and t as two columns (2 x 5 x NC), so phase 1's gathers of
+//     row t + 1 read shared memory; row t is written there;
+//   - row t's plan inputs, parameters and samples (one staged row in
+//     stage_bytes' layout) in one of two stages;
+//   - bwd_column's phase 1 -> 2 scratch, as bwd_smem lays it out.
+// Phase 2's I chains take CK of the NT threads; the other NT - CK copy row
+// t + 1 to the device store (which K15 reads) and issue row t - 1's inputs
+// (cp.async, 16-byte pieces; d01 and d02 in 4-byte ones) meanwhile, so
+// neither costs the chain an instruction.
+// 85632 bytes in fp32, 158720 in fp64 at (8, 128); bwd_shared_bytes counts
+// them, ops/ntc_kernels.bwd_instance repeats the sum and picks this
+// instance where it fits and NC % 16, CN % 4 and CK % 4 are 0 (the copies'
+// sizes and alignment). At the wide rung (CK 256) the two columns alone are
+// 160 KB in fp32, and bwd_kernel runs. The column function reads a BwdIn
+// view built here from the stage's own shared pointers, never one that is
+// the kernel's parameter on another path (see ntc_bwd_variant).
+// ---------------------------------------------------------------------------
+template <typename S>
+__host__ __device__ inline size_t bwd_shared_bytes(int CN, int CK, int A) {
+  const size_t NC = (size_t)CN * CK;
+  return 2 * 5 * NC * sizeof(S) + al16(bwd_smem<S>((int)NC)) +
+         2 * stage_bytes<S>(1, CN, CK, A);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(MAX_THREADS)
+bwd_shared_kernel(BwdIn<S> in, const S* __restrict__ tlog, const int* __restrict__ N_r,
+                  const int* __restrict__ T_r, S* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int r = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  const int R = in.R, T_pad = in.T_pad, CN = in.CN, CK = in.CK, A = in.A;
+  const int NC = CN * CK, RC = R * CN, ACK = A * CK;
+  const size_t col = 5 * (size_t)NC;
+  S* cols = reinterpret_cast<S*>(smem);  // [2][5][NC]: row t at cols + (t & 1) * col
+  unsigned char* csm = smem + 2 * col * sizeof(S);
+  unsigned char* stages = csm + al16(bwd_smem<S>(NC));
+  const size_t stb = stage_bytes<S>(1, CN, CK, A);
+  S tl[NTL];
+  load_tl(tl, tlog);
+  const int nm1 = N_r[r] - 1, tm1 = T_r[r] - 1;
+  const S* sig_r = in.sig + (size_t)r * (T_pad - 1);
+
+  // row t's inputs into stage t & 1, on thread i of n: one group
+  auto issue_row = [&](int t, int i, int n) {
+    const StagePtrs<S> p = stage_ptrs<S>(stages + (t & 1) * stb, 1, CN, CK, A);
+    const size_t rt = (size_t)t * R + r;
+    if (i == 0) {  // sig[t - 1], sig[t]; a row that reads neither gets 0
+      if (t > 0) {
+        cp_async_elem(p.sig, sig_r + t - 1);
+      } else {
+        p.sig[0] = S(0);
+      }
+      if (t < T_pad - 1) {
+        cp_async_elem(p.sig + 1, sig_r + t);
+      } else {
+        p.sig[1] = S(0);
+      }
+    }
+    cp_async_rows(p.mu_k, in.mu_k + rt * CK, CK, i, n);
+    cp_async_rows(p.c1_k, in.c1_k + rt * CK, CK, i, n);
+    cp_async_rows(p.c2_k, in.c2_k + rt * CK, CK, i, n);
+    for (int q = 0; q < 3; ++q)
+      cp_async_rows(p.suc + q * ACK, in.suc + (((size_t)t * 3 + q) * R + r) * ACK, ACK, i,
+                    n);
+    for (int q = 0; q < 6; ++q)  // [mu, c1, c2][n, n2]
+      cp_async_rows(p.nsl + q * CN,
+                    in.nsl + (size_t)t * 6 * RC + (size_t)q * RC + (size_t)r * CN, CN, i,
+                    n);
+    cp_async_rows(p.cand_n, in.cand_n + rt * CN, CN, i, n);
+    cp_async_rows(p.brow_same, in.brow_same + rt * CN, CN, i, n);
+    cp_async_rows(p.brow_next, in.brow_next + rt * CN, CN, i, n);
+    cp_async_rows(p.bcol_same, in.bcol_same + rt * CK, CK, i, n);
+    cp_async_rows(p.bcol_suc, in.bcol_suc + rt * ACK, ACK, i, n);
+    cp_async_rows(p.hd, in.hd + rt * NC, NC, i, n);
+    cp_async_rows(p.allowed, in.allowed + rt * NC, NC, i, n);
+    cp_async_elems(reinterpret_cast<int*>(p.d01),
+                   reinterpret_cast<const int*>(in.d01 + rt * CN), CN / 4, i, n);
+    cp_async_elems(reinterpret_cast<int*>(p.d02),
+                   reinterpret_cast<const int*>(in.d02 + rt * CN), CN / 4, i, n);
+    cp_async_commit();
+  };
+  // row t's column to the device store, on thread i of n
+  auto copy_out = [&](int t, int i, int n) {
+    const int4* src = reinterpret_cast<const int4*>(cols + (t & 1) * col);
+    int4* dst = reinterpret_cast<int4*>(out + ((size_t)t * R + r) * col);
+    for (size_t q = i; q < col * sizeof(S) / 16; q += n) dst[q] = src[q];
+  };
+
+  issue_row(T_pad - 1, tid, NT);
+  for (int t = T_pad - 1; t >= 0; --t) {
+    cp_async_wait_all();  // row t's inputs
+    __syncthreads();      // visible to all; column t & 1 free (row t + 2 is stored)
+    const BwdIn<S> view =
+        stage_in(stage_ptrs<S>(stages + (t & 1) * stb, 1, CN, CK, A), T_pad, CN, CK, A);
+    // row T_pad - 1 is terminal or dead, so the other column is not read
+    // there; while phase 2 runs, the threads it leaves free prefetch row
+    // t - 1's inputs (into the stage row t + 1 used) and store row t + 1
+    bwd_column_at(view, tl, t, 0, 0, nm1, tm1, cols + ((t + 1) & 1) * col,
+                  cols + (t & 1) * col, csm, [&](int i, int n) {
+                    if (t > 0) issue_row(t - 1, i, n);
+                    if (t + 1 < T_pad) copy_out(t + 1, i, n);
+                  });
+  }
+  copy_out(0, tid, NT);
 }
 
 // ---------------------------------------------------------------------------
@@ -1226,7 +1384,14 @@ int table_gather(const int* ks, const float* tab, float* out, int T, int J,
 
 template <typename S>
 int bwd(const BwdIn<S>& in, const S* tlog, const int* N_r, const int* T_r,
-        S* out, int NT, cudaStream_t stream) {
+        S* out, int NT, int shared, cudaStream_t stream) {
+  if (shared) {
+    const size_t smem = bwd_shared_bytes<S>(in.CN, in.CK, in.A);
+    cudaError_t err = launch_smem(bwd_shared_kernel<S>, smem);
+    if (err != cudaSuccess) return (int)err;
+    bwd_shared_kernel<S><<<in.R, NT, smem, stream>>>(in, tlog, N_r, T_r, out);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = bwd_smem<S>(in.CN * in.CK);
   cudaError_t err = launch_smem(bwd_kernel<S>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1358,11 +1523,11 @@ int walk(const S* lp, const short* choices, const int* slots,
       const int* bcol_suc, const S* mu_k, const S* c1_k, const S* c2_k,       \
       const S* suc, const S* nsl, const S* tlog, const int* N_r,              \
       const int* T_r, S* out, int R, int T_pad, int CN, int CK, int A, int NT, \
-      void* stream) {                                                          \
+      int shared, void* stream) {                                              \
     const BwdIn<S> in{sig, cand_n, allowed, hd, d01, d02, brow_same,          \
                       brow_next, bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc,  \
                       nsl, R, T_pad, CN, CK, A};                              \
-    return bwd<S>(in, tlog, N_r, T_r, out, NT, (cudaStream_t)stream);         \
+    return bwd<S>(in, tlog, N_r, T_r, out, NT, shared, (cudaStream_t)stream); \
   }                                                                            \
   extern "C" int ntc_bwd_ckpt_##SUF(                                           \
       const S* sig, const int* cand_n, const unsigned char* allowed,          \

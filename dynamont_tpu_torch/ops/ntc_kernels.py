@@ -6,6 +6,7 @@ versions:
   table_gather / table_gather_plain
                                  #12 ntc_table_gather replaces _tab_gather_kernel
   bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
+                                 (two instances, bwd_instance)
   bwd_ckpt   / bwd_ckpt_plain    K14 ntc_bwd_ckpt    replaces _bwd_ckpt_kernel
   pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
                                  (two instances, pv_instance)
@@ -65,6 +66,8 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 # ntc_pv's launches by instance (pv_instance): "shared" columns or "device"
 PV_LAUNCHES = {"shared": 0, "device": 0}
+# ntc_bwd's launches by instance (bwd_instance), the same two names
+BWD_LAUNCHES = {"shared": 0, "device": 0}
 
 
 def reset_counts() -> None:
@@ -73,6 +76,7 @@ def reset_counts() -> None:
         PLAIN_RUNS[k] = 0
     for k in PV_LAUNCHES:
         PV_LAUNCHES[k] = 0
+        BWD_LAUNCHES[k] = 0
 
 
 class PvInstance(NamedTuple):
@@ -111,11 +115,45 @@ def pv_instance(CN: int, CK: int, A: int, itemsize: int) -> PvInstance:
     return PvInstance("shared" if fits else "device", nbytes)
 
 
+class BwdInstance(NamedTuple):
+    """Which kernel ntc_bwd launches at one shape: "shared"
+    (csrc/ntc_lattice.cu bwd_shared_kernel: rows t + 1 and t, the phase 1
+    -> 2 scratch and two stages of row inputs in shared memory) or "device"
+    (bwd_kernel: row t + 1 read back from the device store); `nbytes` is
+    the chosen kernel's shared memory."""
+
+    name: str
+    nbytes: int
+
+
+def bwd_instance(CN: int, CK: int, A: int, itemsize: int) -> BwdInstance:
+    """ntc_bwd's instance at CN n-slots, CK k-slots, alphabet A and element
+    size `itemsize`: the shared one where NC = CN*CK is a multiple of 16,
+    CN and CK multiples of 4 (its 16-byte copies of every row input, 4-byte
+    ones of d01 and d02) and its bytes fit SMEM_LIMIT; the device-memory
+    one otherwise. The byte counts repeat csrc/ntc_lattice.cu's
+    bwd_shared_bytes and bwd_smem: two columns (5 x NC each), the phase 1
+    -> 2 scratch (4 x NC values and NC flags), and two stages of one row's
+    inputs (stage_bytes at C = 1: mu_k/c1_k/c2_k 3*CK, suc 3*A*CK, the
+    n-slots' 6*CN and two samples; cand_n, brow_same, brow_next CN int32
+    each, bcol_same CK and bcol_suc A*CK int32; hd NC int16; allowed NC,
+    d01 and d02 CN bytes each)."""
+    NC = CN * CK
+    scratch = 4 * NC * itemsize + NC
+    stage = (_al16((3 * CK + 3 * A * CK + 6 * CN + 2) * itemsize)
+             + _al16((3 * CN + CK + A * CK) * 4) + _al16(NC * 2)
+             + _al16(NC + 2 * CN))
+    shared = 2 * 5 * NC * itemsize + _al16(scratch) + 2 * stage
+    if NC % 16 == 0 and CN % 4 == 0 and CK % 4 == 0 and shared <= SMEM_LIMIT:
+        return BwdInstance("shared", shared)
+    return BwdInstance("device", scratch)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ntc_tab_gather": [_P] * 7 + [_I] * 6 + [_P],
     "ntc_table_gather": [_P] * 3 + [_I] * 3 + [_P],
-    "ntc_bwd": [_P] * 19 + [_I] * 6 + [_P],
+    "ntc_bwd": [_P] * 19 + [_I] * 7 + [_P],
     "ntc_bwd_ckpt": [_P] * 21 + [_I] * 7 + [_P],
     "ntc_pv": [_P] * 22 + [_I] * 8 + [_P],
     "ntc_pv_ckpt": [_P] * 31 + [_I] * 8 + [_P],
@@ -288,12 +326,21 @@ def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     R, CN, CK, A = dims
     T_pad = _check_bwd_inputs(name, plan, dims, prm, sig, N_r, T_r)
     out = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
+    inst = bwd_instance(CN, CK, A, sig.element_size()).name
+    if inst == "shared":
+        p = plan
+        _check_aligned(name, cand_n=p.cand_n, allowed=p.allowed,
+                       hd=p.hd, d01=p.d01, d02=p.d02, brow_same=p.brow_same,
+                       brow_next=p.brow_next, bcol_same=p.bcol_same,
+                       bcol_suc=p.bcol_suc, **prm._asdict())
     tl = tl_tensor(trans_log, dtype, dev)
     rc = _entry(name, dtype)(
         *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
-        _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK), _stream(dev))
+        _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK),
+        int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    BWD_LAUNCHES[inst] += 1
     return out
 
 

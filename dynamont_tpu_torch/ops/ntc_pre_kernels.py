@@ -2,7 +2,10 @@
 dynamont_tpu/ops/ntc_pre_pallas.py) and their plain-torch versions:
 
   tn_fwd     / tn_fwd_plain      K7  ntc_tn_fwd      replaces _tn_fwd_kernel
-  tn_bwd_sel / tn_bwd_sel_plain  K8  ntc_tn_bwd_sel  replaces _tn_bwd_kernel
+  tn_bwd_sel / tn_bwd_sel_plain  K8  ntc_tn_bwd_sel  replaces _tn_bwd_kernel,
+                                 two kernels: tn_bwd_u / tn_bwd_u_plain (the
+                                 chain) and tn_sel / tn_sel_plain (the
+                                 selection)
   tk_bwd     / tk_bwd_plain      K9  ntc_tk_bwd      replaces _tk_bwd_kernel
   tk_fwd_u   / tk_fwd_u_plain    K10 ntc_tk_fwd_u    replaces _tk_fwd_kernel
 
@@ -24,6 +27,9 @@ uses sig[t-1], of the backward sig[t]; the rows past a read's T are dead):
                               indices | kid at index-1 | kid at index
                               (clipped to [0, N2-2]) | max | mass
   E0      (R, N2)             TN backward E row 0 (Zb = E0[:, 0])
+  u       (T_pad, R, N2)      K8's u store between its two kernels:
+                              logaddexp(fwd_M + M, fwd_E + E) of the TN
+                              backward (M, E)
   bwd     (T_pad, 2, R, K)    TK backward store (M, E)
   U       (T_pad, R, K)       TK combined log-posteriors, unnormalized
   finalE  (R, K)              TK forward E at row T_r-1 (Zf)
@@ -54,6 +60,8 @@ from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c
 KERNELS = ("ntc_tn_fwd", "ntc_tn_bwd_sel", "ntc_tk_bwd", "ntc_tk_fwd_u")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
+# ntc_tn_bwd_sel's two kernels, launches of each
+TN_BWD_SEL_LAUNCHES = {"tn_bwd_u": 0, "tn_sel": 0}
 MAX_THREADS = 512  # csrc/ntc_pre.cu __launch_bounds__
 MAX_COLS = 8  # columns per thread (registers in the kernels)
 NEG_INF = -math.inf
@@ -64,6 +72,8 @@ def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_RUNS[k] = 0
+    for k in TN_BWD_SEL_LAUNCHES:
+        TN_BWD_SEL_LAUNCHES[k] = 0
 
 
 def threads(W: int) -> int:
@@ -75,7 +85,8 @@ def threads(W: int) -> int:
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _ARGTYPES = {
     "ntc_tn_fwd": [_P] * 4 + [_I] * 4 + [_D, _D, _P],
-    "ntc_tn_bwd_sel": [_P] * 8 + [_I] * 5 + [_D, _D, _P],
+    "ntc_tn_bwd_u": [_P] * 7 + [_I] * 4 + [_D, _D, _P],
+    "ntc_tn_sel": [_P] * 3 + [_I] * 5 + [_P],
     "ntc_tk_bwd": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
     "ntc_tk_fwd_u": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
 }
@@ -214,22 +225,21 @@ def tn_fwd(sig, tab, N_r, log_m1: float, log_e2: float):
 
 
 # ---------------------------------------------------------------------------
-# K8: TN backward fused with the per-column top-cap
+# K8: the TN backward (the chain, into the u store), then the per-column
+# top-cap (the selection)
 # ---------------------------------------------------------------------------
 
-def tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
-                     log_e2: float):
-    PLAIN_RUNS["ntc_tn_bwd_sel"] += 1
+def tn_bwd_u_plain(sig, tab, N_r, T_r, fwd, log_m1: float, log_e2: float):
+    """(u (T_pad, R, N2), E0 (R, N2)): the TN backward from row T_pad-1
+    down, each row's u = logaddexp(fwd_M + M, fwd_E + E)."""
     R, Tm1 = sig.shape
     T_pad, N2 = Tm1 + 1, tab.shape[2] + 1
     dev, dtype = sig.device, sig.dtype
     mu, sinv, l2s = tab
-    B = threads(N2)
     n_iota = torch.arange(N2, device=dev)[None, :]
     live = n_iota[:, :-1] < (N_r - 1)[:, None]
     term_E = torch.where(n_iota == (N_r - 1)[:, None], 0.0, NEG_INF).to(dtype)
-    kid = kid.long()
-    pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=dtype, device=dev)
+    u = torch.empty((T_pad, R, N2), dtype=dtype, device=dev)
     M_next = torch.full((R, N2), NEG_INF, dtype=dtype, device=dev)
     E_next = M_next.clone()
     neg1 = torch.full((R, 1), NEG_INF, dtype=dtype, device=dev)
@@ -243,48 +253,105 @@ def tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
         dead = (t > T_r - 1)[:, None]
         M_next = torch.where(is_term | dead, NEG_INF, M_new)
         E_next = torch.where(is_term, term_E, torch.where(dead, NEG_INF, ext))
-        u = torch.logaddexp(fwd[t, 0] + M_next, fwd[t, 1] + E_next)
-        vals, idx = _topk_maxmask(u, cap)
+        u[t] = torch.logaddexp(fwd[t, 0] + M_next, fwd[t, 1] + E_next)
+    return u, E_next
+
+
+def tn_sel_plain(u, kid, cap: int):
+    """pack (T_pad, R, 4cap+2) from the u store: per row the top-cap
+    (_topk_maxmask), the k-mer ids at index-1 and index (clipped to
+    [0, N2-2]), the max m0 and the mass _tree_sum(exp(u - m0)) at B =
+    threads(N2). Rows are independent; a block of rows at a time."""
+    T_pad, R, N2 = u.shape
+    B = threads(N2)
+    kid = kid.long()
+    pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=u.dtype, device=u.device)
+    step = max(1, (1 << 24) // (R * N2))
+    for t0 in range(0, T_pad, step):
+        ub = u[t0:t0 + step]
+        nt = ub.shape[0]
+        vals, idx = _topk_maxmask(ub.reshape(nt * R, N2), cap)
         m0 = vals[:, 0]
         m0s = torch.where(torch.isfinite(m0), m0, 0.0)
-        tot = _tree_sum(torch.exp(u - m0s[:, None]), B)
-        kn1 = torch.gather(kid, 1, (idx - 1).clamp(0, N2 - 2))
-        kn2 = torch.gather(kid, 1, idx.clamp(0, N2 - 2))
-        pack[t] = torch.cat([vals, idx.to(dtype), kn1.to(dtype),
-                             kn2.to(dtype), m0[:, None], tot[:, None]], dim=1)
-    return pack, E_next
+        tot = _tree_sum(torch.exp(ub.reshape(nt * R, N2) - m0s[:, None]), B)
+        idx = idx.reshape(nt, R, cap)
+        kb = kid[None].expand(nt, R, N2 - 1)
+        kn1 = torch.gather(kb, 2, (idx - 1).clamp(0, N2 - 2))
+        kn2 = torch.gather(kb, 2, idx.clamp(0, N2 - 2))
+        pack[t0:t0 + nt] = torch.cat(
+            [vals.reshape(nt, R, cap), idx.to(u.dtype), kn1.to(u.dtype),
+             kn2.to(u.dtype), m0.reshape(nt, R, 1), tot.reshape(nt, R, 1)],
+            dim=2)
+    return pack
+
+
+def tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
+                     log_e2: float):
+    PLAIN_RUNS["ntc_tn_bwd_sel"] += 1
+    u, E0 = tn_bwd_u_plain(sig, tab, N_r, T_r, fwd, log_m1, log_e2)
+    return tn_sel_plain(u, kid, cap), E0
+
+
+def tn_bwd_u(sig, tab, N_r, T_r, fwd, log_m1: float, log_e2: float):
+    """(u (T_pad, R, N2), E0 (R, N2)): K8's chain (kernel tn_bwd_u_kernel)."""
+    if _on_cpu(sig):
+        return tn_bwd_u_plain(sig, tab, N_r, T_r, fwd, log_m1, log_e2)
+    name = "ntc_tn_bwd_u"
+    dtype = sig.dtype
+    _check(name, dtype, sig.device, sig=sig, tab=tab, N_r=N_r, T_r=T_r, fwd=fwd)
+    _check_same(name, dtype, tab, fwd)
+    _check_ints(name, N_r=N_r, T_r=T_r)
+    R, Tm1 = sig.shape
+    N2 = tab.shape[2] + 1
+    if (tab.shape[:2] != (3, R) or fwd.shape != (Tm1 + 1, 2, R, N2)
+            or N_r.shape != (R,) or T_r.shape != (R,)):
+        raise ValueError(f"{name}: inputs do not match sig {tuple(sig.shape)}")
+    T_pad = Tm1 + 1
+    B = _check_width(name, N2)
+    u = torch.empty((T_pad, R, N2), dtype=dtype, device=sig.device)
+    E0 = torch.empty((R, N2), dtype=dtype, device=sig.device)
+    rc = _entry(name, dtype)(
+        _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(T_r), _ptr(fwd), _ptr(u),
+        _ptr(E0), R, T_pad, N2, B, log_m1, log_e2, _stream(sig.device))
+    _raise_on(name, rc)
+    TN_BWD_SEL_LAUNCHES["tn_bwd_u"] += 1
+    return u, E0
+
+
+def tn_sel(u, kid, cap: int):
+    """pack (T_pad, R, 4cap+2) from the u store: K8's selection (kernel
+    tn_sel_kernel, one warp per row)."""
+    if _on_cpu(u):
+        return tn_sel_plain(u, kid, cap)
+    name = "ntc_tn_sel"
+    _check(name, u.dtype, u.device, u=u, kid=kid)
+    _check_ints(name, kid=kid)
+    T_pad, R, N2 = u.shape
+    if kid.shape != (R, N2 - 1):
+        raise ValueError(f"{name}: kid {tuple(kid.shape)} does not match u "
+                         f"{tuple(u.shape)}")
+    if not 1 <= cap <= N2:
+        raise ValueError(f"{name}: cap {cap} outside [1, {N2}]")
+    B = _check_width(name, N2)
+    pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=u.dtype, device=u.device)
+    rc = _entry(name, u.dtype)(_ptr(u), _ptr(kid), _ptr(pack), T_pad * R, R,
+                               N2, B, cap, _stream(u.device))
+    _raise_on(name, rc)
+    TN_BWD_SEL_LAUNCHES["tn_sel"] += 1
+    return pack
 
 
 def tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
                log_e2: float):
-    """(pack (T_pad, R, 4cap+2), E0 (R, N2)) from the TN forward store."""
+    """(pack (T_pad, R, 4cap+2), E0 (R, N2)) from the TN forward store:
+    tn_bwd_u, then tn_sel on its u store (T_pad x R x N2, freed on return;
+    fwd is left as it was)."""
     if _on_cpu(sig):
         return tn_bwd_sel_plain(sig, tab, kid, N_r, T_r, fwd, cap, log_m1,
                                 log_e2)
-    name = "ntc_tn_bwd_sel"
-    dtype = sig.dtype
-    _check(name, dtype, sig.device, sig=sig, tab=tab, kid=kid, N_r=N_r,
-           T_r=T_r, fwd=fwd)
-    _check_same(name, dtype, tab, fwd)
-    _check_ints(name, kid=kid, N_r=N_r, T_r=T_r)
-    R, Tm1 = sig.shape
-    N2 = tab.shape[2] + 1
-    if (tab.shape[:2] != (3, R) or kid.shape != (R, N2 - 1)
-            or fwd.shape != (Tm1 + 1, 2, R, N2) or N_r.shape != (R,)
-            or T_r.shape != (R,)):
-        raise ValueError(f"{name}: inputs do not match sig {tuple(sig.shape)}")
-    if not 1 <= cap <= N2:
-        raise ValueError(f"{name}: cap {cap} outside [1, {N2}]")
-    B = _check_width(name, N2)
-    pack = torch.empty((Tm1 + 1, R, 4 * cap + 2), dtype=dtype,
-                       device=sig.device)
-    E0 = torch.empty((R, N2), dtype=dtype, device=sig.device)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(tab), _ptr(kid), _ptr(N_r), _ptr(T_r), _ptr(fwd),
-        _ptr(pack), _ptr(E0), R, Tm1 + 1, N2, B, cap, log_m1, log_e2,
-        _stream(sig.device))
-    _raise_on(name, rc)
-    LAUNCHES[name] += 1
+    u, E0 = tn_bwd_u(sig, tab, N_r, T_r, fwd, log_m1, log_e2)
+    pack = tn_sel(u, kid, cap)
+    LAUNCHES["ntc_tn_bwd_sel"] += 1
     return pack, E0
 
 

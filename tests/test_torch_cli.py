@@ -123,6 +123,74 @@ def test_multi_chunk_run_keeps_three_chunks_in_flight(tmp_path, monkeypatch):
     assert err == (tmp_path / "jax.errors").read_bytes()
 
 
+class _StubNTCEngine:
+    """Stands in for both packages' NTCBatchEngine: records the bucket
+    size it is built with and the size of every dispatched chunk, and
+    gives each read segments made from that read alone (one per base,
+    evenly spaced), so that the CSV depends on the reads and not on how
+    they were chunked."""
+
+    built: list = []
+    chunks: list = []
+
+    def __init__(self, model, pore, batch_size=None, **kwargs):
+        self.model = model
+        self.built.append(batch_size)
+
+    def dispatch(self, items):
+        self.chunks.append(len(items))
+        return items
+
+    def collect(self, items):
+        from types import SimpleNamespace
+
+        outs = []
+        for it in items:
+            L, T = len(it.read), len(it.signal)
+            segs = [("M", b, b * (T // L), 0.5 + b / 1000.0) for b in range(L)]
+            outs.append(SimpleNamespace(item=it, segments=segs, summaries=None,
+                                        error=None))
+        return outs
+
+    def run(self, items):
+        return self.collect(self.dispatch(items))
+
+
+def test_resquiggle_chunk_is_jax_chunk(tmp_path, monkeypatch):
+    """Resquiggle mode without --batch_size: 130 reads go out as a
+    128-read chunk ((batch_size or 32) * 4, as dynamont_tpu's CLI cuts
+    them) and a 2-read one, into 16-read buckets, in both CLIs; with
+    --batch_size 16 the port cuts 64-read chunks, and its CSV is the same
+    bytes."""
+    from dynamont_tpu.models import ntc_batch as jax_ntc_batch
+
+    monkeypatch.setattr(torch_ntc_batch, "NTCBatchEngine", _StubNTCEngine)
+    monkeypatch.setattr(jax_ntc_batch, "NTCBatchEngine", _StubNTCEngine)
+    model = load_model_for_pore("rna002")
+    items = []
+    for s in range(130):
+        sig, read_proc = make_read(model, n_bases=20, seed=300 + s)
+        items.append((f"read{s}", sig, read_proc[9:][::-1]))
+    tsv = tmp_path / "reads.tsv"
+    _write_tsv(tsv, items)
+    args = ["--tsv", str(tsv), "--mode", "resquiggle", "-p", "rna002"]
+    runs = {"jax": [], "torch": [], "torch16": ["--batch_size", "16"]}
+    got = {}
+    for name, extra in runs.items():
+        _StubNTCEngine.built, _StubNTCEngine.chunks = [], []
+        out = tmp_path / f"{name}.csv.zst"
+        if name == "jax":
+            jax_cli.main(args + ["-o", str(out)])
+        else:
+            torch_cli.main(args + extra + ["-o", str(out), "--device", "cpu"])
+        got[name] = (_StubNTCEngine.built, _StubNTCEngine.chunks, _rows(out))
+    assert got["jax"][:2] == got["torch"][:2] == ([16], [128, 2])
+    assert got["torch16"][:2] == ([16], [64, 64, 2])
+    head, rows = got["torch"][2]
+    assert len({r[0] for r in rows}) == 130
+    assert got["torch16"][2] == got["jax"][2] == (head, rows)
+
+
 def test_port_cli_refuses_native_9mer(tsv, tmp_path, monkeypatch):
     """--ntc-native-9mer is no longer refused: it runs resquiggle mode (with
     rna002's 5-mer table it changes nothing, as in dynamont_tpu; the native

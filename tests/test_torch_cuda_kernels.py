@@ -364,6 +364,55 @@ def test_ntc_pre_kernels_match_plain_on_cuda(card, dtype):
     assert all(kn.LAUNCHES[k] == launches[k] + 1 for k in kn.KERNELS)
 
 
+def _sel_rows(n2, dtype):
+    """(u (4, 3, n2), kid (3, n2-1)) on the card: normal rows, a tie for
+    the max at three columns, a row of one value, a row with 2 finite
+    columns (exhausted for cap > 2), a row all -inf, ties at the cap
+    boundary (tests/test_torch_ntc_pre.py's rows)."""
+    rng = np.random.default_rng(n2)
+    u = rng.normal(scale=3.0, size=(4, 3, n2))
+    u[0, 1, [1, n2 // 2, n2 - 1]] = 9.0
+    u[0, 2, :] = 1.5
+    u[1, 0, :] = -np.inf
+    u[1, 0, [3 % n2, n2 - 2]] = [0.5, 0.25]
+    u[1, 1, :] = -np.inf
+    u[2, 2, ::3] = 4.0
+    kid = rng.integers(0, 1024, size=(3, n2 - 1)).astype(np.int32)
+    return torch.from_numpy(u).to(dtype).cuda(), torch.from_numpy(kid).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_tn_bwd_sel_kernels_match_plain_on_cuda(card, dtype):
+    """K8's two kernels against their plain functions, bit for bit: the
+    chain (tn_bwd_u: the u store and E0) on the short reads, and the
+    selection (tn_sel) on its plain u there and on rows with ties and
+    exhausted rows at N2 8, 64, 96 and 2048 (B 8, 64, 32, 512: the B <= 32
+    path and the warp-sum path), caps 1, 8 and 16."""
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    sig, kid, N, T, tab, _ = _ntc_bucket(dtype)
+    fwd = kn.tn_fwd_plain(sig, tab, N, LM, LE)
+    parts = dict(kn.TN_BWD_SEL_LAUNCHES)
+    u, E0 = kn.tn_bwd_u(sig, tab, N, T, fwd, LM, LE)
+    pu, pE0 = kn.tn_bwd_u_plain(sig, tab, N, T, fwd, LM, LE)
+    same(u, pu)
+    same(E0, pE0)
+    for cap in (1, 8, 16):
+        same(kn.tn_sel(pu, kid, cap), kn.tn_sel_plain(pu, kid, cap))
+    n_sel = 3
+    for n2 in (8, 64, 96, 2048):
+        u, kid = _sel_rows(n2, dtype)
+        for cap in (1, 8, 16):
+            if cap <= n2:
+                same(kn.tn_sel(u, kid, cap), kn.tn_sel_plain(u, kid, cap))
+                n_sel += 1
+    torch.cuda.synchronize()
+    assert kn.TN_BWD_SEL_LAUNCHES == {"tn_bwd_u": parts["tn_bwd_u"] + 1,
+                                      "tn_sel": parts["tn_sel"] + n_sel}
+
+
 @pytest.mark.cuda
 def test_ntc_per_read_cuda_matches_cpu(card):
     """The exact per-read NTC on the card against the plain route: borders
@@ -513,6 +562,41 @@ def test_ntc_pv_instances_match_plain_on_cuda(card, dtype, caps):
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
     assert {k: kern.PV_LAUNCHES[k] - before[k] for k in before} == \
+        {k: int(k == inst.name) for k in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_bwd_instances_match_plain_on_cuda(card, dtype, caps):
+    """K13 in the instance its shape takes (the shared-column one at (8,
+    120), CK 128; bwd_kernel at (16, 240), CK 256) against bwd_plain on
+    four reads of different T_r, one at T_r = T_pad: the store bit for
+    bit, and the launch counted under that instance."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype, full_row=True)
+    assert len(set(T.tolist())) == 4 and int(T.max()) == sig.shape[1] + 1
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    prm = kern.tab_gather_plain(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4,
+                                                                          dtype), dims)
+    inst = kern.bwd_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    assert (dims.CK, inst.name) == {(8, 120): (128, "shared"), (16, 240): (256, "device")}[caps]
+    before = dict(kern.BWD_LAUNCHES)
+    got = kern.bwd(plan, dims, prm, sig, tl, N, T)
+    want = kern.bwd_plain(plan, dims, prm, sig, tl, N, T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert {k: kern.BWD_LAUNCHES[k] - before[k] for k in before} == \
         {k: int(k == inst.name) for k in before}
 
 

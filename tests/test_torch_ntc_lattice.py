@@ -306,6 +306,35 @@ def test_walk_records_finish_to_summaries(port):
     assert med[0].tolist() == pytest.approx([0.3, 0.3, 0.0, 0.0])
 
 
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_bwd_instance_at_engine_caps(caps, itemsize):
+    """K13's instance at the engine's caps: the main rung (8, 120) (CK
+    128) takes the shared-column instance in fp32 and fp64, the wide rung
+    (16, 240) (CK 256) the device-memory one, and each choice's shared
+    memory fits the card's 227 KB. The bytes are csrc/ntc_lattice.cu's
+    bwd_shared_bytes and bwd_smem, written out: two columns of 5*NC, the
+    phase 1 -> 2 scratch (4*NC values, NC flags) and two one-row stages."""
+    from dynamont_tpu_torch.models import ntc_batch as engine
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    cn, ck0 = caps
+    assert caps in ((8, 120), engine.WIDE_CAPS)
+    CN, CK, A = cn, ck0 + cn, 4
+    NC = CN * CK
+    al = lambda b: -(-b // 16) * 16
+    stage = (al((3 * CK + 3 * A * CK + 6 * CN + 2) * itemsize) + al((3 * CN + CK + A * CK) * 4)
+             + al(2 * NC) + al(NC + 2 * CN))
+    shared = 10 * NC * itemsize + al(4 * NC * itemsize + NC) + 2 * stage
+    inst = kern.bwd_instance(CN, CK, A, itemsize)
+    assert inst.name == ("shared" if caps == (8, 120) else "device")
+    assert inst.nbytes == (shared if inst.name == "shared" else 4 * NC * itemsize + NC)
+    assert inst.nbytes <= kern.SMEM_LIMIT == 232448
+    assert (shared <= kern.SMEM_LIMIT) == (inst.name == "shared")
+    if caps == (8, 120):
+        assert inst.nbytes == {4: 85632, 8: 158720}[itemsize]
+
+
 @pytest.mark.parametrize("caps", [(8, 120), (16, 240), (16, 256)])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_pv_instance_at_engine_caps(caps, itemsize):

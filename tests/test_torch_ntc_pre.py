@@ -10,6 +10,10 @@
   tests/test_ntc_batch.py, at the TN cap (iterated max) and the TK cap
   (stable sort), against the JAX function.
 * The per-read pre_tn/pre_tk (the exact rung) against dynamont_tpu.ops.ntc_pre.
+* K8's plain version as two passes (tn_bwd_u_plain, the chain, then
+  tn_sel_plain, the selection) equals the fused one-pass form bit for bit,
+  and tn_sel_plain equals a row-by-row reference of its top-cap and mass
+  on rows with ties and exhausted rows (the port's own paths; no JAX run).
 """
 
 import math
@@ -194,3 +198,158 @@ def test_running_mass_matches_associative_scan():
         np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
         fin = np.isfinite(want)
         np.testing.assert_allclose(got[fin], want[fin], rtol=1e-15, atol=0)
+
+
+def _fused_tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap, log_m1, log_e2):
+    """K8's plain version in its one-pass form (the selection taken on the
+    chain, row by row), the form tn_bwd_u_plain + tn_sel_plain split."""
+    R, Tm1 = sig.shape
+    T_pad, N2 = Tm1 + 1, tab.shape[2] + 1
+    dev, dtype = sig.device, sig.dtype
+    mu, sinv, l2s = tab
+    B = kn.threads(N2)
+    n_iota = torch.arange(N2, device=dev)[None, :]
+    live = n_iota[:, :-1] < (N_r - 1)[:, None]
+    term_E = torch.where(n_iota == (N_r - 1)[:, None], 0.0, -math.inf).to(dtype)
+    kid = kid.long()
+    pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=dtype, device=dev)
+    M_next = torch.full((R, N2), -math.inf, dtype=dtype, device=dev)
+    E_next = M_next.clone()
+    neg1 = torch.full((R, 1), -math.inf, dtype=dtype, device=dev)
+    zero = torch.zeros((R,), dtype=dtype, device=dev)
+    for t in range(T_pad - 1, -1, -1):
+        sc = kn._tn_scores(sig[:, t] if t < Tm1 else zero, mu, sinv, l2s, live)
+        ext = torch.cat([M_next[:, 1:] + sc + log_m1, neg1], dim=1)
+        M_new = torch.cat([neg1, E_next[:, 1:] + sc], dim=1)
+        ext[:, 1:] = torch.logaddexp(ext[:, 1:], E_next[:, 1:] + sc + log_e2)
+        is_term = (t == T_r - 1)[:, None]
+        dead = (t > T_r - 1)[:, None]
+        M_next = torch.where(is_term | dead, -math.inf, M_new)
+        E_next = torch.where(is_term, term_E, torch.where(dead, -math.inf, ext))
+        u = torch.logaddexp(fwd[t, 0] + M_next, fwd[t, 1] + E_next)
+        vals, idx = kn._topk_maxmask(u, cap)
+        m0 = vals[:, 0]
+        m0s = torch.where(torch.isfinite(m0), m0, 0.0)
+        tot = kn._tree_sum(torch.exp(u - m0s[:, None]), B)
+        kn1 = torch.gather(kid, 1, (idx - 1).clamp(0, N2 - 2))
+        kn2 = torch.gather(kid, 1, idx.clamp(0, N2 - 2))
+        pack[t] = torch.cat([vals, idx.to(dtype), kn1.to(dtype),
+                             kn2.to(dtype), m0[:, None], tot[:, None]], dim=1)
+    return pack, E_next
+
+
+def _tn_bucket(model, n2, dtype):
+    """Three short reads at N2 = n2 (reads short enough to fit), padded as
+    the engine pads (T_pad a multiple of 64): sig, tab, kid, N_r, T_r."""
+    bases = {8: (2, 1, 2), 64: (25, 31, 18), 2048: (25, 31, 18)}[n2]
+    reads = [make_read(model, n_bases=n, seed=20 + s) for s, n in enumerate(bases)]
+    kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in reads]
+    T = np.array([len(s) + 1 for s, _ in reads], np.int32)
+    N = np.array([len(k) + 1 for k in kids], np.int32)
+    assert N.max() <= n2
+    T_pad = -(-int(T.max()) // 64) * 64
+    sig = np.zeros((3, T_pad - 1))
+    kid = np.zeros((3, n2 - 1), np.int32)
+    for i, ((s, _), k) in enumerate(zip(reads, kids)):
+        sig[i, : len(s)] = s
+        kid[i, : len(k)] = k
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    tab = tnb.tn_tables(t(kid), t(model.means), t(model.stdevs), dtype)
+    return t(sig).to(dtype), tab, t(kid), t(N), t(T)
+
+
+@pytest.mark.parametrize("n2, cap", [(8, 1), (64, 8), (2048, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tn_bwd_sel_split_equals_fused(model, dtype, n2, cap):
+    """tn_sel_plain after tn_bwd_u_plain gives the fused pass's pack and E0
+    bit for bit, at B = threads(N2) 8, 64 and 512; the bucket has
+    exhausted rows (fewer than cap finite columns) and dead ones."""
+    sig, tab, kid, N, T = _tn_bucket(model, n2, dtype)
+    fwd = kn.tn_fwd_plain(sig, tab, N, LM, LE)
+    want = _fused_tn_bwd_sel(sig, tab, kid, N, T, fwd, cap, LM, LE)
+    u, E0 = kn.tn_bwd_u_plain(sig, tab, N, T, fwd, LM, LE)
+    runs = kn.PLAIN_RUNS["ntc_tn_bwd_sel"]
+    for got in ((kn.tn_sel_plain(u, kid, cap), E0),
+                kn.tn_bwd_sel_plain(sig, tab, kid, N, T, fwd, cap, LM, LE)):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    assert kn.PLAIN_RUNS["ntc_tn_bwd_sel"] == runs + 1
+    vals = want[0][..., :cap]
+    assert torch.isneginf(vals[..., 0]).any()              # dead rows
+    if cap > 1:
+        finite = torch.isfinite(vals[..., 0])
+        assert (finite & torch.isneginf(vals[..., -1])).any()  # exhausted rows
+
+
+def _sel_rows(n2, dtype):
+    """(u (4, 3, n2), kid (3, n2-1)): normal rows, a tie for the max at
+    three columns, a row of one value, rows with 2 finite columns (exhausted
+    for cap > 2), a row all -inf, and ties at the cap boundary."""
+    rng = np.random.default_rng(n2)
+    u = rng.normal(scale=3.0, size=(4, 3, n2))
+    u[0, 1, [1, n2 // 2, n2 - 1]] = 9.0
+    u[0, 2, :] = 1.5
+    u[1, 0, :] = -np.inf
+    u[1, 0, [3 % n2, n2 - 2]] = [0.5, 0.25]
+    u[1, 1, :] = -np.inf
+    u[2, 2, ::3] = 4.0
+    kid = rng.integers(0, 1024, size=(3, n2 - 1)).astype(np.int32)
+    return torch.from_numpy(u).to(dtype), torch.from_numpy(kid)
+
+
+def _sel_reference(u, kid, cap):
+    """The selection row by row in numpy: the top cap in the order
+    (value descending, index ascending), (-inf, 0) once nothing finite is
+    left; the mass of exp(u - m0) (torch's exp) summed slot by slot (slot
+    b: columns b, b+B, ...), then pairwise within each 32 slots, then over
+    the warp sums, in u's dtype."""
+    T_pad, R, N2 = u.shape
+    B = kn.threads(N2)
+    nd = np.float32 if u.dtype == torch.float32 else np.float64
+
+    def halve(x):
+        while len(x) > 1:
+            h = len(x) // 2
+            x = [x[i] + x[i + h] for i in range(h)]
+        return x[0]
+
+    pack = np.zeros((T_pad, R, 4 * cap + 2), nd)
+    for t in range(T_pad):
+        for r in range(R):
+            row = u[t, r].numpy()
+            order = sorted(range(N2), key=lambda c: (-row[c], c))[:cap]
+            picks = [(row[c], c) if np.isfinite(row[c]) else (-np.inf, 0)
+                     for c in order]
+            picks += [(-np.inf, 0)] * (cap - len(picks))
+            m0 = picks[0][0]
+            e = torch.exp(u[t, r] - (m0 if np.isfinite(m0) else 0.0)).numpy()
+            slots = []
+            for b in range(B):
+                acc = e[b]
+                for c in range(b + B, N2, B):
+                    acc = nd(acc + e[c])
+                slots.append(acc)
+            mass = (halve([halve(slots[g:g + 32]) for g in range(0, B, 32)])
+                    if B > 32 else halve(slots))
+            for j, (v, c) in enumerate(picks):
+                pack[t, r, j] = v
+                pack[t, r, cap + j] = c
+                pack[t, r, 2 * cap + j] = kid[r, min(max(c - 1, 0), N2 - 2)]
+                pack[t, r, 3 * cap + j] = kid[r, min(c, N2 - 2)]
+            pack[t, r, 4 * cap] = m0
+            pack[t, r, 4 * cap + 1] = mass
+    return torch.from_numpy(pack)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tn_sel_plain_on_ties_and_exhausted_rows(dtype):
+    """tn_sel_plain against the row-by-row reference, bit for bit, at N2 8,
+    64, 96 and 2048 (B 8, 64, 32, 512) and caps 1, 8 and 16."""
+    for n2 in (8, 64, 96, 2048):
+        u, kid = _sel_rows(n2, dtype)
+        for cap in (1, 8, 16):
+            if cap > n2:
+                continue
+            torch.testing.assert_close(kn.tn_sel_plain(u, kid, cap),
+                                       _sel_reference(u, kid.numpy(), cap),
+                                       rtol=0, atol=0, equal_nan=True)
