@@ -79,16 +79,20 @@ result line):
      written over the store, choices, slots, both finals, walk records,
      segment summaries, tacc, em, b0). At (16, 240) the engine's own route
      is the checkpointed one: ntc_bwd_ckpt and ntc_pv's checkpoint mode
-     (ntc_pv_ckpt) against their plain versions there, and its outputs
-     against the full store's (checkpoints = the store's rows (c+1)*8,
-     row 0, Zb, lp, choices, slots, finals, walk), bit for bit;
+     (ntc_pv_ckpt), each launched once in the instance its picker takes
+     there (a thread block cluster a read in both dtypes), against their
+     plain versions there, and its outputs against the full store's
+     (checkpoints = the store's rows (c+1)*8, row 0, Zb, lp, choices,
+     slots, finals, walk), bit for bit;
  12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
      and read right after: K7-K11, K13, K15, K16 all launched, every K15
      launch in its shared-column instance (pv_shared_kernel) and every K13
      launch in its (bwd_shared_kernel), no plain version; at most 2 reads
-     on the exact rung; the engine's profile, reads/s and peak memory;
+     on the exact rung; the natural run's wide retries and their time
+     (any K14 or K15 checkpoint-mode launch there in its cluster
+     instance); the engine's profile, reads/s and peak memory;
      read 0 against phase 10's exact fp64 run
      (at most max(1, segments/50) borders differ, Z within rel 1e-3); no
      training kernel launched. Then the engine's (16, 16384) bucket again,
@@ -104,8 +108,10 @@ result line):
      the wide rung at full width: 8 of the reads at caps (2, 2), which all
      overflow and re-run in one bucket at (16, 240) on the checkpointed
      route; the pre-pass kernels, K11 and K16 launched twice, K13 and K15
-     once (the tiny main bucket), K14 and K15's checkpoint mode once, no
-     plain version, no exact retry, each read within the bounds above of
+     once (the tiny main bucket), K14 and K15's checkpoint mode once, each
+     in its cluster instance (bwd_ckpt_cluster_kernel, G 8;
+     pv_ckpt_cluster_kernel, G 8), no plain version, no exact retry, each
+     read within the bounds above of
      its main-rung result; wall time and peak memory. That wide bucket
      through both routes: each route's wall time and peak memory, the
      outputs bit for bit equal (the full store's K15 and K13 in their
@@ -132,8 +138,10 @@ result line):
      cand, cnt, overflow, Zf and Zb bit for bit; (b) K11, K13, K15, K16 at
      (8, 120) and K11, K13, K14, K15 and its checkpoint mode, K16 at
      (16, 256) against their plain versions at K = 4^9 on two short reads,
-     fp32 (the native path's dtype), and the two routes against each
-     other; (c) 16 reads of
+     fp32 (the native path's dtype; K14 in its cluster instance, K15's
+     checkpoint mode in pv_kernel<S, true>, where CK 272 breaks the fp32
+     normalization's order across a cluster), and the two routes against
+     each other; (c) 16 reads of
      1800 bases drawn from the table (dwell and trim as phase 4's) through
      dynamont_tpu_torch.cli.resquiggle.main --ntc-native-9mer with the table
      as --model_path, every counter reset right before and read right
@@ -187,8 +195,8 @@ Each phase prints its wall time. The line before the last is
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
-banded_fwd_vit's and ntc_pv's (and its `ckpt`'s) say which design ran
-(`design`: the staged chunks, the instance); banded_vit's
+banded_fwd_vit's, ntc_bwd's, ntc_bwd_ckpt's and ntc_pv's (and its `ckpt`'s)
+say which design ran (`design`: the staged chunks, the instance); banded_vit's
 launches are phase 15(a)'s, ntc_table_gather's the one run of its own
 entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
 ntc_microop's those of phase 16's probe runs (no path runs them):
@@ -1133,11 +1141,14 @@ def phase_11(model, max_err: dict):
                    f"(13a) K17, K18 every output bit for bit, {walked}/{len(items)} reads walked")
             if caps == WIDE_CAPS:  # the engine's own route there: checkpointed
                 kc = {}
+                before = ckpt_counts()
                 eng._dispatch(list(range(len(items))), items, *caps, keep=kc)
+                inst = ckpt_launched(kc["dims"], kc["sig"].element_size(), before)
                 compare_ckpt(kc, plain_ms)
                 same_routes(kc, keep)
-                msg += ("; the engine's checkpointed route: K14 and K15's checkpoint mode "
-                        "bit for bit with their plain versions and with the full store's outputs")
+                msg += (f"; the engine's checkpointed route ({inst}): K14 and K15's checkpoint "
+                        "mode bit for bit with their plain versions and with the full store's "
+                        "outputs")
                 del kc
             log(f"{msg} ({time.perf_counter() - t0:.1f} s); plain versions ms "
                 + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items()))
@@ -1234,6 +1245,7 @@ def phase_12(model, bench, launches: dict, long_ref):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         lat, pre, pv_inst = dict(kern.LAUNCHES), dict(kn.LAUNCHES), dict(kern.PV_LAUNCHES)
+        ck_inst = ckpt_counts()
         bwd_inst, k8_parts = dict(kern.BWD_LAUNCHES), dict(kn.TN_BWD_SEL_LAUNCHES)
         plain = {**kern.PLAIN_RUNS, **kn.PLAIN_RUNS}
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1259,6 +1271,11 @@ def phase_12(model, bench, launches: dict, long_ref):
             raise AssertionError(f"ntc_tn_bwd_sel's two kernels ran {k8_parts} times")
         if pr["exact_retries"] > 2:
             raise AssertionError(f"{pr['exact_retries']} reads reached the exact rung")
+        log(f"[12] the natural run's wide rung: {pr['wide_retries']} of {NTC_READS} reads "
+            f"retried wide in {pr['wide_s']:.3f} s; K14 by instance {ck_inst[0]}, K15's "
+            f"checkpoint mode by instance {ck_inst[1]}")
+        if ck_inst[0]["device"] or ck_inst[1]["device"]:
+            raise AssertionError("the natural run's wide rung left a cluster instance")
         errors = os.path.join(tmp, "out.errors")
         if os.path.exists(errors):
             with open(errors) as f:
@@ -1423,6 +1440,49 @@ def bwd_design(dims, sig) -> str:
     return "bwd_kernel: row t + 1 read back from the device store"
 
 
+def ckpt_design(name: str, dims, sig) -> str:
+    """Which instance ntc_bwd_ckpt or ntc_pv_ckpt (`name`) takes at these
+    dims and dtype."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    pick = kern.bwd_ckpt_instance if name == "ntc_bwd_ckpt" else kern.pv_ckpt_instance
+    inst = pick(dims.CN, dims.CK, dims.A, sig.element_size())
+    if inst.name == "cluster":
+        kernel = name.removeprefix("ntc_") + "_cluster_kernel"
+        return (f"{kernel}: one read on a cluster of {inst.G} CTAs, each holding its "
+                f"{dims.CK // inst.G} k-slots of every column in shared memory "
+                f"({inst.nbytes} B a CTA)")
+    if name == "ntc_bwd_ckpt":
+        return "bwd_ckpt_kernel: one block a read, rows in a device-memory double buffer"
+    return "pv_kernel<S, true>: one block a read, columns in a device-memory double buffer"
+
+
+def ckpt_counts() -> tuple[dict, dict]:
+    """K14's and K15's checkpoint mode's launches by instance so far."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    return dict(kern.BWD_CKPT_LAUNCHES), dict(kern.PV_CKPT_LAUNCHES)
+
+
+def ckpt_launched(dims, itemsize: int, before: tuple[dict, dict], n: int = 1) -> str:
+    """Raises unless K14 and K15's checkpoint mode each launched n times
+    since `before` (ckpt_counts), all in the instance its picker takes at
+    dims; returns the instances, named for the log."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    named = []
+    for label, pick, b, now in (("K14", kern.bwd_ckpt_instance, before[0],
+                                 kern.BWD_CKPT_LAUNCHES),
+                                ("K15's checkpoint mode", kern.pv_ckpt_instance, before[1],
+                                 kern.PV_CKPT_LAUNCHES)):
+        inst = pick(dims.CN, dims.CK, dims.A, itemsize)
+        got = {k: now[k] - b[k] for k in now}
+        if got != {k: n * (k == inst.name) for k in now}:
+            raise AssertionError(f"{label} launched {got} by instance, not {n} of {inst.name}")
+        named.append(f"{label} {inst.name}" + (f" (G {inst.G})" if inst.G > 1 else ""))
+    return ", ".join(named)
+
+
 def train_times(kt: dict, plain_ms: dict) -> dict:
     """K17's and K18's timing entries on the inputs they had in the
     engine's training bucket `kt`, beside their plain runs' times."""
@@ -1536,13 +1596,14 @@ def wide_routes(eng, items, plain_ms: dict) -> dict:
         f"({full_design}); "
         "checkpointed route (plain: the runs beside the spawned processes):")
     times = {
-        "ntc_bwd_ckpt": timed(
+        "ntc_bwd_ckpt": dict(timed(
             "ntc_bwd_ckpt", lambda: kern.bwd_ckpt(p, dims, prm, sig, tl, N_r, T_r),
             plain_ms["ntc_bwd_ckpt"], bwd_in, cells, 2),
+            design=ckpt_design("ntc_bwd_ckpt", dims, sig)),
         "ntc_pv_ckpt": dict(timed(
             "ntc_pv_ckpt", lambda: kern.pv_ckpt(p, dims, prm, sig, ckpt, Zb, tl, N_r, T_r),
             plain_ms["ntc_pv_ckpt"], pv_in, cells, 2),
-            design="pv_kernel<S, true>: columns in a device-memory double buffer"),
+            design=ckpt_design("ntc_pv_ckpt", dims, sig)),
     }
     del kc, p, prm, sig, ckpt
     torch.cuda.empty_cache()
@@ -1563,6 +1624,7 @@ def wide_rung(model, eng, items, launches: dict) -> None:
 
     from dynamont_tpu_torch.models.batch import BatchOutput
     from dynamont_tpu_torch.models.ntc_batch import WIDE_CAPS, WIDE_READS, NTCBatchEngine
+    from dynamont_tpu_torch.ops import ntc_batch as nb
     from dynamont_tpu_torch.ops import ntc_kernels as kern
     from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
 
@@ -1575,6 +1637,7 @@ def wide_rung(model, eng, items, launches: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     kern.reset_counts()
     kn.reset_counts()
+    before = ckpt_counts()
     held = torch.cuda.memory_allocated() / 2**30  # by the earlier phases
     t0 = time.perf_counter()
     outs = weng.run(wide_items)
@@ -1595,6 +1658,9 @@ def wide_rung(model, eng, items, launches: dict) -> None:
     if (pr["wide_retries"] != WIDE_READS or pr["exact_retries"] or lat != want
             or any(v != 2 for v in pre.values()) or any(plain.values())):
         raise AssertionError("the wide rung missed a kernel, a read or fell further")
+    # CK = CK0 + CN k-slots (ops/ntc_batch.NTCPlan): 256
+    wide_dims = nb.PlanDims(WIDE_READS, WIDE_CAPS[0], WIDE_CAPS[1] + WIDE_CAPS[0], 4)
+    log(f"[12] the wide bucket's instances: {ckpt_launched(wide_dims, 4, before)}")
     launches.update(ntc_bwd_ckpt=lat["ntc_bwd_ckpt"], ntc_pv_ckpt=lat["ntc_pv_ckpt"])
     worst = (0, 0.0, 0.0)
     for i, (got, ref) in enumerate(zip(outs, main)):
@@ -1782,14 +1848,16 @@ def phase_14(model, bench, lm, le) -> None:
             kf, kc = {}, {}
             eng9._dispatch(gidx, short, *BIGK_WIDE_CAPS, keep=kf, ckpt=False)
             compare_lattice_kernels(kf, plain_ms)
+            before = ckpt_counts()
             eng9._dispatch(gidx, short, *BIGK_WIDE_CAPS, keep=kc)
+            inst = ckpt_launched(kc["dims"], kc["sig"].element_size(), before)
             compare_tab_gather(kc, plain_ms)
             compare_ckpt(kc, plain_ms)
             compare_walk(kc, plain_ms)
             same_routes(kc, kf)
             log(f"[14b] K {K9} bucket {(len(short), k['sig'].shape[1] + 1)} {dtype}: at "
                 f"{k['dims']} K11, K13, K15, K16, at {kc['dims']} K11, K13, K14, K15 and its "
-                f"checkpoint mode, K16 every output bit for bit with their plain versions, "
+                f"checkpoint mode ({inst}), K16 every output bit for bit with their plain versions, "
                 f"both routes equal; {walked}/{len(short)} reads walked "
                 f"({time.perf_counter() - t0:.1f} s)")
             del k, kf, kc, eng9

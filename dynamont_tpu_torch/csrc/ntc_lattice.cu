@@ -49,7 +49,13 @@
 // per-read double buffer; ntc_pv_ckpt re-derives each chunk's rows from
 // its checkpoint before the chunk's forward. All three call one
 // bwd_column, so the re-derived rows equal the full store's bit for bit;
-// lp then goes to a buffer of its own, in the working dtype.
+// lp then goes to a buffer of its own, in the working dtype. These two
+// one-block kernels are the route's "device" instances; its "cluster"
+// instances (bwd_ckpt_cluster_kernel, pv_ckpt_cluster_kernel) split one
+// read over a thread block cluster of G CTAs, each holding its slice of
+// k-slots of every column in shared memory and gathering its peers'
+// through distributed shared memory (their note below);
+// ops/ntc_kernels.bwd_ckpt_instance and pv_ckpt_instance pick by shape.
 //
 // ntc_pv writes lp over the backward store when the wrapper passes the same
 // buffer for both: each cell of row t is read (bwd) before it is written
@@ -1261,6 +1267,831 @@ pv_shared_kernel(const S* __restrict__ sig, const int* __restrict__ cand_n,
 }
 
 // ---------------------------------------------------------------------------
+// The checkpointed route's cluster instances (the engine's wide rung):
+// bwd_ckpt_cluster_kernel (K14) and pv_ckpt_cluster_kernel (K15's
+// checkpoint mode). One read runs on a thread block cluster of G CTAs on
+// neighbouring SMs (grid R * G, cluster (G, 1, 1)); CTA g owns the k-slots
+// [g*KS, (g+1)*KS), KS = CK / G, over all CN n-slots, and keeps its slice
+// [5][CN][KS] of each column in its own shared memory. Phase 2's I chains
+// run over the n-slots of one k-slot, so they stay inside one CTA; phase
+// 1's gathers at any k-slot (10 a cell in the backward, 54 in the forward)
+// read the owner's slice through distributed shared memory (mapa). One
+// cluster barrier (barrier.cluster arrive.release / wait.acquire) ends
+// each column: it publishes the column before any CTA reads it and frees
+// the buffer the next-but-one column overwrites. Both kernels end with a
+// cluster barrier, so no CTA exits while a peer reads its slice.
+//
+// What bounds them: the same chain of T_pad dependent columns as the
+// one-block instances, whose column of CN x CK = 16 x 256 cells at the wide
+// rung ran on one SM (~40 transcendental functions a cell); here G SMs
+// share it, a cell a thread at G = 8, and the cluster barrier and remote
+// gathers join the chain. A wide bucket of 8 reads fills 8 G SMs.
+//
+// Exactness: bwd_column_slice and pv_cell_cl repeat bwd_column_at's and
+// pv_cell's arithmetic op for op (only the cell's slot and the gathers'
+// address differ), so every cell rounds as the one-block instances and
+// the plain versions; the other callers of bwd_column_at and pv_cell are
+// untouched. K15's fp32 normalization keeps block_sum's order over
+// threads(CN*CK) = B virtual threads: virtual thread b sums the flat
+// column's elements b, b + B, ... in order; where CK divides B and KS is a
+// multiple of 32, all of b's cells lie in k-slot b mod CK and each virtual
+// warp in one CTA, so each CTA forms its virtual warps' sums in exactly
+// the plain order and only the tree over the B/32 warp sums crosses the
+// cluster (ops/ntc_kernels.pv_ckpt_instance keeps pv_kernel<S, true>
+// where that fails, e.g. CK 272). The block max is order-free.
+//
+// Memory: K14 keeps rows t + 1 and t of its slice and bwd_column's
+// scratch (29184 bytes in fp32, 57856 in fp64 at (16, 256), G = 8); the
+// device double buffer of bwd_ckpt_kernel is gone, and the slice's
+// checkpoint rows and row 0 are copied out by their owner. K15 keeps the
+// four forward and Viterbi columns, the chunk's C re-derived backward rows
+// and its checkpoint (C + 1 rows), in fp32 the column's lp before it is
+// normalized, and bwd_column's scratch, which phase 1 -> 2's score, flags
+// and choice words alias: 152320 bytes in fp32 at G = 8, 142080 in fp64 at
+// G = 16 (at G = 8 the fp64 chunk alone is 180 KB). The chunk's rows are
+// re-derived by bwd_column_slice, K14's column function, so they equal
+// K14's rows bit for bit. ops/ntc_kernels.bwd_ckpt_instance and
+// pv_ckpt_instance repeat the byte counts (bwd_ckpt_cluster_bytes,
+// pv_ckpt_cluster_bytes) and pick G; each launch asks
+// cudaOccupancyMaxActiveClusters whether one cluster of G CTAs with this
+// shared memory fits the card and refuses the launch
+// (cudaErrorInvalidClusterSize) where none does. Every column lives in
+// shared memory on every path of these kernels, read through their own
+// shared pointers or their peers' (never a view that is device memory on
+// another path: the nvcc merged-view hazard, see ntc_bwd_variant).
+// ---------------------------------------------------------------------------
+
+// This CTA's place in its cluster: its k-slots [j0, j0 + KS); div is x /
+// KS by umulhi with kdiv = ceil(2^32 / KS), exact for x below 2^16 (so is
+// k-slot j's owner div(j) and slice cell lc's n-slot div(lc)).
+struct Slice {
+  int KS, j0, CN, CK;
+  unsigned kdiv;
+  __device__ int div(int x) const { return (int)__umulhi((unsigned)x, kdiv); }
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_index() {
+  unsigned r;
+  asm("mov.u32 %0, %%clusterid.x;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_size() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ Slice slice_of(int CN, int CK, unsigned kdiv) {
+  const int KS = CK / (int)cluster_size();
+  return Slice{KS, (int)cluster_rank() * KS, CN, CK, kdiv};
+}
+
+// Every thread of every CTA of the cluster arrives; what each wrote before
+// is visible to all after (release / acquire at cluster scope). Also a
+// block barrier.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory location in CTA `rank` of the
+// cluster (every CTA lays its shared memory out alike).
+template <typename S>
+__device__ __forceinline__ const S* peer(const S* p, int rank) {
+  unsigned long long q;
+  asm("mapa.u64 %0, %1, %2;" : "=l"(q) : "l"(p), "r"(rank));
+  return reinterpret_cast<const S*>(q);
+}
+
+// gat() over a column held as slices: state st at (row, col) from the
+// slice of col's owner; -inf where either is -1.
+template <typename S>
+__device__ __forceinline__ S gat_cl(const S* colp, int st, int row, int col,
+                                    const Slice& sl) {
+  if (row < 0 || col < 0) return neg_inf<S>();
+  const int g = sl.div(col);
+  return *peer(colp + ((size_t)st * sl.CN + row) * sl.KS + (col - g * sl.KS), g);
+}
+
+// Slice cell lc = i * KS + jl is column cell c = i * CK + j0 + jl.
+__device__ __forceinline__ int slice_cell(const Slice& sl, int lc) {
+  const int i = sl.div(lc);
+  return i * sl.CK + sl.j0 + (lc - i * sl.KS);
+}
+
+// Row t's inputs for one CTA's slice, staged in its shared memory: the
+// k-slot arrays at its KS k-slots, the n-slot arrays at all CN. The
+// backward reads all but row_same, row_prev, col_same and col_prec, which
+// only K15's forward reads (K14 stages them as absent).
+template <typename S>
+struct SliceRow {
+  S* sig;                  // [2] sig[t - 1], sig[t]; 0 where the row has none
+  S* mu_k;                 // [KS]
+  S* c1_k;                 // [KS]
+  S* c2_k;                 // [KS]
+  S* suc;                  // [3][A][KS]
+  S* nsl;                  // [6][CN]: [mu, c1, c2][n, n2]
+  int* cand_n;             // [CN]
+  int* brow_same;          // [CN]
+  int* brow_next;          // [CN]
+  int* row_same;           // [CN]
+  int* row_prev;           // [CN]
+  int* bcol_same;          // [KS]
+  int* col_same;           // [KS]
+  int* bcol_suc;           // [A][KS]
+  int* col_prec;           // [A][KS]
+  short* hd;               // [CN][KS]
+  unsigned char* allowed;  // [CN][KS]
+  signed char* d01;        // [CN]
+  signed char* d02;        // [CN]
+};
+
+template <typename S>
+__host__ __device__ inline size_t slice_row_bytes(int CN, int KS, int A) {
+  return al16((2 + 3 * (size_t)KS + 3 * (size_t)A * KS + 6 * (size_t)CN) * sizeof(S)) +
+         al16((5 * (size_t)CN + 2 * (size_t)KS + 2 * (size_t)A * KS) * sizeof(int)) +
+         al16((size_t)CN * KS * sizeof(short)) + al16((size_t)CN * KS + 2 * (size_t)CN);
+}
+
+template <typename S>
+__device__ __forceinline__ SliceRow<S> slice_row(unsigned char* base, int CN, int KS, int A) {
+  SliceRow<S> p;
+  p.sig = reinterpret_cast<S*>(base);
+  p.mu_k = p.sig + 2;
+  p.c1_k = p.mu_k + KS;
+  p.c2_k = p.c1_k + KS;
+  p.suc = p.c2_k + KS;
+  p.nsl = p.suc + 3 * A * KS;
+  p.cand_n = reinterpret_cast<int*>(
+      base + al16((2 + 3 * (size_t)KS + 3 * (size_t)A * KS + 6 * (size_t)CN) * sizeof(S)));
+  p.brow_same = p.cand_n + CN;
+  p.brow_next = p.brow_same + CN;
+  p.row_same = p.brow_next + CN;
+  p.row_prev = p.row_same + CN;
+  p.bcol_same = p.row_prev + CN;
+  p.col_same = p.bcol_same + KS;
+  p.bcol_suc = p.col_same + KS;
+  p.col_prec = p.bcol_suc + A * KS;
+  p.hd = reinterpret_cast<short*>(reinterpret_cast<unsigned char*>(p.cand_n) +
+                                  al16((5 * (size_t)CN + 2 * (size_t)KS + 2 * (size_t)A * KS) *
+                                       sizeof(int)));
+  p.allowed = reinterpret_cast<unsigned char*>(p.hd) + al16((size_t)CN * KS * sizeof(short));
+  p.d01 = reinterpret_cast<signed char*>(p.allowed + (size_t)CN * KS);
+  p.d02 = p.d01 + CN;
+  return p;
+}
+
+// Row t's inputs of read r for the slice into `d`, on thread i of n, as
+// cp.async copies of 4 or 8 bytes that the thread commits as one group and
+// waits for before the barrier that publishes them; hd and allowed as
+// 4-byte words where the slice's rows are whole words (KS even, KS a
+// multiple of 4), else one load and store at a time. The forward's maps
+// only where `fwd` gives them (K15: row_same, row_prev, col_same,
+// col_prec).
+template <typename S>
+__device__ __forceinline__ void stage_slice_row(const BwdIn<S>& in, const int* const (&fwd)[4],
+                                                int t, int r, const Slice& sl,
+                                                const SliceRow<S>& d, int i, int n) {
+  const int R = in.R, CN = in.CN, CK = in.CK, A = in.A, KS = sl.KS, j0 = sl.j0;
+  const int NC = CN * CK, RC = R * CN;
+  const size_t rt = (size_t)t * R + r;
+  if (i == 0) {
+    const S* sig_r = in.sig + (size_t)r * (in.T_pad - 1);
+    if (t > 0) {
+      cp_async_elem(d.sig, sig_r + t - 1);
+    } else {
+      d.sig[0] = S(0);
+    }
+    if (t < in.T_pad - 1) {
+      cp_async_elem(d.sig + 1, sig_r + t);
+    } else {
+      d.sig[1] = S(0);
+    }
+  }
+  for (int e = i; e < KS; e += n) {
+    const size_t kj = rt * CK + j0 + e;
+    cp_async_elem(d.mu_k + e, in.mu_k + kj);
+    cp_async_elem(d.c1_k + e, in.c1_k + kj);
+    cp_async_elem(d.c2_k + e, in.c2_k + kj);
+    cp_async_elem(d.bcol_same + e, in.bcol_same + kj);
+    if (fwd[2]) cp_async_elem(d.col_same + e, fwd[2] + kj);
+  }
+  for (int e = i; e < 3 * A * KS; e += n) {  // suc[s][a][jl]
+    const int sa = sl.div(e);
+    cp_async_elem(d.suc + e, in.suc + (((size_t)t * 3 + sa / A) * R + r) * A * CK +
+                                 (sa % A) * CK + j0 + (e - sa * KS));
+  }
+  for (int e = i; e < A * KS; e += n) {
+    const int a = sl.div(e);
+    const size_t g = (rt * A + a) * CK + j0 + (e - a * KS);
+    cp_async_elem(d.bcol_suc + e, in.bcol_suc + g);
+    if (fwd[3]) cp_async_elem(d.col_prec + e, fwd[3] + g);
+  }
+  for (int e = i; e < 6 * CN; e += n) {  // [mu, c1, c2][n, n2]
+    const int k = e / CN;
+    cp_async_elem(d.nsl + e, in.nsl + (size_t)t * 6 * RC + (size_t)k * RC + (size_t)r * CN +
+                                 (e - k * CN));
+  }
+  for (int e = i; e < CN; e += n) {
+    const size_t g = rt * CN + e;
+    cp_async_elem(d.cand_n + e, in.cand_n + g);
+    cp_async_elem(d.brow_same + e, in.brow_same + g);
+    cp_async_elem(d.brow_next + e, in.brow_next + g);
+    if (fwd[0]) cp_async_elem(d.row_same + e, fwd[0] + g);
+    if (fwd[1]) cp_async_elem(d.row_prev + e, fwd[1] + g);
+  }
+  if (CN % 4 == 0) {  // d01, d02: CN bytes a row, whole words
+    for (int e = i; e < CN / 4; e += n) {
+      cp_async_elem(reinterpret_cast<int*>(d.d01) + e,
+                    reinterpret_cast<const int*>(in.d01 + rt * CN) + e);
+      cp_async_elem(reinterpret_cast<int*>(d.d02) + e,
+                    reinterpret_cast<const int*>(in.d02 + rt * CN) + e);
+    }
+  } else {
+    for (int e = i; e < CN; e += n) {
+      d.d01[e] = in.d01[rt * CN + e];
+      d.d02[e] = in.d02[rt * CN + e];
+    }
+  }
+  const short* hd = in.hd + rt * NC + j0;
+  const unsigned char* al = in.allowed + rt * NC + j0;
+  if (KS % 2 == 0) {  // hd: KS / 2 words a row
+    for (int e = i; e < CN * KS / 2; e += n) {
+      const int q = sl.div(2 * e);
+      cp_async_elem(reinterpret_cast<int*>(d.hd) + e,
+                    reinterpret_cast<const int*>(hd + (size_t)q * CK) + (e - q * KS / 2));
+    }
+  } else {
+    for (int e = i; e < CN * KS; e += n) {
+      const int q = sl.div(e);
+      d.hd[e] = hd[(size_t)q * CK + (e - q * KS)];
+    }
+  }
+  if (KS % 4 == 0) {  // allowed: KS / 4 words a row
+    for (int e = i; e < CN * KS / 4; e += n) {
+      const int q = sl.div(4 * e);
+      cp_async_elem(reinterpret_cast<int*>(d.allowed) + e,
+                    reinterpret_cast<const int*>(al + (size_t)q * CK) + (e - q * KS / 4));
+    }
+  } else {
+    for (int e = i; e < CN * KS; e += n) {
+      const int q = sl.div(e);
+      d.allowed[e] = al[(size_t)q * CK + (e - q * KS)];
+    }
+  }
+  cp_async_commit();
+}
+
+// bwd_column_at for the CTA's slice: column t into the slice `o`
+// [5][CN][KS] from column t + 1, whose slices lie at `nx` in every CTA,
+// with row t's inputs staged in `in` (stage_slice_row); the same
+// arithmetic op for op, the cells and the scratch (bwd_smem(CN * KS))
+// indexed by slice cell. `idle` as bwd_column_at's, on the NT - KS
+// threads phase 2 leaves free. Ends with a cluster barrier.
+template <typename S, typename Idle>
+__device__ __forceinline__ void bwd_column_slice(const SliceRow<S>& in, int CN, int A,
+                                                 const S (&tl)[NTL], int t, int nm1, int tm1,
+                                                 const Slice& sl, const S* nx, S* o,
+                                                 unsigned char* smem, const Idle& idle) {
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int KS = sl.KS, LNC = CN * KS;
+  S* sE = reinterpret_cast<S*>(smem);
+  S* sI = sE + LNC;
+  S* sB = sI + LNC;
+  S* sX = sB + LNC;
+  unsigned char* sOk = reinterpret_cast<unsigned char*>(sX + LNC);
+  const S NEG = neg_inf<S>();
+  const unsigned char* al = in.allowed;
+  const int* cn_t = in.cand_n;
+  if (t >= tm1) {  // the terminal column, then dead rows
+    for (int lc = tid; lc < LNC; lc += NT) {
+      const S e = (t == tm1 && al[lc] && cn_t[sl.div(lc)] == nm1) ? S(0) : NEG;
+      for (int st = 0; st < 5; ++st) o[st * (size_t)LNC + lc] = st == ST_E ? e : NEG;
+    }
+    idle(tid, NT);
+    cluster_sync();
+    return;
+  }
+  const S x = in.sig[1];
+  const S xm = t > 0 ? in.sig[0] : S(0);
+  const S* ns = in.nsl;
+  const S* sk = in.suc;
+  for (int lc = tid; lc < LNC; lc += NT) {
+    const int i = sl.div(lc), jl = lc - i * KS;
+    const int cn = cn_t[i];
+    const bool n_pos = cn >= 1, n_lt = cn < nm1;
+    const int h = (int)in.hd[lc];
+    const S hd1 = S(-2.0) * S(h & 15), hd2 = S(-2.0) * S((h >> 4) & 15);
+    const S hd1s = S((h >> 8) & 15), hd2s = S((h >> 12) & 15);
+    const S mun2 = ns[CN + i], c1n2 = ns[3 * CN + i], c2n2 = ns[5 * CN + i];
+    const S scn = sc_(x, ns[i], ns[2 * CN + i], ns[4 * CN + i]);
+    const S scn2 = sc_(x, mun2, c1n2, c2n2);
+    const S muk = in.mu_k[jl], c1k = in.c1_k[jl], c2k = in.c2_k[jl];
+    const S sck = sc_(x, muk, c1k, c2k);
+    const S sc1 = (scn + sck) + hd1;
+    const S sc2 = (scn2 + sck) + hd2;
+    const int bs = in.brow_same[i], bn = in.brow_next[i];
+    const int cs = in.bcol_same[jl];
+    const S gskE = gat_cl(nx, ST_E, bs, cs, sl);
+    const S gnkS = gat_cl(nx, ST_S, bn, cs, sl);
+    const S a_new = n_pos ? gskE + sc1 : NEG;
+    const S p_new = logaddexp(n_pos ? (gskE + tl[TE2]) + sc1 : NEG,
+                              n_lt ? (gnkS + tl[TS1]) + sc2 : NEG);
+    S s_t[1 + MAX_A], e_t[2 + 2 * MAX_A], i_t[1 + 2 * MAX_A];
+    s_t[0] = n_pos ? (gskE + tl[TE3]) + sc1 : NEG;
+    e_t[0] = n_pos ? (gskE + tl[TE4]) + sc1 : NEG;
+    const int dd1 = in.d01[i], dd2 = in.d02[i];
+#pragma unroll
+    for (int ai = 0; ai < MAX_A; ++ai) {
+      const int cu = in.bcol_suc[ai * KS + jl];
+      const int so = ai * KS + jl;
+      const S scs = sc_(x, sk[so], sk[A * KS + so], sk[2 * A * KS + so]);
+      const S m1 = dd1 != ai ? S(1) : S(0);
+      const S m2 = dd2 != ai ? S(1) : S(0);
+      const S sc1s = (scn + scs) - S(2.0) * (hd1s + m1);
+      const S sc2s = (scn2 + scs) - S(2.0) * (hd2s + m2);
+      const S gspP = n_pos ? gat_cl(nx, ST_P, bs, cu, sl) + sc1s : NEG;
+      const S gnaA = n_lt ? gat_cl(nx, ST_A, bn, cu, sl) + sc2s : NEG;
+      s_t[1 + ai] = gspP + tl[TP1];
+      e_t[1 + 2 * ai] = gspP + tl[TP2];
+      e_t[2 + 2 * ai] = gnaA + tl[TA1];
+      i_t[2 * ai] = gspP + tl[TP3];
+      i_t[2 * ai + 1] = gnaA + tl[TA2];
+    }
+    const S gnkS2 = gnkS + sc2;
+    e_t[1 + 2 * MAX_A] = n_lt ? gnkS2 + tl[TS2] : NEG;
+    i_t[2 * MAX_A] = n_lt ? gnkS2 + tl[TS3] : NEG;
+    // same-t I chain coefficients (ref: NTC.cpp:565-572)
+    const S sc_i = (sc_(xm, mun2, c1n2, c2n2) + sc_(xm, muk, c1k, c2k)) + hd2;
+    const bool ok_i = t > 0 && i < CN - 1 && cn_t[i + 1] == cn + 1 && cn < nm1;
+    const bool a = al[lc];
+    o[ST_A * (size_t)LNC + lc] = a ? a_new : NEG;
+    o[ST_P * (size_t)LNC + lc] = a ? p_new : NEG;
+    o[ST_S * (size_t)LNC + lc] = a ? lse(s_t) : NEG;
+    sE[lc] = lse(e_t);
+    sI[lc] = lse(i_t);
+    sB[lc] = ok_i ? tl[TI2] + sc_i : NEG;
+    sX[lc] = sc_i;
+    sOk[lc] = ok_i;
+  }
+  __syncthreads();
+  // phase 2: the I chain of k-slot j, from the last n-slot down; the E of
+  // slot i adds the UPDATED I of slot i + 1
+  for (int jl = tid; jl < KS; jl += NT) {
+    int lc = (CN - 1) * KS + jl;
+    S below = sI[lc];
+    o[ST_I * (size_t)LNC + lc] = al[lc] ? below : NEG;
+    o[ST_E * (size_t)LNC + lc] = al[lc] ? sE[lc] : NEG;
+    for (int i = CN - 2; i >= 0; --i) {
+      lc = i * KS + jl;
+      const S inew = logaddexp(sI[lc], below + sB[lc]);
+      S e = sE[lc];
+      if (sOk[lc]) e = logaddexp(e, (below + tl[TI1]) + sX[lc]);
+      o[ST_I * (size_t)LNC + lc] = al[lc] ? inew : NEG;
+      o[ST_E * (size_t)LNC + lc] = al[lc] ? e : NEG;
+      below = inew;
+    }
+  }
+  if (NT <= KS) {
+    idle(tid, NT);
+  } else if (tid >= KS) {
+    idle(tid - KS, NT - KS);
+  }
+  cluster_sync();
+}
+
+// The slice `src` [5][CN][KS] into the device column `dst` (5, CN, CK).
+template <typename S>
+__device__ __forceinline__ void store_slice(const Slice& sl, const S* src, S* dst) {
+  const int LNC = sl.CN * sl.KS;
+  for (int lc = threadIdx.x; lc < LNC; lc += blockDim.x) {
+    const int c = slice_cell(sl, lc);
+    for (int st = 0; st < 5; ++st) dst[(size_t)st * sl.CN * sl.CK + c] = src[st * LNC + lc];
+  }
+}
+
+// Shared memory of bwd_ckpt_cluster_kernel: rows t + 1 and t of the slice
+// ([2][5][CN * KS]), bwd_column_slice's scratch and two staged rows.
+template <typename S>
+__host__ __device__ inline size_t bwd_ckpt_cluster_bytes(int CN, int KS, int A) {
+  const size_t LNC = (size_t)CN * KS;
+  return al16(2 * 5 * LNC * sizeof(S)) + al16(bwd_smem<S>((int)LNC)) +
+         2 * slice_row_bytes<S>(CN, KS, A);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(MAX_THREADS)
+bwd_ckpt_cluster_kernel(BwdIn<S> in, const S* __restrict__ tlog,
+                        const int* __restrict__ N_r, const int* __restrict__ T_r,
+                        S* ckpt, S* row0, int C, unsigned kdiv) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Slice sl = slice_of(in.CN, in.CK, kdiv);
+  const int r = (int)cluster_index(), tid = threadIdx.x, NT = blockDim.x;
+  const int CN = in.CN, A = in.A, LNC = CN * sl.KS;
+  const size_t lcol = 5 * (size_t)LNC, col = 5 * (size_t)CN * in.CK;
+  S* rows = reinterpret_cast<S*>(smem);  // row t at rows + (t & 1) * lcol
+  unsigned char* csm = smem + al16(2 * lcol * sizeof(S));
+  unsigned char* stages = csm + al16(bwd_smem<S>(LNC));  // row t's inputs in stage t & 1
+  const size_t stb = slice_row_bytes<S>(CN, sl.KS, A);
+  const int* const none[4] = {nullptr, nullptr, nullptr, nullptr};
+  S tl[NTL];
+  load_tl(tl, tlog);
+  const int nm1 = N_r[r] - 1, tm1 = T_r[r] - 1;
+  const int R = in.R, T_pad = in.T_pad, nc = T_pad / C;
+  S* last = ckpt + ((size_t)(nc - 1) * R + r) * col;  // nothing follows the last chunk
+  for (int lc = tid; lc < LNC; lc += NT) {
+    const int c = slice_cell(sl, lc);
+    for (int st = 0; st < 5; ++st) last[(size_t)st * CN * in.CK + c] = neg_inf<S>();
+  }
+  auto stage = [&](int t) { return slice_row<S>(stages + (t & 1) * stb, CN, sl.KS, A); };
+  stage_slice_row(in, none, T_pad - 1, r, sl, stage(T_pad - 1), tid, NT);
+  cp_async_wait_all();
+  __syncthreads();
+  // row T_pad - 1 is terminal or dead, so the other buffer is not read
+  // there; while phase 2 runs, the threads it leaves free stage row t - 1
+  for (int t = T_pad - 1; t >= 0; --t) {
+    S* o = rows + (t & 1) * lcol;
+    bwd_column_slice(stage(t), CN, A, tl, t, nm1, tm1, sl, rows + ((t + 1) & 1) * lcol, o,
+                     csm, [&](int i, int n) {
+                       if (t > 0) {
+                         stage_slice_row(in, none, t - 1, r, sl, stage(t - 1), i, n);
+                         cp_async_wait_all();
+                       }
+                     });
+    if (t == 0) {
+      store_slice(sl, o, row0 + (size_t)r * col);
+    } else if (t % C == 0) {
+      store_slice(sl, o, ckpt + ((size_t)(t / C - 1) * R + r) * col);
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may read its slice
+}
+
+// The address, in the owner's shared memory, of state 0 of cell (row,
+// col) of a column whose slices lie at `colp` in every CTA; null where
+// either is -1.
+template <typename S>
+__device__ __forceinline__ const S* cell_cl(const S* colp, int row, int col,
+                                            const Slice& sl) {
+  if (row < 0 || col < 0) return nullptr;
+  const int g = sl.div(col);
+  return peer(colp + (size_t)row * sl.KS + (col - g * sl.KS), g);
+}
+
+// pv_cell over slices: the previous forward and Viterbi columns' slices
+// at Fp and Vp = Fp + vo in every CTA, each of the cell's 10 (row, col)
+// predecessors mapped once (cell_cl) and its states read from there;
+// otherwise pv_cell op for op.
+template <typename S>
+__device__ __forceinline__ int pv_cell_cl(const S* Fp, size_t vo, const S (&tl)[NTL],
+                                          int rs, int rp, int cs, const int (&cp)[MAX_A],
+                                          S sc, bool ok, const S (&bwv)[4], S Zr,
+                                          const Slice& sl, S (&f)[4], S (&v)[4]) {
+  const S NEG = neg_inf<S>();
+  const size_t ss = (size_t)sl.CN * sl.KS;  // one state of a slice
+  const S* ps[MAX_A];  // (rs, cp[a])
+  const S* pp[MAX_A];  // (rp, cp[a])
+#pragma unroll
+  for (int a = 0; a < MAX_A; ++a) {
+    ps[a] = cell_cl(Fp, rs, cp[a], sl);
+    pp[a] = cell_cl(Fp, rp, cp[a], sl);
+  }
+  const S* qs = cell_cl(Fp, rs, cs, sl);
+  const S* qp = cell_cl(Fp, rp, cs, sl);
+  auto F = [&](const S* q, int st) { return q ? q[st * ss] : NEG; };
+  auto V = [&](const S* q, int st) { return q ? q[vo + st * ss] : NEG; };
+  {
+    S a_t[2 * MAX_A], p_t[3 * MAX_A];
+#pragma unroll
+    for (int a = 0; a < MAX_A; ++a) {
+      a_t[2 * a] = F(pp[a], ST_E) + tl[TA1];
+      a_t[2 * a + 1] = F(pp[a], ST_I) + tl[TA2];
+      p_t[3 * a] = F(ps[a], ST_S) + tl[TP1];
+      p_t[3 * a + 1] = F(ps[a], ST_E) + tl[TP2];
+      p_t[3 * a + 2] = F(ps[a], ST_I) + tl[TP3];
+    }
+    const S s_t[3] = {F(qp, ST_P) + tl[TS1], F(qp, ST_E) + tl[TS2], F(qp, ST_I) + tl[TS3]};
+    const S e_t[4] = {F(qs, ST_A), F(qs, ST_P) + tl[TE2], F(qs, ST_S) + tl[TE3],
+                      F(qs, ST_E) + tl[TE4]};
+    f[ST_A] = ok ? lse(a_t) + sc : NEG;
+    f[ST_P] = ok ? lse(p_t) + sc : NEG;
+    f[ST_S] = ok ? lse(s_t) + sc : NEG;
+    f[ST_E] = ok ? lse(e_t) + sc : NEG;
+  }
+  // Viterbi over fwd + bwd - Z, first-match choices
+  S ac[2 * MAX_A], pc[3 * MAX_A];
+#pragma unroll
+  for (int a = 0; a < MAX_A; ++a) {
+    ac[2 * a] = V(pp[a], ST_E);
+    ac[2 * a + 1] = V(pp[a], ST_I);
+    pc[3 * a] = V(ps[a], ST_E);
+    pc[3 * a + 1] = V(ps[a], ST_S);
+    pc[3 * a + 2] = V(ps[a], ST_I);
+  }
+  const S scand[3] = {V(qp, ST_E), V(qp, ST_P), V(qp, ST_I)};
+  const S ecand[4] = {V(qs, ST_E), V(qs, ST_A), V(qs, ST_S), V(qs, ST_P)};
+  int ch_a, ch_p, ch_s, ch_e;
+  const S mx[4] = {first_match(ac, ch_a), first_match(pc, ch_p),
+                   first_match(scand, ch_s), first_match(ecand, ch_e)};
+#pragma unroll
+  for (int st = 0; st < 4; ++st) {
+    const S lpst = (f[st] + bwv[st]) - Zr;
+    v[st] = ok ? mx[st] + lpst : NEG;
+  }
+  return ch_e | (ch_a << 2) | (ch_p << 5) | (ch_s << 9);
+}
+
+// pv_ckpt_cluster_kernel's reduction area (fp32), by row parity p: the
+// CTA's max [2] and warp sums [2][16], the column's max (0 where none is
+// finite) and finiteness [2]; then the logsumexp, and the idle warps' maxes
+// [16].
+constexpr int RED_L = 0, RED_W = 2, RED_MS = RED_W + 2 * 16, RED_FIN = RED_MS + 2;
+constexpr int RED_Z = RED_FIN + 2, RED_WMAX = RED_Z + 1, RED_VALS = RED_WMAX + 16;
+
+// A barrier of the n threads (a multiple of 32) that run the idle work.
+__device__ __forceinline__ void idle_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// Shared memory of pv_ckpt_cluster_kernel: the four columns' slices
+// [2][F | V][5][LNC], the chunk [C + 1][5][LNC], in fp32 four rows' lp
+// [4][5][LNC] (a row is normalized over the three rows after it), the
+// reduction area, bwd_column_slice's scratch or, aliasing it, phase 1 ->
+// 2's score [LNC], choice words [LNC] and I-chain flags [LNC], and the
+// chunk's C staged rows.
+template <typename S>
+__host__ __device__ inline size_t pv_ckpt_cluster_bytes(int CN, int KS, int A, int C) {
+  const size_t LNC = (size_t)CN * KS, lcol = 5 * LNC;
+  const size_t norm = sizeof(S) == 4 ? 4 * lcol * sizeof(S) : 0;
+  const size_t bwd = bwd_smem<S>((int)LNC), fwd = LNC * (sizeof(S) + sizeof(short) + 1);
+  return (4 + (size_t)C + 1) * lcol * sizeof(S) + norm + al16(RED_VALS * sizeof(S)) +
+         al16(bwd > fwd ? bwd : fwd) + (size_t)C * slice_row_bytes<S>(CN, KS, A);
+}
+
+template <typename S>
+__global__ void __launch_bounds__(MAX_THREADS)
+pv_ckpt_cluster_kernel(BwdIn<S> bin, const int* __restrict__ row_same,
+                       const int* __restrict__ row_prev, const int* __restrict__ col_same,
+                       const int* __restrict__ col_prec, const S* __restrict__ tlog,
+                       const S* __restrict__ Z, const int* __restrict__ N_r,
+                       const int* __restrict__ T_r, const S* __restrict__ ckpt, S* lp,
+                       short* __restrict__ choices, int* __restrict__ slots,
+                       S* __restrict__ apEf, S* __restrict__ fwdEf, int slb, int C,
+                       unsigned kdiv) {
+  constexpr bool NORM = sizeof(S) == 4;  // fp32 columns are normalized
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Slice sl = slice_of(bin.CN, bin.CK, kdiv);
+  const int r = (int)cluster_index(), tid = threadIdx.x, NT = blockDim.x;
+  const int R = bin.R, T_pad = bin.T_pad, CN = bin.CN, CK = bin.CK, A = bin.A;
+  const int NC = CN * CK, KS = sl.KS, LNC = CN * KS;
+  const size_t lcol = 5 * (size_t)LNC, col = 5 * (size_t)NC;
+  S* cols = reinterpret_cast<S*>(smem);  // [2][forward | Viterbi][5][LNC]
+  S* chunk = cols + 4 * lcol;            // rows t0 .. t0 + C - 1, then row t0 + C
+  S* lpr = chunk + (C + 1) * lcol;       // fp32: row u's lp before normalization at u & 3
+  S* red = lpr + (NORM ? 4 * lcol : 0);
+  unsigned char* csm = reinterpret_cast<unsigned char*>(red) + al16(RED_VALS * sizeof(S));
+  S* sSc = reinterpret_cast<S*>(csm);  // the cell's score
+  short* sCh = reinterpret_cast<short*>(sSc + LNC);  // choice words
+  unsigned char* sCond = reinterpret_cast<unsigned char*>(sCh + LNC);
+  const size_t fwd_scratch = (size_t)LNC * (sizeof(S) + sizeof(short) + 1);
+  unsigned char* stages = csm + al16(bwd_smem<S>(LNC) > fwd_scratch ? bwd_smem<S>(LNC)
+                                                                    : fwd_scratch);
+  const size_t stb = slice_row_bytes<S>(CN, KS, A);
+  const int* const maps[4] = {row_same, row_prev, col_same, col_prec};
+  const S NEG = neg_inf<S>();
+  S tl[NTL];
+  load_tl(tl, tlog);
+  const int nm1 = N_r[r] - 1, tm1 = T_r[r] - 1;
+  const S Zr = Z[r];
+  // fp32: block_sum's B virtual threads; here nv of them, virtual thread
+  // q * CK + j0 + l as v = q * KS + l, whose cells are slice cells v,
+  // v + nv, ... (see the note above)
+  const int B = (NC & -NC) < MAX_THREADS ? (NC & -NC) : MAX_THREADS, nv = B / CK * KS;
+  // fp32: the normalization of each row runs off the chain, a stage a row
+  // on the threads phase 2 leaves free (idle thread i of n), each stage
+  // published by the row's cluster barrier: in row t's phase 2, the tree
+  // over row t - 3's warp sums and its lp; row t - 1's max over the slice;
+  // row t - 2's sums (idle thread i < nv is virtual thread v = i)
+  auto norm = [&](int t, int i, int n) {
+    if (t >= 3 && t - 3 < T_pad) {
+      const int u = t - 3, p = u & 1, nw = B / 32;
+      if (i < 32) {
+        // virtual warp w (threads 32w ..) is local warp ((32w / CK) * KS +
+        // jw - j0) / 32 of the CTA owning k-slot jw = 32w mod CK
+        S a = S(0);
+        if (i < nw) {
+          const int jw = (32 * i) % CK, g = sl.div(jw);
+          a = *peer(red + RED_W + p * 16 + ((32 * i / CK) * KS + jw - g * KS) / 32, g);
+        }
+        for (int h = nw >> 1; h > 0; h >>= 1) a = a + __shfl_down_sync(FULL_MASK, a, h);
+        if (i == 0) red[RED_Z] = red[RED_MS + p] + log_(a);
+      }
+      idle_sync(n);
+      const S colZ = red[RED_Z];
+      const bool fin = red[RED_FIN + p] != S(0);
+      const S* lq = lpr + (u & 3) * lcol;
+      S* lo = lp + ((size_t)u * R + r) * col;
+      for (int lc = i; lc < LNC; lc += n) {
+        const int c = slice_cell(sl, lc);
+        for (int st = 0; st < 5; ++st)
+          lo[(size_t)st * NC + c] = fin ? lq[st * LNC + lc] - colZ : NEG;
+      }
+    }
+    if (t >= 1 && t - 1 < T_pad) {
+      const S* lq = lpr + ((t - 1) & 3) * lcol;
+      S m = NEG;
+      for (int e = i; e < (int)lcol; e += n) m = max_nan(m, lq[e]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = max_nan(m, __shfl_xor_sync(FULL_MASK, m, off));
+      if ((i & 31) == 0) red[RED_WMAX + i / 32] = m;
+      idle_sync(n);
+      if (i == 0) {
+        for (int w = 1; w < n / 32; ++w) m = max_nan(m, red[RED_WMAX + w]);
+        red[RED_L + ((t - 1) & 1)] = m;
+      }
+    }
+    if (t >= 2 && t - 2 < T_pad && i < nv) {
+      const int u = t - 2, p = u & 1;
+      S mm = (i & 31) < (int)cluster_size() ? *peer(red + RED_L + p, i & 31) : NEG;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mm = max_nan(mm, __shfl_xor_sync(FULL_MASK, mm, off));
+      const bool fin = isfinite(mm);
+      const S ms = fin ? mm : S(0);
+      if (i == 0) {
+        red[RED_MS + p] = ms;
+        red[RED_FIN + p] = fin ? S(1) : S(0);
+      }
+      const S* lq = lpr + (u & 3) * lcol;
+      S acc = exp_(lq[i] - ms);
+      for (int e = i + nv; e < (int)lcol; e += nv) acc = acc + exp_(lq[e] - ms);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc = acc + __shfl_down_sync(FULL_MASK, acc, off);
+      if ((i & 31) == 0) red[RED_W + p * 16 + i / 32] = acc;
+    }
+  };
+  for (int lc = tid; lc < LNC; lc += NT) {
+    const int c = slice_cell(sl, lc);
+    apEf[(size_t)r * NC + c] = NEG;
+    fwdEf[(size_t)r * NC + c] = NEG;
+  }
+  // row t's inputs in stage t mod C, staged by the chunk's re-derivation
+  auto stage = [&](int t) { return slice_row<S>(stages + (t % C) * stb, CN, KS, A); };
+
+  for (int t = 0; t < T_pad; ++t) {
+    const int cur = t & 1;
+    S* Fc = cols + (2 * cur) * lcol;
+    S* Vc = Fc + lcol;
+    const S* Fp = cols + (2 * (cur ^ 1)) * lcol;  // Viterbi's at Fp + lcol
+    if (t % C == 0) {
+      // the chunk's rows from the checkpoint (row t + C), the last row
+      // down, each staging the row below it on the threads phase 2 leaves
+      // free; the forward then reads the same stages
+      __syncthreads();  // the last row's stage and scratch are free
+      const S* ck = ckpt + ((size_t)(t / C) * R + r) * col;
+      stage_slice_row(bin, maps, t + C - 1, r, sl, stage(t + C - 1), tid, NT);
+      for (int lc = tid; lc < LNC; lc += NT) {
+        const int c = slice_cell(sl, lc);
+        for (int st = 0; st < 5; ++st) chunk[C * lcol + st * LNC + lc] = ck[(size_t)st * NC + c];
+      }
+      cp_async_wait_all();
+      cluster_sync();
+      for (int i = C - 1; i >= 0; --i)
+        bwd_column_slice(stage(t + i), CN, A, tl, t + i, nm1, tm1, sl, chunk + (i + 1) * lcol,
+                         chunk + i * lcol, csm, [&](int q, int n) {
+                           if (i > 0) {
+                             stage_slice_row(bin, maps, t + i - 1, r, sl, stage(t + i - 1),
+                                             q, n);
+                             cp_async_wait_all();
+                           }
+                         });
+    }
+    const SliceRow<S> in = stage(t);
+    const S* bw = chunk + (t % C) * lcol;
+    const size_t rt = (size_t)t * R + r;
+    S* lo = lp + rt * col;
+    S* lps = lpr + (t & 3) * lcol;
+    const int* cn_t = in.cand_n;
+    const S x = in.sig[0];  // sig[t - 1]
+    // phase 1: every cell but the I chain
+    for (int lc = tid; lc < LNC; lc += NT) {
+      const int i = sl.div(lc), jl = lc - i * KS;
+      const int c = i * CK + sl.j0 + jl;
+      const int cn = cn_t[i];
+      const bool al = in.allowed[lc];
+      const bool ok = al && cn >= 1;
+      const bool cond = ok && i > 0 && cn_t[i - 1] == cn - 1;
+      S f[4], v[4], bwv[4];
+#pragma unroll
+      for (int st = 0; st < 4; ++st) bwv[st] = bw[st * (size_t)LNC + lc];
+      S sc = S(0);
+      int chp = 0;
+      if (t == 0) {
+        f[ST_A] = f[ST_P] = f[ST_S] = NEG;
+        f[ST_E] = (cn == 0 && al) ? S(0) : NEG;
+      } else {
+        sc = (sc_(x, in.nsl[i], in.nsl[2 * CN + i], in.nsl[4 * CN + i])
+              + sc_(x, in.mu_k[jl], in.c1_k[jl], in.c2_k[jl]))
+             + S(-2.0) * S((int)in.hd[lc] & 15);
+        int cp[MAX_A];
+#pragma unroll
+        for (int a = 0; a < MAX_A; ++a) cp[a] = in.col_prec[a * KS + jl];
+        chp = pv_cell_cl(Fp, lcol, tl, in.row_same[i], in.row_prev[i], in.col_same[jl], cp,
+                         sc, ok, bwv, Zr, sl, f, v);
+      }
+      if (t == 0) {
+#pragma unroll
+        for (int st = 0; st < 4; ++st) v[st] = f[st];
+      }
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        const S ap = f[st] + bwv[st];
+        if constexpr (NORM) {
+          lps[st * (size_t)LNC + lc] = ap;
+        } else {
+          lo[st * (size_t)NC + c] = ap - Zr;
+        }
+        Fc[st * (size_t)LNC + lc] = f[st];
+        Vc[st * (size_t)LNC + lc] = v[st];
+      }
+      sSc[lc] = sc;
+      sCond[lc] = cond;
+      sCh[lc] = (short)chp;
+      if (t == tm1) {
+        apEf[(size_t)r * NC + c] = v[ST_E];
+        fwdEf[(size_t)r * NC + c] = f[ST_E];
+      }
+    }
+    __syncthreads();
+    // phase 2: the I chains of k-slot j, ascending over the n-slots
+    // (ref: NTC.cpp:474-477), forward then Viterbi
+    for (int jl = tid; jl < KS; jl += NT) {
+      S fi = NEG, vi = NEG;
+      for (int i = 0; i < CN; ++i) {
+        const int lc = i * KS + jl;
+        S fI = NEG, vI = NEG;
+        int chi = 0;
+        if (t > 0 && i > 0) {
+          const bool cond = sCond[lc];
+          const S sc = sSc[lc];
+          const S iA = cond ? (Fc[ST_E * (size_t)LNC + lc - KS] + tl[TI1]) + sc : NEG;
+          const S iB = cond ? tl[TI2] + sc : NEG;
+          fI = logaddexp(iA, fi + iB);
+        }
+        const S apI = fI + bw[ST_I * (size_t)LNC + lc];
+        const S lpI = apI - Zr;
+        if (t > 0 && i > 0) {
+          const bool cond = sCond[lc];
+          const S ve = Vc[ST_E * (size_t)LNC + lc - KS];
+          chi = ve >= vi ? 0 : 1;  // E overrides I on ties (ref: NTC.cpp:884-893)
+          const S viA = cond ? ve + lpI : NEG;
+          const S viB = cond ? lpI : NEG;
+          vI = max_nan(viA, vi + viB);
+        }
+        Fc[ST_I * (size_t)LNC + lc] = fI;
+        Vc[ST_I * (size_t)LNC + lc] = vI;
+        if constexpr (NORM) {
+          lps[ST_I * (size_t)LNC + lc] = apI;
+        } else {
+          lo[ST_I * (size_t)NC + i * CK + sl.j0 + jl] = lpI;
+        }
+        sCh[lc] = (short)((int)sCh[lc] | (chi << 11));
+        fi = fI;
+        vi = vI;
+      }
+    }
+    if constexpr (NORM) {
+      if (tid >= KS) norm(t, tid - KS, NT - KS);
+    }
+    cluster_sync();  // column t complete in every CTA, the normalization's stages too
+    // the choice and predecessor-slot words
+    for (int lc = tid; lc < LNC; lc += NT) {
+      const int i = sl.div(lc), jl = lc - i * KS, c = i * CK + sl.j0 + jl;
+      const int packed = (int)sCh[lc];
+      choices[rt * NC + c] = (short)packed;
+      const int ai_a = (packed >> 3) & 3, ai_p = ((packed >> 5) & 15) / 3;
+      slots[rt * NC + c] = (in.col_same[jl] + 1)
+                           | ((in.col_prec[ai_a * KS + jl] + 1) << slb)
+                           | ((in.col_prec[ai_p * KS + jl] + 1) << (2 * slb));
+    }
+  }
+  if constexpr (NORM) {  // the last three rows' normalization
+    for (int t = T_pad; t < T_pad + 3; ++t) {
+      if (tid >= KS) norm(t, tid - KS, NT - KS);
+      cluster_sync();
+    }
+  }
+  cluster_sync();  // no CTA leaves while a peer may read its slice
+}
+
+// ---------------------------------------------------------------------------
 // ntc_walk: the traceback (ref: NTC.cpp:691-904)
 // ---------------------------------------------------------------------------
 template <typename S>
@@ -1488,6 +2319,71 @@ int pv_ckpt(const BwdIn<S>& bin, const int* row_same, const int* row_prev,
   return (int)cudaGetLastError();
 }
 
+// A cluster launch of `kernel`: R clusters of G CTAs of NT threads with
+// `smem` bytes each, once cudaOccupancyMaxActiveClusters finds that such a
+// cluster fits the card (cudaErrorInvalidClusterSize where none does).
+// fit, when given, receives that count and nothing is launched.
+template <typename... P, typename... Args>
+int launch_cluster(void (*kernel)(P...), int R, int G, int NT, size_t smem,
+                   cudaStream_t stream, int* fit, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && G > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(R * G);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (fit) {
+    *fit = n;
+    return 0;
+  }
+  if (n < 1) return (int)cudaErrorInvalidClusterSize;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ceil(2^32 / KS), Slice's divisor
+inline unsigned slice_kdiv(int KS) {
+  return (unsigned)((((unsigned long long)1 << 32) + KS - 1) / KS);
+}
+
+template <typename S>
+int bwd_ckpt_cluster(const BwdIn<S>& in, const S* tlog, const int* N_r, const int* T_r,
+                     S* ckpt, S* row0, int G, int NT, int C, cudaStream_t stream,
+                     int* fit = nullptr) {
+  const int KS = in.CK / G;
+  return launch_cluster(bwd_ckpt_cluster_kernel<S>, in.R, G, NT,
+                        bwd_ckpt_cluster_bytes<S>(in.CN, KS, in.A), stream, fit, in, tlog, N_r,
+                        T_r, ckpt, row0, C, slice_kdiv(KS));
+}
+
+template <typename S>
+int pv_ckpt_cluster(const BwdIn<S>& bin, const int* row_same, const int* row_prev,
+                    const int* col_same, const int* col_prec, const S* tlog, const S* Z,
+                    const int* N_r, const int* T_r, const S* ckpt, S* lp, short* choices,
+                    int* slots, S* apEf, S* fwdEf, int G, int NT, int slb, int C,
+                    cudaStream_t stream, int* fit = nullptr) {
+  const int KS = bin.CK / G;
+  return launch_cluster(pv_ckpt_cluster_kernel<S>, bin.R, G, NT,
+                        pv_ckpt_cluster_bytes<S>(bin.CN, KS, bin.A, C), stream, fit, bin,
+                        row_same, row_prev, col_same, col_prec, tlog, Z, N_r, T_r, ckpt,
+                        lp, choices, slots, apEf, fwdEf, slb, C, slice_kdiv(KS));
+}
+
 template <typename S>
 int walk(const S* lp, const short* choices, const int* slots,
          const int* row_same, const int* row_prev, const int* i0,
@@ -1572,6 +2468,55 @@ int walk(const S* lp, const short* choices, const int* slots,
     return pv_ckpt<S>(in, row_same, row_prev, col_same, col_prec, tlog, Z,    \
                       N_r, T_r, ckpt, lp, choices, slots, apEf, fwdEf,        \
                       scratch, bbuf, NT, slb, C, (cudaStream_t)stream);        \
+  }                                                                            \
+  extern "C" int ntc_bwd_ckpt_cluster_##SUF(                                   \
+      const S* sig, const int* cand_n, const unsigned char* allowed,          \
+      const short* hd, const signed char* d01, const signed char* d02,        \
+      const int* brow_same, const int* brow_next, const int* bcol_same,       \
+      const int* bcol_suc, const S* mu_k, const S* c1_k, const S* c2_k,       \
+      const S* suc, const S* nsl, const S* tlog, const int* N_r,              \
+      const int* T_r, S* ckpt, S* row0, int R, int T_pad, int CN, int CK,     \
+      int A, int G, int NT, int C, void* stream) {                             \
+    const BwdIn<S> in{sig, cand_n, allowed, hd, d01, d02, brow_same,          \
+                      brow_next, bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc,  \
+                      nsl, R, T_pad, CN, CK, A};                              \
+    return bwd_ckpt_cluster<S>(in, tlog, N_r, T_r, ckpt, row0, G, NT, C,      \
+                               (cudaStream_t)stream);                          \
+  }                                                                            \
+  extern "C" int ntc_pv_ckpt_cluster_##SUF(                                    \
+      const S* sig, const int* cand_n, const unsigned char* allowed,          \
+      const short* hd, const signed char* d01, const signed char* d02,        \
+      const int* brow_same, const int* brow_next, const int* bcol_same,       \
+      const int* bcol_suc, const S* mu_k, const S* c1_k, const S* c2_k,       \
+      const S* suc, const S* nsl, const int* row_same, const int* row_prev,   \
+      const int* col_same, const int* col_prec, const S* tlog, const S* Z,    \
+      const int* N_r, const int* T_r, const S* ckpt, S* lp, short* choices,   \
+      int* slots, S* apEf, S* fwdEf, int R, int T_pad, int CN, int CK, int A, \
+      int G, int NT, int slb, int C, void* stream) {                          \
+    const BwdIn<S> in{sig, cand_n, allowed, hd, d01, d02, brow_same,          \
+                      brow_next, bcol_same, bcol_suc, mu_k, c1_k, c2_k, suc,  \
+                      nsl, R, T_pad, CN, CK, A};                              \
+    return pv_ckpt_cluster<S>(in, row_same, row_prev, col_same, col_prec,     \
+                              tlog, Z, N_r, T_r, ckpt, lp, choices, slots,    \
+                              apEf, fwdEf, G, NT, slb, C,                     \
+                              (cudaStream_t)stream);                           \
+  }                                                                            \
+  /* into *fit: how many clusters of G CTAs of K14's (pv 0) or K15's        \
+     checkpoint mode's (pv 1) cluster instance fit the card at once */       \
+  extern "C" int ntc_ckpt_cluster_fit_##SUF(int pv, int CN, int CK, int A,   \
+                                            int G, int NT, int C, int* fit) { \
+    BwdIn<S> in{};                                                             \
+    in.R = 1;                                                                  \
+    in.CN = CN;                                                                \
+    in.CK = CK;                                                                \
+    in.A = A;                                                                  \
+    if (pv)                                                                    \
+      return pv_ckpt_cluster<S>(in, nullptr, nullptr, nullptr, nullptr,       \
+                                nullptr, nullptr, nullptr, nullptr, nullptr,  \
+                                nullptr, nullptr, nullptr, nullptr, nullptr,  \
+                                G, NT, 0, C, 0, fit);                          \
+    return bwd_ckpt_cluster<S>(in, nullptr, nullptr, nullptr, nullptr,        \
+                               nullptr, G, NT, C, 0, fit);                     \
   }                                                                            \
   extern "C" int ntc_walk_##SUF(                                               \
       const S* lp, const short* choices, const int* slots,                    \

@@ -8,9 +8,11 @@ versions:
   bwd        / bwd_plain         K13 ntc_bwd         replaces _bwd_kernel
                                  (two instances, bwd_instance)
   bwd_ckpt   / bwd_ckpt_plain    K14 ntc_bwd_ckpt    replaces _bwd_ckpt_kernel
+                                 (two instances, bwd_ckpt_instance)
   pv         / pv_plain          K15 ntc_pv          replaces _pv_kernel
                                  (two instances, pv_instance)
   pv_ckpt    / pv_ckpt_plain     K15 ntc_pv_ckpt     its checkpoint branch
+                                 (two instances, pv_ckpt_instance)
   walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
 
 The kernels are in csrc/ntc_lattice.cu, in float and double (#12 in float
@@ -68,15 +70,19 @@ PLAIN_RUNS = dict.fromkeys(KERNELS, 0)
 PV_LAUNCHES = {"shared": 0, "device": 0}
 # ntc_bwd's launches by instance (bwd_instance), the same two names
 BWD_LAUNCHES = {"shared": 0, "device": 0}
+# ntc_bwd_ckpt's and ntc_pv_ckpt's launches by instance (bwd_ckpt_instance,
+# pv_ckpt_instance): a thread block "cluster" a read, or one block ("device")
+BWD_CKPT_LAUNCHES = {"cluster": 0, "device": 0}
+PV_CKPT_LAUNCHES = {"cluster": 0, "device": 0}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_RUNS[k] = 0
-    for k in PV_LAUNCHES:
-        PV_LAUNCHES[k] = 0
-        BWD_LAUNCHES[k] = 0
+    for counts in (PV_LAUNCHES, BWD_LAUNCHES, BWD_CKPT_LAUNCHES, PV_CKPT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 class PvInstance(NamedTuple):
@@ -149,6 +155,116 @@ def bwd_instance(CN: int, CK: int, A: int, itemsize: int) -> BwdInstance:
     return BwdInstance("device", scratch)
 
 
+class CkptInstance(NamedTuple):
+    """Which kernel ntc_bwd_ckpt or ntc_pv_ckpt launches at one shape:
+    "cluster" (csrc/ntc_lattice.cu bwd_ckpt_cluster_kernel,
+    pv_ckpt_cluster_kernel: one read on a cluster of G CTAs, each holding
+    the columns' slice of CK / G k-slots in shared memory) or "device"
+    (bwd_ckpt_kernel, pv_kernel<S, true>: one block a read, the columns in
+    device memory; G = 1); `nbytes` is the cluster instance's shared
+    memory a CTA (0 for "device")."""
+
+    name: str
+    G: int
+    nbytes: int
+
+
+# the cluster sizes the pickers try, in order: 8 is portable, 16 needs the
+# non-portable cluster attribute (the kernels' launcher sets it), 4 serves
+# the narrow shapes neither takes
+CLUSTER_SIZES = (8, 16, 4)
+
+
+def cluster_threads(CN: int, KS: int) -> int:
+    """Threads of one CTA of a cluster instance: one per slice cell, whole
+    warps, at most MAX_THREADS (the kernels loop over the rest)."""
+    return min(-(-CN * KS // 32) * 32, 512)
+
+
+def slice_row_bytes(CN: int, KS: int, A: int, itemsize: int) -> int:
+    """csrc/ntc_lattice.cu's slice_row_bytes: one row's staged inputs for a
+    slice of KS k-slots (each region 16-byte aligned): two samples,
+    mu_k/c1_k/c2_k (3 KS), the successors' parameters (3 A KS) and the
+    n-slots' (6 CN) in the working dtype; cand_n, brow_same, brow_next,
+    row_same, row_prev (5 CN), bcol_same, col_same (2 KS), bcol_suc,
+    col_prec (2 A KS) int32; hd (CN KS) int16; allowed (CN KS), d01 and
+    d02 (2 CN) bytes."""
+    return (_al16((2 + 3 * KS + 3 * A * KS + 6 * CN) * itemsize)
+            + _al16((5 * CN + 2 * KS + 2 * A * KS) * 4) + _al16(CN * KS * 2)
+            + _al16(CN * KS + 2 * CN))
+
+
+def bwd_ckpt_cluster_bytes(CN: int, KS: int, A: int, itemsize: int) -> int:
+    """csrc/ntc_lattice.cu's bwd_ckpt_cluster_bytes: rows t + 1 and t of a
+    slice of CN x KS cells (5 states each), bwd_column's scratch over the
+    slice (4 values and a flag a cell) and two staged rows."""
+    LNC = CN * KS
+    return (_al16(2 * 5 * LNC * itemsize) + _al16(4 * LNC * itemsize + LNC)
+            + 2 * slice_row_bytes(CN, KS, A, itemsize))
+
+
+def pv_ckpt_cluster_bytes(CN: int, KS: int, A: int, itemsize: int, C: int) -> int:
+    """csrc/ntc_lattice.cu's pv_ckpt_cluster_bytes: the four forward and
+    Viterbi columns' slices and the chunk's C re-derived backward rows with
+    its checkpoint (4 + C + 1 slices of 5 x CN x KS values), in fp32 four
+    rows' lp (4 slices), the reduction area (55 values), the larger of
+    bwd_column's scratch and phase 1 -> 2's (score, choice word and flag a
+    cell), and the chunk's C staged rows."""
+    LNC = CN * KS
+    lcol = 5 * LNC * itemsize
+    bwd = 4 * LNC * itemsize + LNC
+    fwd = LNC * (itemsize + 2 + 1)
+    return ((4 + C + 1) * lcol + (4 * lcol if itemsize == 4 else 0)
+            + _al16(55 * itemsize) + _al16(max(bwd, fwd))
+            + C * slice_row_bytes(CN, KS, A, itemsize))
+
+
+def bwd_ckpt_instance(CN: int, CK: int, A: int, itemsize: int,
+                      G: int | None = None) -> CkptInstance:
+    """ntc_bwd_ckpt's instance at CN n-slots, CK k-slots, alphabet A and
+    element size `itemsize`: the cluster one at the first G of
+    CLUSTER_SIZES (or the given G) that divides CK with at least 2
+    k-slots a CTA and whose bytes fit SMEM_LIMIT; bwd_ckpt_kernel where
+    none does (or G = 1)."""
+    for g in CLUSTER_SIZES if G is None else (G,):
+        if g > 1 and CK % g == 0 and CK // g >= 2:
+            nbytes = bwd_ckpt_cluster_bytes(CN, CK // g, A, itemsize)
+            if nbytes <= SMEM_LIMIT:
+                return CkptInstance("cluster", g, nbytes)
+        if G is not None and G != 1:
+            raise ValueError(f"ntc_bwd_ckpt: no cluster of {G} at CN {CN}, CK {CK}")
+    return CkptInstance("device", 1, 0)
+
+
+def pv_ckpt_instance(CN: int, CK: int, A: int, itemsize: int,
+                     G: int | None = None) -> CkptInstance:
+    """ntc_pv_ckpt's instance at CN n-slots, CK k-slots, alphabet A and
+    element size `itemsize`: the cluster one at the first G of
+    CLUSTER_SIZES (or the given G) that divides CK, whose bytes fit
+    SMEM_LIMIT and, in fp32, under which the column's normalization keeps
+    block_sum's order locally: CK divides B = threads(CN*CK) (then virtual
+    thread b's cells all lie in k-slot b mod CK), B > 32 and the slice's
+    KS = CK / G k-slots are a multiple of 32 (then each virtual warp lies
+    in one CTA), and the threads phase 2 leaves free (all but KS), which
+    run the normalization, hold a warp and the CTA's B / CK * KS virtual
+    threads; pv_kernel<S, true> where none does (or G = 1), e.g. fp32 at
+    CK 272, where B = 256."""
+    B = threads(CN * CK)
+    for g in CLUSTER_SIZES if G is None else (G,):
+        if g > 1 and CK % g == 0:
+            KS = CK // g
+            local = itemsize != 4 or (
+                B % CK == 0 and B > 32 and KS % 32 == 0
+                and cluster_threads(CN, KS) - KS >= max(B // CK * KS, 32))
+            nbytes = pv_ckpt_cluster_bytes(CN, KS, A, itemsize, nb.C_CKPT)
+            if local and nbytes <= SMEM_LIMIT:
+                return CkptInstance("cluster", g, nbytes)
+        if G is not None and G != 1:
+            raise ValueError(f"ntc_pv_ckpt: no cluster of {G} at CN {CN}, CK {CK}, "
+                             f"itemsize {itemsize}")
+    return CkptInstance("device", 1, 0)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ntc_tab_gather": [_P] * 7 + [_I] * 6 + [_P],
@@ -157,6 +273,9 @@ _ARGTYPES = {
     "ntc_bwd_ckpt": [_P] * 21 + [_I] * 7 + [_P],
     "ntc_pv": [_P] * 22 + [_I] * 8 + [_P],
     "ntc_pv_ckpt": [_P] * 31 + [_I] * 8 + [_P],
+    "ntc_bwd_ckpt_cluster": [_P] * 20 + [_I] * 8 + [_P],
+    "ntc_pv_ckpt_cluster": [_P] * 29 + [_I] * 9 + [_P],
+    "ntc_ckpt_cluster_fit": [_I] * 7 + [_P],
     "ntc_walk": [_P] * 13 + [_I] * 10 + [_P],
 }
 _bound: dict = {}
@@ -359,10 +478,12 @@ def _check_chunks(name: str, T_pad: int) -> None:
 
 
 def bwd_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
-             trans_log: dict, N_r, T_r):
+             trans_log: dict, N_r, T_r, G: int | None = None):
     """(ckpt (T_pad/C, R, 5, CN, CK), row0 (R, 5, CN, CK)): the backward
     store's row (c+1)*C entering each chunk c of C = ntc_batch.C_CKPT rows
-    (-inf for the last chunk), and its row 0."""
+    (-inf for the last chunk), and its row 0. The instance is
+    bwd_ckpt_instance's for the shape, or G's (1: the one-block kernel;
+    for timing the alternatives)."""
     if _on_cpu(sig):
         return bwd_ckpt_plain(plan, dims, prm, sig, trans_log, N_r, T_r)
     name = "ntc_bwd_ckpt"
@@ -371,16 +492,24 @@ def bwd_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     T_pad = _check_bwd_inputs(name, plan, dims, prm, sig, N_r, T_r)
     _check_chunks(name, T_pad)
     C = nb.C_CKPT
+    inst = bwd_ckpt_instance(CN, CK, A, sig.element_size(), G)
     ckpt = torch.empty((T_pad // C, R, 5, CN, CK), dtype=dtype, device=dev)
     row0 = torch.empty((R, 5, CN, CK), dtype=dtype, device=dev)
-    scratch = torch.empty((R, 2, 5, CN, CK), dtype=dtype, device=dev)
     tl = tl_tensor(trans_log, dtype, dev)
-    rc = _entry(name, dtype)(
-        *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
-        _ptr(ckpt), _ptr(row0), _ptr(scratch), R, T_pad, CN, CK, A,
-        threads(CN * CK), C, _stream(dev))
+    head = (*_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r), _ptr(ckpt),
+            _ptr(row0))
+    if inst.name == "cluster":
+        _check_aligned(name, hd=plan.hd, allowed=plan.allowed, d01=plan.d01, d02=plan.d02)
+        rc = _entry("ntc_bwd_ckpt_cluster", dtype)(
+            *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G), C,
+            _stream(dev))
+    else:
+        scratch = torch.empty((R, 2, 5, CN, CK), dtype=dtype, device=dev)
+        rc = _entry(name, dtype)(*head, _ptr(scratch), R, T_pad, CN, CK, A,
+                                 threads(CN * CK), C, _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    BWD_CKPT_LAUNCHES[inst.name] += 1
     return ckpt, row0
 
 
@@ -453,9 +582,10 @@ def pv_ckpt_plain(plan, dims, prm, sig, ckpt, Z_norm, trans_log: dict, N_r,
 
 
 def pv_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
-            ckpt, Z_norm, trans_log: dict, N_r, T_r):
+            ckpt, Z_norm, trans_log: dict, N_r, T_r, G: int | None = None):
     """pv's outputs from bwd_ckpt's checkpoints: each chunk's backward rows
-    re-derived in the kernel; lp in a buffer of its own."""
+    re-derived in the kernel; lp in a buffer of its own. The instance is
+    pv_ckpt_instance's for the shape, or G's (1: the one-block kernel)."""
     if _on_cpu(sig):
         return pv_ckpt_plain(plan, dims, prm, sig, ckpt, Z_norm, trans_log,
                              N_r, T_r)
@@ -475,19 +605,42 @@ def pv_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     slots = torch.empty((T_pad, R, CN, CK), dtype=torch.int32, device=dev)
     apEf = torch.empty((R, CN, CK), dtype=dtype, device=dev)
     fwdEf = torch.empty_like(apEf)
-    scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
-    bbuf = torch.empty((R, C, 5, CN, CK), dtype=dtype, device=dev)
+    inst = pv_ckpt_instance(CN, CK, A, sig.element_size(), G)
     tl = tl_tensor(trans_log, dtype, dev)
     p = plan
-    rc = _entry(name, dtype)(
-        *_bwd_ptrs(plan, prm, sig), _ptr(p.row_same), _ptr(p.row_prev),
-        _ptr(p.col_same), _ptr(p.col_prec), _ptr(tl), _ptr(Z_norm), _ptr(N_r),
-        _ptr(T_r), _ptr(ckpt), _ptr(lp), _ptr(choices), _ptr(slots),
-        _ptr(apEf), _ptr(fwdEf), _ptr(scratch), _ptr(bbuf), R, T_pad, CN, CK,
-        A, threads(CN * CK), nb.slot_bits(CK), C, _stream(dev))
+    head = (*_bwd_ptrs(plan, prm, sig), _ptr(p.row_same), _ptr(p.row_prev),
+            _ptr(p.col_same), _ptr(p.col_prec), _ptr(tl), _ptr(Z_norm), _ptr(N_r),
+            _ptr(T_r), _ptr(ckpt), _ptr(lp), _ptr(choices), _ptr(slots),
+            _ptr(apEf), _ptr(fwdEf))
+    if inst.name == "cluster":
+        _check_aligned(name, hd=p.hd, allowed=p.allowed, d01=p.d01, d02=p.d02)
+        rc = _entry("ntc_pv_ckpt_cluster", dtype)(
+            *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G),
+            nb.slot_bits(CK), C, _stream(dev))
+    else:
+        scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
+        bbuf = torch.empty((R, C, 5, CN, CK), dtype=dtype, device=dev)
+        rc = _entry(name, dtype)(
+            *head, _ptr(scratch), _ptr(bbuf), R, T_pad, CN, CK, A, threads(CN * CK),
+            nb.slot_bits(CK), C, _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    PV_CKPT_LAUNCHES[inst.name] += 1
     return lp, choices, slots, apEf, fwdEf
+
+
+def ckpt_cluster_fit(kernel: str, dims: nb.PlanDims, itemsize: int, G: int) -> int:
+    """How many clusters of G CTAs of `kernel`'s ("ntc_bwd_ckpt" or
+    "ntc_pv_ckpt") cluster instance fit the card at once at `dims`
+    (cudaOccupancyMaxActiveClusters); the kernels' launches refuse a shape
+    where this is 0."""
+    _, CN, CK, A = dims
+    out = ctypes.c_int(0)
+    rc = _entry("ntc_ckpt_cluster_fit", torch.float32 if itemsize == 4 else torch.float64)(
+        int(kernel == "ntc_pv_ckpt"), CN, CK, A, G, cluster_threads(CN, CK // G),
+        nb.C_CKPT, ctypes.byref(out))
+    _raise_on(kernel, rc)
+    return out.value
 
 
 # ---------------------------------------------------------------------------

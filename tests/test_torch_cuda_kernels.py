@@ -600,6 +600,71 @@ def test_ntc_bwd_instances_match_plain_on_cuda(card, dtype, caps):
         {k: int(k == inst.name) for k in before}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(16, 240), (16, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_ckpt_cluster_instances_match_plain_on_cuda(card, dtype, caps):
+    """K14 and K15's checkpoint mode in the instances their shape takes
+    (the cluster ones at the wide rung's (16, 240), CK 256; at native big
+    K's (16, 256), CK 272, K15's fp32 keeps pv_kernel<S, true>) and at
+    every other cluster size the pickers allow there, against their plain
+    versions on four reads of different T_r, one at T_r = T_pad: the
+    checkpoints, row 0, lp, choices, slots, apEf and fwdEf bit for bit,
+    and each launch counted under its instance."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype, full_row=True)
+    assert len(set(T.tolist())) == 4 and int(T.max()) == sig.shape[1] + 1
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    prm = kern.tab_gather_plain(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4,
+                                                                          dtype), dims)
+    isz = sig.element_size()
+    b_inst = kern.bwd_ckpt_instance(dims.CN, dims.CK, dims.A, isz)
+    p_inst = kern.pv_ckpt_instance(dims.CN, dims.CK, dims.A, isz)
+    want_pv = "device" if (caps, isz) == ((16, 256), 4) else "cluster"
+    assert (dims.CK, b_inst.name, p_inst.name) == ({(16, 240): 256, (16, 256): 272}[caps],
+                                                   "cluster", want_pv)
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+    def sizes(pick):
+        out = []
+        for G in kern.CLUSTER_SIZES + (1,):
+            try:
+                out.append(pick(dims.CN, dims.CK, dims.A, isz, G))
+            except ValueError:
+                pass  # no cluster of G at this shape
+        return out
+
+    ckpt, row0 = kern.bwd_ckpt_plain(plan, dims, prm, sig, tl, N, T)
+    for inst in sizes(kern.bwd_ckpt_instance):
+        before = dict(kern.BWD_CKPT_LAUNCHES)
+        got = kern.bwd_ckpt(plan, dims, prm, sig, tl, N, T, G=inst.G)
+        torch.cuda.synchronize()
+        same(got[0], ckpt)
+        same(got[1], row0)
+        assert {k: kern.BWD_CKPT_LAUNCHES[k] - before[k] for k in before} == \
+            {k: int(k == inst.name) for k in before}, inst
+    Zb = nb.ntc_zb_batch(plan, row0)
+    want = kern.pv_ckpt_plain(plan, dims, prm, sig, ckpt, Zb, tl, N, T)
+    for inst in sizes(kern.pv_ckpt_instance):
+        before = dict(kern.PV_CKPT_LAUNCHES)
+        got = kern.pv_ckpt(plan, dims, prm, sig, ckpt, Zb, tl, N, T, G=inst.G)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            same(g, w)
+        assert {k: kern.PV_CKPT_LAUNCHES[k] - before[k] for k in before} == \
+            {k: int(k == inst.name) for k in before}, inst
+
+
 def test_train_wrappers_refuse_other_devices():
     """The NTC training wrappers take the plain version only for CPU
     tensors; any other non-CUDA device raises."""
