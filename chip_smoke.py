@@ -83,7 +83,8 @@ result line):
      there (a thread block cluster a read in both dtypes), against their
      plain versions there, and its outputs against the full store's
      (checkpoints = the store's rows (c+1)*8, row 0, Zb, lp, choices,
-     slots, finals, walk), bit for bit;
+     slots, finals, walk), bit for bit; K17 and K18 each launched once in
+     the instance its picker takes (fwd_store_instance, train_instance);
  12. the resquiggle engine through dynamont_tpu_torch.cli.resquiggle.main
      in process on the 16 phase-9 reads from a TSV (--mode resquiggle,
      --device cuda, --profile), every launch counter reset right before
@@ -100,8 +101,10 @@ result line):
      programs with their kernels' inputs kept (phase 13's full-width part):
      K11, K13, K15, K16, K17 and K18 against their plain versions there,
      bit for bit as in phase 11, K17's row T_r-1 E bit for bit K15's fwdEf
-     and K18's b0 K13's row 0; plain K13 and K18 are one run of
-     ntc_train_batch, which keeps the backward store, and plain K15 and
+     and K18's b0 K13's row 0, K17 and K18 each launched once in its
+     shared-column instance (fwd_store_shared_kernel, train_shared_kernel);
+     plain K13 and K18 are one run of ntc_train_batch, which keeps the
+     backward store, and plain K15 and
      K17 one run of ntc_posterior_viterbi_batch, which keeps the forward
      store, so each pair reports that run's time; each kernel's CUDA-event
      time beside it (and, for ntc_tab_gather, the indexing call's). Then
@@ -125,8 +128,9 @@ result line):
      bucket, in phase 12; (c) the training path: the 48 phase-7 reads
      through dynamont_tpu_torch.cli.train.main --mode resquiggle in process
      (batch 24, 2 batches, fp32, cuda), every launch counter reset right
-     before and read right after: K7-K11, K17, K18 launched, K13, K15, K16
-     not, no plain version, at most one read on the exact rung, 2 finite
+     before and read right after: K7-K11, K17, K18 launched (K17 and K18
+     every time in their shared-column instances), K13, K15, K16 not, no
+     plain version, at most one read on the exact rung, 2 finite
      params.csv rows and 2 checkpoints; a second run writes byte-identical
      files; fp32 and fp64 trainers on the three short reads agree on the
      13 transitions within rel 1e-3; the training step's reads/s on a
@@ -1133,12 +1137,15 @@ def phase_11(model, max_err: dict):
             # the CPU tests' engine padding
             eng = NTCBatchEngine(model, "rna002", device="cuda", dtype=dtype, t_pad_to=64,
                                  n_pad_to=16, cap_n=caps[0], cap_k=caps[1])
+            before = train_counts()
             keep, kt = bucket_keeps(eng, items, ckpt=False)  # the full store
+            trained = train_launched(kt["dims"], kt["sig"].element_size(), before)
             plain_ms = {}
             walked = compare_lattice_kernels(keep, plain_ms, kt)
             R, t_pad = keep["sig"].shape[0], keep["sig"].shape[1] + 1
             msg = (f"[11] bucket {(R, t_pad)} {keep['dims']} {dtype}: K11, K13, K15, K16 and "
-                   f"(13a) K17, K18 every output bit for bit, {walked}/{len(items)} reads walked")
+                   f"(13a) K17, K18 ({trained}) every output bit for bit, {walked}/{len(items)} "
+                   "reads walked")
             if caps == WIDE_CAPS:  # the engine's own route there: checkpointed
                 kc = {}
                 before = ckpt_counts()
@@ -1326,7 +1333,9 @@ def phase_12(model, bench, launches: dict, long_ref):
             f"({wide_plain_ms['ntc_bwd_ckpt'] / 1e3:.1f} s, beside the spawned processes)")
         plain_ms = bwd_child.get()
         t1 = time.perf_counter()
+        before = train_counts()
         k, kt = bucket_keeps(eng, items[:NTC_READS])
+        trained = train_launched(kt["dims"], kt["sig"].element_size(), before, "shared")
         host = ((k, ("lp", "choices", "slots")), (kt, ("fwd",)))  # the kernels' outputs
         for d, fields in host:
             for f in fields:
@@ -1351,7 +1360,8 @@ def phase_12(model, bench, launches: dict, long_ref):
         f"({wide_plain_ms['ntc_pv_ckpt'] / 1e3:.1f} s in a spawned process)")
     log(f"[12] bucket {shape[:2]} N2 2048 {k['dims']} fp32: K11, K13, K15, K16, K17, K18 "
         f"every output bit for bit with their plain versions, K17's row T_r-1 E with "
-        f"K15's fwdEf and K18's b0 with K13's row 0, {walked}/{NTC_READS} reads walked "
+        f"K15's fwdEf and K18's b0 with K13's row 0 ({trained}), {walked}/{NTC_READS} "
+        "reads walked "
         f"(from the pool's start: K13 + K18 ended at {t1 - t0:.1f} s, K11, K15 and K17 here "
         f"at {t2 - t0:.1f} s, K16 at {t3 - t0:.1f} s, K15's checkpoint mode at "
         f"{time.perf_counter() - t0:.1f} s)")
@@ -1457,6 +1467,33 @@ def ckpt_design(name: str, dims, sig) -> str:
     return "pv_kernel<S, true>: one block a read, columns in a device-memory double buffer"
 
 
+def train_counts() -> tuple[dict, dict]:
+    """K17's and K18's launches by instance so far."""
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    return dict(tk.FWD_STORE_LAUNCHES), dict(tk.TRAIN_LAUNCHES)
+
+
+def train_launched(dims, itemsize: int, before: tuple[dict, dict], want: str | None = None,
+                   n: int = 1) -> str:
+    """Raises unless K17 and K18 each launched n times since `before`
+    (train_counts), all in the instance its picker takes at dims (and that
+    is `want`, when given); returns the instances, named for the log."""
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    named = []
+    for label, pick, b, now in (("K17", tk.fwd_store_instance, before[0],
+                                 tk.FWD_STORE_LAUNCHES),
+                                ("K18", tk.train_instance, before[1], tk.TRAIN_LAUNCHES)):
+        inst = pick(dims.CN, dims.CK, dims.A, itemsize).name
+        got = {k: now[k] - b[k] for k in now}
+        if got != {k: n * (k == inst) for k in now} or want not in (None, inst):
+            raise AssertionError(f"{label} launched {got} by instance, not {n} of "
+                                 f"{want or inst}")
+        named.append(f"{label} {inst}")
+    return ", ".join(named)
+
+
 def ckpt_counts() -> tuple[dict, dict]:
     """K14's and K15's checkpoint mode's launches by instance so far."""
     from dynamont_tpu_torch.ops import ntc_kernels as kern
@@ -1498,14 +1535,32 @@ def train_times(kt: dict, plain_ms: dict) -> dict:
                 p.bcol_same, p.bcol_suc, p.live, p.ks, *prm, N_r, T_r, fwd, Zf]
     log(f"[12] training kernels at {(sig.shape[0], sig.shape[1] + 1)} N2 2048 {dims} fp32 "
         "(plain: the shared runs above, ntc_fwd_store = ntc_pv's, ntc_train = ntc_bwd's):")
+    designs = train_design(dims, sig)
     return {
-        "ntc_fwd_store": timed(
+        "ntc_fwd_store": dict(timed(
             "ntc_fwd_store", lambda: tk.fwd_store(plan, dims, prm, sig, tl),
-            plain_ms["ntc_fwd_store"], fwd_in, cells, 2),
-        "ntc_train": timed(
+            plain_ms["ntc_fwd_store"], fwd_in, cells, 2), design=designs[0]),
+        "ntc_train": dict(timed(
             "ntc_train", lambda: tk.train(plan, dims, prm, sig, fwd, Zf, tl, N_r, T_r, K),
-            plain_ms["ntc_train"], train_in, cells, 2),
+            plain_ms["ntc_train"], train_in, cells, 2), design=designs[1]),
     }
+
+
+def train_design(dims, sig) -> tuple[str, str]:
+    """Which instances K17 and K18 take at these dims and dtype."""
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+
+    fi = tk.fwd_store_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    ti = tk.train_instance(dims.CN, dims.CK, dims.A, sig.element_size())
+    fwd = (f"fwd_store_shared_kernel: columns t - 1 and t and two stages of row inputs in "
+           f"shared memory ({fi.nbytes} B)" if fi.name == "shared"
+           else "fwd_store_kernel: row t - 1 read back from the store")
+    train = (f"train_shared_kernel: rows t + 1 and t, three slots of row inputs"
+             + (", forward rows and term sums" if ti.fwd_staged else "")
+             + f" in shared memory, moments off the chain ({ti.nbytes} B)"
+             if ti.name == "shared"
+             else "train_kernel: row t + 1 in a device-memory double buffer")
+    return fwd, train
 
 
 def wide_ckpt_plain(eng, items) -> float:
@@ -1677,10 +1732,11 @@ def wide_rung(model, eng, items, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_13(model, bench, launches: dict) -> None:
+def phase_13(model, bench, launches: dict) -> dict:
     """NTC training: the training kernels on the short reads, then the
     training path through its CLI at full width and the training step's
-    split (module docstring; the full-width kernel checks are phase 12's)."""
+    split (module docstring; the full-width kernel checks are phase 12's).
+    Returns K17's and K18's launches by instance on the counted run."""
     import torch
 
     from dynamont_tpu_torch.cli import train as train_cli
@@ -1718,9 +1774,14 @@ def phase_13(model, bench, launches: dict) -> None:
             wall = time.perf_counter() - t0
             used = {**kn.LAUNCHES, **kern.LAUNCHES, **tk.LAUNCHES}
             plain = {**kn.PLAIN_RUNS, **kern.PLAIN_RUNS, **tk.PLAIN_RUNS}
+            by_inst = dict(zip(tk.KERNELS, train_counts()))
             log(f"[13] CLI --mode resquiggle run {rep}: {TRAIN_READS} reads in {wall:.2f} s | "
-                f"launches {used} | plain {plain} | exact rung {trainer.fp64_reads} | peak "
-                f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                f"launches {used}, K17 and K18 by instance {by_inst} | plain {plain} | exact "
+                f"rung {trainer.fp64_reads} | peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if any(by_inst[k]["shared"] != used[k] for k in tk.KERNELS):
+                raise AssertionError("the NTC training path ran a device-memory instance of "
+                                     "K17 or K18")
             if (any(used[k] == 0 for k in path_kernels)
                     or any(used[k] for k in (*MAIN_RUNG[1:], *CKPT_ROUTE[1:]))
                     or any(plain.values()) or any(kk.LAUNCHES.values())
@@ -1730,6 +1791,7 @@ def phase_13(model, bench, launches: dict) -> None:
             outs.append(files_of(out))
             if rep == 0:
                 launches.update({k: used[k] for k in tk.KERNELS})
+                path_by_inst = by_inst
         rows = outs[0]["params.csv"].decode().splitlines()
         log("[13] params.csv: " + " | ".join(rows))
         if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
@@ -1781,6 +1843,7 @@ def phase_13(model, bench, launches: dict) -> None:
         f"split: " + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
         + f" | peak device memory {peak:.2f} GiB | exact rung {eng.profile['exact_retries']} "
         f"reads in {STEPS + 1} steps")
+    return path_by_inst
 
 
 def table9(path: str):
@@ -2410,6 +2473,7 @@ def main(argv=None) -> int:
     kids_of = lambda reads: [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size)
                              for _, r in reads]
     max_err, launches, times = {}, {}, {}
+    by_instance = {}  # K17's and K18's launches by instance (phase 13)
 
     # 3. kernels against their plain versions
     phase.start("3")
@@ -2700,7 +2764,7 @@ def main(argv=None) -> int:
     # 13. NTC training
     phase.start("13")
     if want("13"):
-        phase_13(model, bench, launches)
+        by_instance.update(phase_13(model, bench, launches))
     # 14. native 9-mer NTC
     phase.start("14")
     if want("14"):
@@ -2722,6 +2786,8 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE[name],
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": max_err[name], **t})
+        if name in by_instance:
+            kernels[-1]["launches_by_instance"] = by_instance[name]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log(card)

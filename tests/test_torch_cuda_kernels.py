@@ -686,8 +686,10 @@ def test_train_wrappers_refuse_other_devices():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ntc_train_kernels_match_plain_on_cuda(card, dtype, caps):
     """K17 (forward store) and K18 (training sums) against their plain
-    versions on the short reads: every output bit for bit; K17's row
-    T_r-1 E is K15's fwdEf and K18's b0 K13's row 0."""
+    versions on the short reads, in every instance the wrappers run at the
+    shape (the picked one and the device-memory one): every output bit for
+    bit, each launch counted under its instance; K17's row T_r-1 E is K15's
+    fwdEf and K18's b0 K13's row 0."""
     from dynamont_tpu_torch.constants import NTK_TRANSITIONS
     from dynamont_tpu_torch.ops import ntc_batch as nb
     from dynamont_tpu_torch.ops import ntc_kernels as kern
@@ -705,20 +707,31 @@ def test_ntc_train_kernels_match_plain_on_cuda(card, dtype, caps):
     prm = kern.tab_gather(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4, dtype),
                           dims)
     same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
-    launches = dict(tk.LAUNCHES)
+    isz = sig.element_size()
+    instances = lambda pick: {pick(dims.CN, dims.CK, dims.A, isz).name, "device"}
     fwd = tk.fwd_store_plain(plan, dims, prm, sig, tl)
-    same(tk.fwd_store(plan, dims, prm, sig, tl), fwd)
+    for inst in instances(tk.fwd_store_instance):
+        launches, by_inst = dict(tk.LAUNCHES), dict(tk.FWD_STORE_LAUNCHES)
+        same(tk.fwd_store(plan, dims, prm, sig, tl, instance=inst), fwd)
+        assert tk.LAUNCHES["ntc_fwd_store"] == launches["ntc_fwd_store"] + 1
+        assert {k: tk.FWD_STORE_LAUNCHES[k] - by_inst[k] for k in by_inst} == \
+            {k: int(k == inst) for k in by_inst}, inst
     r = torch.arange(dims.R, device="cuda")
     Zf = nb.ntc_zf_batch(plan, fwd[T.long() - 1, r, nb.E_ST], N, T)
-    got = tk.train(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024)
-    for g, w in zip(got, tk.train_plain(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024)):
-        same(g, w)
+    want = tk.train_plain(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024)
     bwd = kern.bwd(plan, dims, prm, sig, tl, N, T)
-    same(got[2], bwd[0])
+    for inst in instances(tk.train_instance):
+        launches, by_inst = dict(tk.LAUNCHES), dict(tk.TRAIN_LAUNCHES)
+        got = tk.train(plan, dims, prm, sig, fwd, Zf, tl, N, T, 1024, instance=inst)
+        for g, w in zip(got, want):
+            same(g, w)
+        same(got[2], bwd[0])
+        assert tk.LAUNCHES["ntc_train"] == launches["ntc_train"] + 1
+        assert {k: tk.TRAIN_LAUNCHES[k] - by_inst[k] for k in by_inst} == \
+            {k: int(k == inst) for k in by_inst}, inst
     fwdEf = kern.pv(plan, dims, prm, sig, bwd, nb.ntc_zb_batch(plan, bwd[0]), tl, T)[4]
     same(fwd[T.long() - 1, r, nb.E_ST], fwdEf)
     torch.cuda.synchronize()
-    assert all(tk.LAUNCHES[k] == launches[k] + 1 for k in tk.KERNELS)
 
 
 @pytest.mark.cuda
