@@ -199,10 +199,12 @@ Each phase prints its wall time. The line before the last is
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
-banded_fwd_vit's, ntc_bwd's, ntc_bwd_ckpt's and ntc_pv's (and its `ckpt`'s)
-say which design ran (`design`: the staged chunks, the instance); banded_vit's
-launches are phase 15(a)'s, ntc_table_gather's the one run of its own
-entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
+banded_fwd_vit's, ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's, ntc_bwd_ckpt's and
+ntc_pv's (and its `ckpt`'s) say which design ran (`design`: the staged
+chunks, the threads and their columns, the instance); the pre-pass kernels'
+(K7-K10) launches are those of phase 12's counted run and phase 13(c)'s
+(both run them), banded_vit's phase 15(a)'s, ntc_table_gather's the one run
+of its own entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
 ntc_microop's those of phase 16's probe runs (no path runs them):
 ntc_bwd_variant's ms is the staged C=8 reverse variant's on the engine's
 bucket, its plain_ms the plain version's at (2, 256) (`plain_at`), beside
@@ -824,9 +826,25 @@ def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
     times["ntc_tn_bwd_sel"].update(
         parts=parts, design="tn_bwd_u_kernel (the chain, one block a read) into a u store, "
                             "then tn_sel_kernel (one warp a row)")
+    times["ntc_tk_bwd"]["design"], times["ntc_tk_fwd_u"]["design"] = tk_design(
+        model.num_kmers, sig.element_size())
     del fwd, bwd, runs, tab, tabk, sig, u
     torch.cuda.empty_cache()
     return times
+
+
+def tk_design(K: int, itemsize: int) -> tuple[str, str]:
+    """K9's and K10's design at K columns, from their launch geometry."""
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    geo = kn.tk_geometry(K, kn.TK_A, itemsize)
+    own = (f"{geo.threads} threads (built for {geo.max_threads}), each owning the "
+           f"{kn.TK_A} columns of one k-mer group and its logsumexp, computed once a row; "
+           f"mu/c1/c2 in registers; the signal staged in chunks of {kn.TK_CHUNK} (cp.async)")
+    return (f"{own}; {geo.bwd_bytes} B of shared memory",
+            f"{own}; the backward rows in a ring of {geo.ring} rows (each thread's own "
+            f"values, cp.async, {geo.ring - 1} row{'s' if geo.ring > 2 else ''} ahead); "
+            f"{geo.fwd_bytes} B of shared memory")
 
 
 def phase_10(model, bench, lm, le):
@@ -1732,11 +1750,13 @@ def wide_rung(model, eng, items, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_13(model, bench, launches: dict) -> dict:
+def phase_13(model, bench, launches: dict, after_12: bool) -> dict:
     """NTC training: the training kernels on the short reads, then the
     training path through its CLI at full width and the training step's
     split (module docstring; the full-width kernel checks are phase 12's).
-    Returns K17's and K18's launches by instance on the counted run."""
+    Adds the counted run's K7-K10 launches to phase 12's (after_12) or
+    replaces phase 9's. Returns K17's and K18's launches by instance on the
+    counted run."""
     import torch
 
     from dynamont_tpu_torch.cli import train as train_cli
@@ -1791,6 +1811,8 @@ def phase_13(model, bench, launches: dict) -> dict:
             outs.append(files_of(out))
             if rep == 0:
                 launches.update({k: used[k] for k in tk.KERNELS})
+                launches.update({k: (launches.get(k, 0) if after_12 else 0) + used[k]
+                                 for k in kn.KERNELS})
                 path_by_inst = by_inst
         rows = outs[0]["params.csv"].decode().splitlines()
         log("[13] params.csv: " + " | ".join(rows))
@@ -2764,7 +2786,7 @@ def main(argv=None) -> int:
     # 13. NTC training
     phase.start("13")
     if want("13"):
-        by_instance.update(phase_13(model, bench, launches))
+        by_instance.update(phase_13(model, bench, launches, want("12")))
     # 14. native 9-mer NTC
     phase.start("14")
     if want("14"):

@@ -11,15 +11,17 @@
 // extern "C" entry points at the end of the file.
 //
 // Design (as csrc/nt_banded.cu): one thread block per read, the t-loop inside the
-// kernel. A block of B threads owns a row of W columns (W = N2 for TN, K
-// for TK; B = the largest power of two dividing W, at most 512); thread b
+// kernel. TN (K7, K8's chain): a block of B threads owns a row of W = N2
+// columns (B = the largest power of two dividing W, at most 512); thread b
 // owns columns b, b+B, ... (at most 8), whose M/E carries stay in
 // registers. Only what a column reads from other columns goes through
 // shared memory, double-buffered so that each row costs one barrier: the
-// neighbour E[n-1] (TN forward), M[n+1] (TN backward), the four successor
-// values of the adjacent-4 group (TK backward) and the four predecessor E
-// of the stride-K/4 class (TK forward). The TPU kernels' lane rotations and
-// one-hot MXU permutations (p4, p2) become this indexing.
+// neighbour E[n-1] (TN forward), M[n+1] (TN backward). TK (K9, K10): a
+// thread owns one k-mer group, the A columns that share one successor
+// group (K9) or one predecessor class (K10), so each group's logsumexp is
+// computed once a row; the group's A values come through shared memory
+// (the section "The TK kernels" below). The TPU kernels' lane rotations
+// and one-hot MXU permutations (p4, p2) become this indexing.
 //
 // ntc_tn_bwd_sel is two kernels. (a) tn_bwd_u_kernel, the chain: the TN
 // backward as above, each row's u = logaddexp(fwd_M + M, fwd_E + E) stored
@@ -40,7 +42,7 @@
 //
 // Exactness: every expression rounds as the plain version does, op by op:
 // the TN score -0.5*((LOG_2PI + l2s) + d*d) with d = (x - mu)*sinv, the TK
-// score c1 - (c2*d)*d, (a + sc) + log_t, torch.logaddexp, and the grouped
+// score c1 - (c2*d)*d (nt_banded_common.cuh's score), (a + sc) + log_t, torch.logaddexp, and the grouped
 // logsumexps as max, exp, ascending sum, log. Built with -fmad=false and
 // without fast math.
 
@@ -70,28 +72,6 @@ __device__ __forceinline__ S tn_score(S x, const S* mu, const S* sinv,
   const S d = (x - mu[j]) * sinv[j];
   const S dd = d * d;
   return S(-0.5) * ((S(LOG_2PI) + l2s[j]) + dd);
-}
-
-// TK emission c1 - (c2*d)*d of k-mer k.
-template <typename S>
-__device__ __forceinline__ S tk_score(S x, const S* mu, const S* c1,
-                                      const S* c2, int k) {
-  const S d = x - mu[k];
-  const S c2d = c2[k] * d;
-  return c1[k] - c2d * d;
-}
-
-// logsumexp of v[base + j*stride], j = 0..A-1: the max, exp, the sum in
-// ascending j, log; -inf for an all--inf group.
-template <typename S>
-__device__ __forceinline__ S group_lse(const S* v, int base, int stride,
-                                       int A) {
-  S m = v[base];
-  for (int j = 1; j < A; ++j) m = max_nan(m, v[base + j * stride]);
-  if (!isfinite(m)) return neg_inf<S>();
-  S s = exp_(v[base] - m);
-  for (int j = 1; j < A; ++j) s = s + exp_(v[base + j * stride] - m);
-  return log_(s) + m;
 }
 
 // (v, i) takes (ov, oi) if ov is larger, or equal at a lower index.
@@ -377,62 +357,195 @@ tn_sel_kernel(const S* __restrict__ U, const int* __restrict__ kid,
 }
 
 // ---------------------------------------------------------------------------
+// The TK kernels, K9 and K10: one k-mer group a thread
+// ---------------------------------------------------------------------------
+// A k-mer's M state sums over a group of ALPHA k-mers: its successors
+// (kk % step)*A + j in the backward pass, its predecessors kk/A + j*step in
+// the forward pass (step = K/A, j < A). The A columns that share a group
+// share its logsumexp, so thread i owns group i, A columns, and computes
+// the group's sum once a row: step threads, up to TK_MAX_THREADS
+// (ops/ntc_pre_kernels.tk_geometry). Above MAX_THREADS the kernels are
+// built for TK_MAX_THREADS threads (64 registers a thread): at K = 4096
+// that beat 512 threads of two groups each by 4-15 % in both dtypes.
+//   K9: thread i owns successor group i; its columns are i + j*step, and
+//       the group's values V[iA .. iA + A-1] are one vector load from
+//       shared memory.
+//   K10: thread i owns predecessor class i; its columns are iA + j,
+//       contiguous (one vector store of its E row and of U each), and its
+//       group's values E[i + j*step] are A conflict-free loads.
+// mu, c1 and c2 of a thread's columns stay in registers for the whole
+// t-loop. The signal arrives in stages of TK_CHUNK samples, copied into
+// shared memory (cp.async) one chunk ahead of the rows that read it, as
+// in nt_banded.cu. K10's backward rows arrive in a ring of `ring` rows of
+// bM and bE (TK_RING, fewer where shared memory runs out): each thread
+// copies its own 2*A values ring - 1 rows ahead and waits for its own
+// copies only, so U's logaddexp reads shared memory and no row waits on
+// device memory. Both keep one barrier a row (K9's V and K10's E row
+// double-buffered) and one more a chunk.
+constexpr int ALPHA = 4;
+constexpr int TK_MAX_THREADS = 1024;
+constexpr int TK_CHUNK = 512;
+constexpr int TK_RING = 4;
+
+// logsumexp of a group: the max, exp, the sum in ascending j, log; -inf
+// for a group whose max is not finite (ntc_pre._group_lse). Written as
+// selects, like tk_logaddexp below: without a branch around each sum the
+// compiler interleaves a thread's independent chains (K9 12.2 -> 9.3 ms,
+// K10 21.9 -> 16.7 ms in fp32 on the (16, 16384) bucket).
+template <typename S>
+__device__ __forceinline__ S group_lse(const S (&v)[ALPHA]) {
+  S m = v[0];
+#pragma unroll
+  for (int j = 1; j < ALPHA; ++j) m = max_nan(m, v[j]);
+  const bool fin = isfinite(m);
+  const S ms = fin ? m : S(0);
+  S s = exp_(v[0] - ms);
+#pragma unroll
+  for (int j = 1; j < ALPHA; ++j) s = s + exp_(v[j] - ms);
+  const S r = log_(s) + ms;
+  return fin ? r : neg_inf<S>();
+}
+
+// torch.logaddexp (nt_banded_common.cuh's logaddexp, the same values) as
+// a select: both sides computed, the shared infinity picked after. Kept
+// apart from the shared one, whose other kernels keep their code.
+template <typename S>
+__device__ __forceinline__ S tk_logaddexp(S a, S b) {
+  const S m = fmax_(a, b);
+  const S r = m + log1p_(exp_(-fabs_(a - b)));
+  return (isinf(a) && a == b) ? a : r;
+}
+
+// A = 4 contiguous values, 16-byte aligned, as vector loads and stores.
+__device__ __forceinline__ void ld4(const float* p, float (&v)[ALPHA]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double (&v)[ALPHA]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[ALPHA]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(double* p, const double (&v)[ALPHA]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+
+// Blocks until at most `pending` (1-3) of the thread's committed copy
+// groups are still in flight; all of them for any other value.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 1: cp_async_wait_group<1>(); break;
+    case 2: cp_async_wait_group<2>(); break;
+    case 3: cp_async_wait_group<3>(); break;
+    default: cp_async_wait_all();
+  }
+}
+
+// Shared memory of K9 (ring 0) and K10 at element size es: the
+// double-buffered row [2][K] (K9's V, K10's E), two signal stages
+// [2][TK_CHUNK], then K10's ring [ring][2][K] of backward rows (bM, bE).
+// ops/ntc_pre_kernels.tk_geometry repeats the sum.
+__host__ __device__ inline size_t tk_smem_bytes(int K, int ring, int es) {
+  return (2 * (size_t)K + 2 * TK_CHUNK + 2 * (size_t)ring * K) * es;
+}
+
+// The signal stage of chunk k (samples [lo, hi]) starts to copy.
+template <typename S>
+__device__ __forceinline__ void tk_issue_signal(S* xs, const S* sig_r, int k,
+                                                int lo, int hi, int tid,
+                                                int nt) {
+  cp_async_elems(xs + (k & 1) * TK_CHUNK, sig_r + lo, hi - lo + 1, tid, nt);
+  cp_async_commit();
+}
+
+// ---------------------------------------------------------------------------
 // ntc_tk_bwd: TK backward, every row stored (ref: NTC.cpp:189-217)
 // ---------------------------------------------------------------------------
-template <typename S>
-__global__ void __launch_bounds__(MAX_THREADS)
+// Rows run from T_pad - 1 (x = 0) down; chunk k holds the samples of rows
+// hi = T_pad - 2 - k*TK_CHUNK down to lo = max(0, hi - TK_CHUNK + 1).
+template <typename S, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 tk_bwd_kernel(
     const S* __restrict__ sig, const S* __restrict__ tabk,
     const int* __restrict__ T_r, S* __restrict__ bwd, int R, int T_pad, int K,
-    int A, S log_m1, S log_e2) {
-  extern __shared__ unsigned char smem[];
+    S log_m1, S log_e2) {
+  extern __shared__ __align__(16) unsigned char smem[];
   S* V = reinterpret_cast<S*>(smem);  // [2][K] (M_next + sc) + m1
-  const int r = blockIdx.x, tid = threadIdx.x, B = blockDim.x;
-  const int J = K / B, step = K / A;
+  S* xs = V + 2 * (size_t)K;          // [2][TK_CHUNK] signal stages
+  const int r = blockIdx.x, q = threadIdx.x, NT = blockDim.x;
+  const int step = K / ALPHA, Tm1 = T_pad - 1;
   const int tm1 = T_r[r] - 1;
-  const S* mu = tabk;
-  const S* c1 = tabk + K;
-  const S* c2 = tabk + 2 * (size_t)K;
-  const S* sig_r = sig + (size_t)r * (T_pad - 1);
+  const S* sig_r = sig + (size_t)r * Tm1;
   const S NEG = neg_inf<S>();
   const size_t row = (size_t)R * K;
 
-  S M[MAX_COLS], E[MAX_COLS];
+  S mu[ALPHA], c1[ALPHA], c2[ALPHA], M[ALPHA], E[ALPHA];
 #pragma unroll
-  for (int k = 0; k < MAX_COLS; ++k) {
-    if (k >= J) break;
-    M[k] = NEG;
-    E[k] = NEG;
+  for (int j = 0; j < ALPHA; ++j) {
+    const int kk = q + j * step;
+    mu[j] = tabk[kk];
+    c1[j] = tabk[K + kk];
+    c2[j] = tabk[2 * (size_t)K + kk];
+    M[j] = NEG;
+    E[j] = NEG;
   }
+  const int nchunks = (Tm1 + TK_CHUNK - 1) / TK_CHUNK;
+  auto hi_of = [&](int k) { return Tm1 - 1 - k * TK_CHUNK; };
+  auto lo_of = [&](int k) {
+    const int lo = hi_of(k) - TK_CHUNK + 1;
+    return lo > 0 ? lo : 0;
+  };
   int cur = 0;
-  for (int t = T_pad - 1; t >= 0; --t) {
-    const S x = t < T_pad - 1 ? sig_r[t] : S(0);
+  // row t from row t + 1 (M, E in registers, V[cur] the exchange)
+  auto step_row = [&](int t, S x) {
     const bool term = t == tm1, dead = t > tm1;
     S* Vc = V + cur * K;
-    S sc[MAX_COLS];
+    S em[ALPHA];  // E[t+1] + sc: M's new value, E's own-state term
 #pragma unroll
-    for (int k = 0; k < MAX_COLS; ++k) {
-      if (k >= J) break;
-      const int kk = tid + k * B;
-      sc[k] = tk_score(x, mu, c1, c2, kk);
-      Vc[kk] = (M[k] + sc[k]) + log_m1;
+    for (int j = 0; j < ALPHA; ++j) {
+      const S sc = score(x, mu, c1, c2, j);
+      Vc[q + j * step] = (M[j] + sc) + log_m1;
+      em[j] = E[j] + sc;
     }
     __syncthreads();
     S* o = bwd + (size_t)t * 2 * row + (size_t)r * K;
+    S v[ALPHA];
+    ld4(Vc + q * ALPHA, v);
+    const S y = group_lse(v);  // the successors' sum, once for A columns
 #pragma unroll
-    for (int k = 0; k < MAX_COLS; ++k) {
-      if (k >= J) break;
-      const int kk = tid + k * B;
-      // successors of kk: the adjacent group (kk % step)*A + j
-      const S y = group_lse(Vc, (kk % step) * A, 1, A);
-      const S m_new = E[k] + sc[k];
-      const S e_new = logaddexp(y, (E[k] + sc[k]) + log_e2);
-      M[k] = (term || dead) ? NEG : m_new;
-      E[k] = term ? S(0) : (dead ? NEG : e_new);
-      o[kk] = M[k];
-      o[row + kk] = E[k];
+    for (int j = 0; j < ALPHA; ++j) {
+      const int kk = q + j * step;
+      const S e_new = tk_logaddexp(y, em[j] + log_e2);
+      M[j] = (term || dead) ? NEG : em[j];
+      E[j] = term ? S(0) : (dead ? NEG : e_new);
+      o[kk] = M[j];
+      o[row + kk] = E[j];
     }
     cur ^= 1;
+  };
+
+  if (nchunks > 0) tk_issue_signal(xs, sig_r, 0, lo_of(0), hi_of(0), q, NT);
+  step_row(Tm1, S(0));
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k = 0; k < nchunks; ++k) {
+    const S* xk = xs + (k & 1) * TK_CHUNK;
+    const int hi = hi_of(k), lo = lo_of(k);
+    if (k + 1 < nchunks)
+      tk_issue_signal(xs, sig_r, k + 1, lo_of(k + 1), hi_of(k + 1), q, NT);
+    for (int t = hi; t >= lo; --t) step_row(t, xk[t - lo]);
+    cp_async_wait_all();  // chunk k + 1 has landed
+    __syncthreads();
   }
 }
 
@@ -440,65 +553,109 @@ tk_bwd_kernel(
 // ntc_tk_fwd_u: TK forward + U = lse(bM + M, bE + E) + finalE (ref:
 // NTC.cpp:145-169 for the recurrence, 291-349 for the posteriors)
 // ---------------------------------------------------------------------------
-template <typename S>
-__global__ void __launch_bounds__(MAX_THREADS)
+// Row 0 is M = -inf, E = 0; chunk k holds the samples k*TK_CHUNK ..
+// of rows 1 + k*TK_CHUNK .. (row t reads sample t - 1).
+template <typename S, int MAXT>
+__global__ void __launch_bounds__(MAXT)
 tk_fwd_u_kernel(
     const S* __restrict__ sig, const S* __restrict__ tabk,
     const int* __restrict__ T_r, const S* __restrict__ bwd, S* __restrict__ U,
-    S* __restrict__ finalE, int R, int T_pad, int K, int A, S log_m1,
+    S* __restrict__ finalE, int R, int T_pad, int K, int ring, S log_m1,
     S log_e2) {
-  extern __shared__ unsigned char smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   S* Es = reinterpret_cast<S*>(smem);  // [2][K] previous E row
-  const int r = blockIdx.x, tid = threadIdx.x, B = blockDim.x;
-  const int J = K / B, step = K / A;
+  S* xs = Es + 2 * (size_t)K;          // [2][TK_CHUNK] signal stages
+  S* bs = xs + 2 * TK_CHUNK;           // [ring][2][K] backward rows
+  const int r = blockIdx.x, c = threadIdx.x, NT = blockDim.x;
+  const int step = K / ALPHA, Tm1 = T_pad - 1, c0 = c * ALPHA;
   const int tm1 = T_r[r] - 1;
-  const S* mu = tabk;
-  const S* c1 = tabk + K;
-  const S* c2 = tabk + 2 * (size_t)K;
-  const S* sig_r = sig + (size_t)r * (T_pad - 1);
+  const S* sig_r = sig + (size_t)r * Tm1;
   const S NEG = neg_inf<S>();
   const size_t row = (size_t)R * K;
+  S* fin = finalE + (size_t)r * K + c0;
+  constexpr int PIECE = 16 / (int)sizeof(S);  // elements a 16-byte copy
 
-  S M[MAX_COLS], E[MAX_COLS], F[MAX_COLS];
+  S mu[ALPHA], c1[ALPHA], c2[ALPHA], M[ALPHA], E[ALPHA];
 #pragma unroll
-  for (int k = 0; k < MAX_COLS; ++k) {
-    if (k >= J) break;
-    M[k] = NEG;
-    E[k] = S(0);
-    F[k] = NEG;
-    Es[tid + k * B] = S(0);
+  for (int j = 0; j < ALPHA; ++j) {
+    mu[j] = tabk[c0 + j];
+    c1[j] = tabk[K + c0 + j];
+    c2[j] = tabk[2 * (size_t)K + c0 + j];
+    M[j] = NEG;
+    E[j] = S(0);
   }
-  int cur = 0;
-  __syncthreads();
-  for (int t = 0; t < T_pad; ++t) {
-    const S x = t > 0 ? sig_r[t - 1] : S(0);
-    const bool first = t == 0, dead = t > tm1;
-    const S* Ep = Es + cur * K;
-    S* En = Es + (cur ^ 1) * K;
-    const S* b = bwd + (size_t)t * 2 * row + (size_t)r * K;
-    S* o = U + (size_t)t * row + (size_t)r * K;
+  st4(Es + c0, E);
+  {
+    const S none[ALPHA] = {NEG, NEG, NEG, NEG};
+    st4(fin, none);
+  }
+  // this thread's bM and bE of row t into ring slot t % ring (an empty
+  // group past the last row), one commit group a row
+  auto issue_row = [&](int t) {
+    if (t < T_pad) {
+      const S* b = bwd + (size_t)t * 2 * row + (size_t)r * K + c0;
+      S* s = bs + (size_t)(t % ring) * 2 * K + c0;
 #pragma unroll
-    for (int k = 0; k < MAX_COLS; ++k) {
-      if (k >= J) break;
-      const int kk = tid + k * B;
-      const S sc = tk_score(x, mu, c1, c2, kk);
-      // predecessors of kk: the class kk/A + j*step
-      const S X = group_lse(Ep, kk / A, step, A);
-      const S m_new = (X + sc) + log_m1;
-      const S e_new = logaddexp(M[k] + sc, (E[k] + sc) + log_e2);
-      M[k] = (first || dead) ? NEG : m_new;
-      E[k] = first ? S(0) : (dead ? NEG : e_new);
-      if (t == tm1) F[k] = E[k];
-      En[kk] = E[k];
-      o[kk] = logaddexp(b[kk] + M[k], b[row + kk] + E[k]);
+      for (int p = 0; p < ALPHA; p += PIECE) {
+        cp_async16(s + p, b + p);
+        cp_async16(s + K + p, b + row + p);
+      }
     }
-    cur ^= 1;
-    __syncthreads();
-  }
+    cp_async_commit();
+  };
+  // U and finalE of row t from M and E, the backward values from the ring
+  auto out_row = [&](int t) {
+    cp_async_wait_pending(ring - 1);  // this thread's copies of row t landed
+    const S* s = bs + (size_t)(t % ring) * 2 * K + c0;
+    S bm[ALPHA], be[ALPHA], u[ALPHA];
+    ld4(s, bm);
+    ld4(s + K, be);
 #pragma unroll
-  for (int k = 0; k < MAX_COLS; ++k) {
-    if (k >= J) break;
-    finalE[(size_t)r * K + tid + k * B] = F[k];
+    for (int j = 0; j < ALPHA; ++j) u[j] = tk_logaddexp(bm[j] + M[j], be[j] + E[j]);
+    st4(U + (size_t)t * row + (size_t)r * K + c0, u);
+    if (t == tm1) st4(fin, E);
+  };
+  const int nchunks = (Tm1 + TK_CHUNK - 1) / TK_CHUNK;
+  auto hi_of = [&](int k) {  // last sample of chunk k
+    const int hi = (k + 1) * TK_CHUNK - 1;
+    return hi < Tm1 - 1 ? hi : Tm1 - 1;
+  };
+
+  if (nchunks > 0) tk_issue_signal(xs, sig_r, 0, 0, hi_of(0), c, NT);
+  for (int t = 0; t < ring; ++t) issue_row(t);
+  out_row(0);
+  int cur = 0;
+  cp_async_wait_all();
+  __syncthreads();
+  for (int k = 0; k < nchunks; ++k) {
+    const S* xk = xs + (k & 1) * TK_CHUNK;
+    const int lo = k * TK_CHUNK, hi = hi_of(k);
+    if (k + 1 < nchunks)
+      tk_issue_signal(xs, sig_r, k + 1, lo + TK_CHUNK, hi_of(k + 1), c, NT);
+    for (int t = lo + 1; t <= hi + 1; ++t) {
+      issue_row(t + ring - 1);
+      const S x = xk[t - 1 - lo];
+      const bool dead = t > tm1;
+      const S* Ep = Es + cur * K;
+      S ep[ALPHA];
+#pragma unroll
+      for (int j = 0; j < ALPHA; ++j) ep[j] = Ep[c + j * step];
+      const S X = group_lse(ep);  // the predecessors' sum, once for A columns
+#pragma unroll
+      for (int j = 0; j < ALPHA; ++j) {
+        const S sc = score(x, mu, c1, c2, j);
+        const S m_new = (X + sc) + log_m1;
+        const S e_new = tk_logaddexp(M[j] + sc, (E[j] + sc) + log_e2);
+        M[j] = dead ? NEG : m_new;
+        E[j] = dead ? NEG : e_new;
+      }
+      st4(Es + (cur ^ 1) * K + c0, E);
+      out_row(t);
+      cur ^= 1;
+      __syncthreads();
+    }
+    cp_async_wait_all();  // chunk k + 1 has landed
+    __syncthreads();
   }
 }
 
@@ -549,29 +706,61 @@ int tn_sel(const S* U, const int* kid, S* pack, int rows, int R, int N2,
   return (int)cudaGetLastError();
 }
 
+// K9 and K10 take A = ALPHA and K/A threads, at most TK_MAX_THREADS
+// (built for MAX_THREADS threads up to it, for TK_MAX_THREADS above); K10
+// a ring of at least one row.
+inline bool tk_shape_ok(int K, int A) {
+  return A == ALPHA && K > 0 && K % A == 0 && K / A <= TK_MAX_THREADS;
+}
+
+template <typename S, int MAXT>
+int tk_bwd_launch(const S* sig, const S* tabk, const int* T_r, S* bwd, int R,
+                  int T_pad, int K, double log_m1, double log_e2,
+                  cudaStream_t stream) {
+  const size_t smem = tk_smem_bytes(K, 0, sizeof(S));
+  cudaError_t err = launch_smem(tk_bwd_kernel<S, MAXT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  tk_bwd_kernel<S, MAXT><<<R, K / ALPHA, smem, stream>>>(
+      sig, tabk, T_r, bwd, R, T_pad, K, S(log_m1), S(log_e2));
+  return (int)cudaGetLastError();
+}
+
 template <typename S>
 int tk_bwd(const S* sig, const S* tabk, const int* T_r, S* bwd, int R,
-           int T_pad, int K, int A, int B, double log_m1, double log_e2,
+           int T_pad, int K, int A, double log_m1, double log_e2,
            cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)K * sizeof(S);
-  cudaError_t err = launch_smem(tk_bwd_kernel<S>, smem);
+  if (!tk_shape_ok(K, A)) return (int)cudaErrorInvalidValue;
+  return K / A <= MAX_THREADS
+             ? tk_bwd_launch<S, MAX_THREADS>(sig, tabk, T_r, bwd, R, T_pad, K,
+                                             log_m1, log_e2, stream)
+             : tk_bwd_launch<S, TK_MAX_THREADS>(sig, tabk, T_r, bwd, R, T_pad,
+                                                K, log_m1, log_e2, stream);
+}
+
+template <typename S, int MAXT>
+int tk_fwd_u_launch(const S* sig, const S* tabk, const int* T_r, const S* bwd,
+                    S* U, S* finalE, int R, int T_pad, int K, int ring,
+                    double log_m1, double log_e2, cudaStream_t stream) {
+  const size_t smem = tk_smem_bytes(K, ring, sizeof(S));
+  cudaError_t err = launch_smem(tk_fwd_u_kernel<S, MAXT>, smem);
   if (err != cudaSuccess) return (int)err;
-  tk_bwd_kernel<S><<<R, B, smem, stream>>>(sig, tabk, T_r, bwd, R, T_pad, K,
-                                           A, S(log_m1), S(log_e2));
+  tk_fwd_u_kernel<S, MAXT><<<R, K / ALPHA, smem, stream>>>(
+      sig, tabk, T_r, bwd, U, finalE, R, T_pad, K, ring, S(log_m1), S(log_e2));
   return (int)cudaGetLastError();
 }
 
 template <typename S>
 int tk_fwd_u(const S* sig, const S* tabk, const int* T_r, const S* bwd,
-             S* U, S* finalE, int R, int T_pad, int K, int A, int B,
+             S* U, S* finalE, int R, int T_pad, int K, int A, int ring,
              double log_m1, double log_e2, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)K * sizeof(S);
-  cudaError_t err = launch_smem(tk_fwd_u_kernel<S>, smem);
-  if (err != cudaSuccess) return (int)err;
-  tk_fwd_u_kernel<S><<<R, B, smem, stream>>>(sig, tabk, T_r, bwd, U, finalE,
-                                             R, T_pad, K, A, S(log_m1),
-                                             S(log_e2));
-  return (int)cudaGetLastError();
+  if (!tk_shape_ok(K, A) || ring < 1) return (int)cudaErrorInvalidValue;
+  return K / A <= MAX_THREADS
+             ? tk_fwd_u_launch<S, MAX_THREADS>(sig, tabk, T_r, bwd, U, finalE,
+                                               R, T_pad, K, ring, log_m1,
+                                               log_e2, stream)
+             : tk_fwd_u_launch<S, TK_MAX_THREADS>(sig, tabk, T_r, bwd, U,
+                                                  finalE, R, T_pad, K, ring,
+                                                  log_m1, log_e2, stream);
 }
 
 }  // namespace
@@ -603,16 +792,16 @@ int tk_fwd_u(const S* sig, const S* tabk, const int* T_r, const S* bwd,
   }                                                                            \
   extern "C" int ntc_tk_bwd_##SUF(const S* sig, const S* tabk, const int* T_r, \
                                   S* bwd, int R, int T_pad, int K, int A,      \
-                                  int B, double log_m1, double log_e2,         \
+                                  double log_m1, double log_e2,                \
                                   void* stream) {                              \
-    return tk_bwd<S>(sig, tabk, T_r, bwd, R, T_pad, K, A, B, log_m1, log_e2,  \
+    return tk_bwd<S>(sig, tabk, T_r, bwd, R, T_pad, K, A, log_m1, log_e2,     \
                      (cudaStream_t)stream);                                    \
   }                                                                            \
   extern "C" int ntc_tk_fwd_u_##SUF(                                           \
       const S* sig, const S* tabk, const int* T_r, const S* bwd, S* U,        \
-      S* finalE, int R, int T_pad, int K, int A, int B, double log_m1,        \
+      S* finalE, int R, int T_pad, int K, int A, int ring, double log_m1,     \
       double log_e2, void* stream) {                                           \
-    return tk_fwd_u<S>(sig, tabk, T_r, bwd, U, finalE, R, T_pad, K, A, B,     \
+    return tk_fwd_u<S>(sig, tabk, T_r, bwd, U, finalE, R, T_pad, K, A, ring,  \
                        log_m1, log_e2, (cudaStream_t)stream);                  \
   }
 

@@ -34,6 +34,11 @@ uses sig[t-1], of the backward sig[t]; the rows past a read's T are dead):
   U       (T_pad, R, K)       TK combined log-posteriors, unnormalized
   finalE  (R, K)              TK forward E at row T_r-1 (Zf)
 
+K9 and K10 give each thread one k-mer group (tk_geometry): the A columns
+that share one successor group (K9) or one predecessor class (K10), so
+each group's logsumexp is computed once a row; tk_columns lists each
+thread's columns. They take A = 4 and K <= BIG_K (4096).
+
 The mass in the pack is sum(exp(u - max)) over the column, added in a
 fixed order that the kernel and its plain version share: thread b of a
 block of B threads owns columns b, b+B, b+2B, ... and sums them in that
@@ -47,12 +52,13 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from dynamont_tpu_torch import _build
 from dynamont_tpu_torch.ops.nt_banded_kernels import (
-    _check, _on_cpu, _ptr, _raise_on, _stream,
+    SMEM_LIMIT, _check, _check_aligned, _on_cpu, _ptr, _raise_on, _stream,
 )
 from dynamont_tpu_torch.ops.ntc_pre import _prec_sum, _suc_sum
 from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c
@@ -87,7 +93,7 @@ _ARGTYPES = {
     "ntc_tn_fwd": [_P] * 4 + [_I] * 4 + [_D, _D, _P],
     "ntc_tn_bwd_u": [_P] * 7 + [_I] * 4 + [_D, _D, _P],
     "ntc_tn_sel": [_P] * 3 + [_I] * 5 + [_P],
-    "ntc_tk_bwd": [_P] * 4 + [_I] * 5 + [_D, _D, _P],
+    "ntc_tk_bwd": [_P] * 4 + [_I] * 4 + [_D, _D, _P],
     "ntc_tk_fwd_u": [_P] * 6 + [_I] * 5 + [_D, _D, _P],
 }
 _bound: dict = {}
@@ -360,6 +366,50 @@ def tn_bwd_sel(sig, tab, kid, N_r, T_r, fwd, cap: int, log_m1: float,
 # ---------------------------------------------------------------------------
 
 BIG_K = 4096  # above it JAX's batched TK pre-pass sums its groups otherwise
+TK_A = 4  # csrc/ntc_pre.cu ALPHA: the alphabet K9 and K10 take
+TK_MAX_THREADS = 1024  # csrc/ntc_pre.cu TK_MAX_THREADS: K/A threads, at most
+TK_CHUNK = 512  # csrc/ntc_pre.cu TK_CHUNK: signal samples a shared-memory stage
+TK_RING = 4  # csrc/ntc_pre.cu TK_RING: K10's backward rows in flight, at most
+
+
+class TkGeometry(NamedTuple):
+    """A launch of K9 or K10 at K columns: `threads` threads a block, each
+    owning one k-mer group of TK_A columns, the kernel built for
+    `max_threads`; K10's ring of `ring` backward rows; each kernel's bytes
+    of shared memory."""
+    threads: int
+    max_threads: int
+    ring: int
+    bwd_bytes: int
+    fwd_bytes: int
+
+
+def tk_geometry(K: int, A: int, itemsize: int) -> TkGeometry:
+    """K9's and K10's launch at K = A * step columns (csrc/ntc_pre.cu): one
+    group a thread, step threads, the kernel built for MAX_THREADS threads
+    up to it and TK_MAX_THREADS above; the shared bytes as tk_smem_bytes
+    sums them (the double-buffered row [2][K], two signal stages
+    [2][TK_CHUNK], K10's ring [ring][2][K]), the ring as deep as TK_RING or
+    SMEM_LIMIT allow. Raises ValueError for a shape the kernels do not
+    take."""
+    if A != TK_A or K % A or not 0 < K <= BIG_K:
+        raise ValueError(f"the TK kernels take A = {TK_A} and K a multiple of "
+                         f"it up to {BIG_K}, not A = {A}, K = {K}")
+    step = K // A
+    base = (2 * K + 2 * TK_CHUNK) * itemsize
+    ring = min(TK_RING, (SMEM_LIMIT - base) // (2 * K * itemsize))
+    return TkGeometry(step, MAX_THREADS if step <= MAX_THREADS else TK_MAX_THREADS,
+                      ring, base, base + ring * 2 * K * itemsize)
+
+
+def tk_columns(K: int, A: int, itemsize: int, kernel: str):
+    """(threads, A) int64: the columns thread i owns in K9 ("bwd":
+    successor group i, columns i + j*K/A) or K10 ("fwd": predecessor class
+    i, columns i*A + j), j < A, in the order the kernel walks them."""
+    geo = tk_geometry(K, A, itemsize)
+    i = torch.arange(geo.threads)[:, None]
+    j = torch.arange(A)[None, :]
+    return i + j * (K // A) if kernel == "bwd" else i * A + j
 
 
 def _prec_sum_b(E_prev, alphabet_size: int):
@@ -437,7 +487,8 @@ def tk_bwd_plain(sig, tabk, T_r, alphabet_size: int, log_m1: float,
 
 
 def tk_bwd(sig, tabk, T_r, alphabet_size: int, log_m1: float, log_e2: float):
-    """bwd (T_pad, 2, R, K): the TK backward lattice, every row."""
+    """bwd (T_pad, 2, R, K): the TK backward lattice, every row (kernel
+    tk_bwd_kernel at tk_geometry's launch)."""
     if _on_cpu(sig):
         return tk_bwd_plain(sig, tabk, T_r, alphabet_size, log_m1, log_e2)
     name = "ntc_tk_bwd"
@@ -447,13 +498,13 @@ def tk_bwd(sig, tabk, T_r, alphabet_size: int, log_m1: float, log_e2: float):
     _check_ints(name, T_r=T_r)
     R, Tm1 = sig.shape
     K = tabk.shape[1]
-    if tabk.shape != (3, K) or T_r.shape != (R,) or K % alphabet_size:
+    if tabk.shape != (3, K) or T_r.shape != (R,):
         raise ValueError(f"{name}: tabk/T_r do not match sig {tuple(sig.shape)}")
-    B = _check_width(name, K)
+    tk_geometry(K, alphabet_size, sig.element_size())  # raises for other shapes
     bwd = torch.empty((Tm1 + 1, 2, R, K), dtype=dtype, device=sig.device)
     rc = _entry(name, dtype)(
         _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), R, Tm1 + 1, K,
-        alphabet_size, B, log_m1, log_e2, _stream(sig.device))
+        alphabet_size, log_m1, log_e2, _stream(sig.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return bwd
@@ -484,7 +535,8 @@ def tk_fwd_u_plain(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
 
 def tk_fwd_u(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
              log_e2: float):
-    """(U (T_pad, R, K), finalE (R, K)) from the TK backward store."""
+    """(U (T_pad, R, K), finalE (R, K)) from the TK backward store (kernel
+    tk_fwd_u_kernel at tk_geometry's launch)."""
     if _on_cpu(sig):
         return tk_fwd_u_plain(sig, tabk, T_r, bwd, alphabet_size, log_m1,
                               log_e2)
@@ -495,15 +547,17 @@ def tk_fwd_u(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
     _check_ints(name, T_r=T_r)
     R, Tm1 = sig.shape
     K = tabk.shape[1]
-    if (tabk.shape != (3, K) or T_r.shape != (R,) or K % alphabet_size
+    if (tabk.shape != (3, K) or T_r.shape != (R,)
             or bwd.shape != (Tm1 + 1, 2, R, K)):
         raise ValueError(f"{name}: inputs do not match sig {tuple(sig.shape)}")
-    B = _check_width(name, K)
+    geo = tk_geometry(K, alphabet_size, sig.element_size())
+    _check_aligned(name, bwd=bwd)  # copied into the ring in 16-byte pieces
     U = torch.empty((Tm1 + 1, R, K), dtype=dtype, device=sig.device)
     finalE = torch.empty((R, K), dtype=dtype, device=sig.device)
     rc = _entry(name, dtype)(
         _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), _ptr(U), _ptr(finalE),
-        R, Tm1 + 1, K, alphabet_size, B, log_m1, log_e2, _stream(sig.device))
+        R, Tm1 + 1, K, alphabet_size, geo.ring, log_m1, log_e2,
+        _stream(sig.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return U, finalE

@@ -364,6 +364,60 @@ def test_ntc_pre_kernels_match_plain_on_cuda(card, dtype):
     assert all(kn.LAUNCHES[k] == launches[k] + 1 for k in kn.KERNELS)
 
 
+def _tk_case(K, dtype):
+    """(sig, tabk, T_r) on the card for K9/K10 at K columns: the rna002
+    table at K 1024, a seeded synthetic one elsewhere (means U(-2, 2),
+    stdevs U(0.15, 0.4)); five reads of a signal drawn from the table
+    (dwell 9) in a bucket of T_pad 1125, two signal stages of TK_CHUNK 512
+    and a partial third, at T_r = T_pad, with T_r - 1 at the last row of
+    K10's first stage (512), at the lowest row of K9's first (612), inside
+    a stage (300) and at 1."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    rng = np.random.default_rng(K)
+    if K == 1024:
+        model = load_model_for_pore("rna002")
+        mu, sd = model.means, model.stdevs
+    else:
+        mu, sd = rng.uniform(-2.0, 2.0, K), rng.uniform(0.15, 0.4, K)
+    c1 = -0.5 * 1.8378770664093453 - np.log(sd)
+    c2 = 0.5 / (sd * sd)
+    T_pad = 2 * kn.TK_CHUNK + 101
+    T_r = np.array([T_pad, kn.TK_CHUNK + 1, T_pad - kn.TK_CHUNK, 301, 2], np.int32)
+    ks = rng.integers(0, K, size=(len(T_r), T_pad // 9 + 1)).repeat(9, axis=1)[:, : T_pad - 1]
+    sig = rng.normal(mu[ks], sd[ks])
+    sig[np.arange(T_pad - 1)[None, :] >= T_r[:, None] - 1] = 0.0
+    cuda = lambda a: torch.from_numpy(np.asarray(a)).cuda()
+    tabk = nb.tk_tables(cuda(mu), cuda(c1), cuda(c2), dtype)
+    return cuda(sig).to(dtype), tabk, cuda(T_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [16, 256, 1024, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_tk_kernels_match_plain_on_cuda(card, dtype, K):
+    """K9 and K10 (whole k-mer groups a thread, tk_geometry's launch)
+    against their plain versions on ragged reads across signal stages:
+    the TK backward store, U and finalE bit for bit, one launch each."""
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    sig, tabk, T_r = _tk_case(K, dtype)
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                                   equal_nan=True)
+    launches = dict(kn.LAUNCHES)
+    bwd = kn.tk_bwd_plain(sig, tabk, T_r, 4, LM, LE)
+    same(kn.tk_bwd(sig, tabk, T_r, 4, LM, LE), bwd)
+    got = kn.tk_fwd_u(sig, tabk, T_r, bwd, 4, LM, LE)
+    want = kn.tk_fwd_u_plain(sig, tabk, T_r, bwd, 4, LM, LE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        same(g, w)
+    assert torch.isfinite(want[1]).all()  # every read reaches its row T_r - 1
+    assert {k: kn.LAUNCHES[k] - launches[k] for k in ("ntc_tk_bwd", "ntc_tk_fwd_u")} == \
+        {"ntc_tk_bwd": 1, "ntc_tk_fwd_u": 1}
+
+
 def _sel_rows(n2, dtype):
     """(u (4, 3, n2), kid (3, n2-1)) on the card: normal rows, a tie for
     the max at three columns, a row of one value, a row with 2 finite
