@@ -199,9 +199,10 @@ Each phase prints its wall time. The line before the last is
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
-banded_fwd_vit's, ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's, ntc_bwd_ckpt's and
-ntc_pv's (and its `ckpt`'s) say which design ran (`design`: the staged
-chunks, the threads and their columns, the instance); the pre-pass kernels'
+banded_fwd_vit's, ntc_tn_fwd's, ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's,
+ntc_bwd_ckpt's, ntc_walk's and ntc_pv's (and its `ckpt`'s) say which design
+ran (`design`: the staged chunks, the threads and their columns, the
+instance); the pre-pass kernels'
 (K7-K10) launches are those of phase 12's counted run and phase 13(c)'s
 (both run them), banded_vit's phase 15(a)'s, ntc_table_gather's the one run
 of its own entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
@@ -828,6 +829,7 @@ def phase_9(model, bench, lm, le, launches: dict, t_full: int, n_full: int):
                             "then tn_sel_kernel (one warp a row)")
     times["ntc_tk_bwd"]["design"], times["ntc_tk_fwd_u"]["design"] = tk_design(
         model.num_kmers, sig.element_size())
+    times["ntc_tn_fwd"]["design"] = tn_fwd_design(n_full, sig.element_size())
     del fwd, bwd, runs, tab, tabk, sig, u
     torch.cuda.empty_cache()
     return times
@@ -845,6 +847,35 @@ def tk_design(K: int, itemsize: int) -> tuple[str, str]:
             f"{own}; the backward rows in a ring of {geo.ring} rows (each thread's own "
             f"values, cp.async, {geo.ring - 1} row{'s' if geo.ring > 2 else ''} ahead); "
             f"{geo.fwd_bytes} B of shared memory")
+
+
+def tn_fwd_design(N2: int, itemsize: int) -> str:
+    """K7's design at width N2 and element size `itemsize`, from its launch
+    geometry and layout."""
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    geo = kn.tn_fwd_geometry(N2)
+    if kn.tn_fwd_layout(itemsize) == "contiguous":
+        cols = (f"{geo.cols} contiguous columns (M and E out as vectors of four); E[n-1] from "
+                f"the thread's registers, the lane before (shuffle) or the warp before "
+                f"(shared memory)")
+    else:
+        cols = f"{geo.cols} columns {geo.threads} apart; E[n-1] from a shared copy of the row"
+    return (f"{geo.threads} threads, each owning {cols}, one barrier a row; mu/sinv/l2s in "
+            f"registers, the score and logaddexp as selects; the signal staged in chunks of "
+            f"{kn.TK_CHUNK} (cp.async)")
+
+
+def walk_design(CN: int, CK: int) -> str:
+    """K16's design at its (CN, CK), from its launch geometry."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+
+    geo = kern.walk_geometry(CN, CK)
+    copies = ("one tensor copy (TMA) of each array a chunk" if geo.instance == "tma"
+              else "cp.async by warp 1's lanes")
+    return (f"two warps a read: thread 0 walks rows staged in shared memory, chunks of "
+            f"{geo.rows} rows of {geo.row_bytes} B ({copies}, a chunk ahead); warp 1 gathers "
+            f"lp and writes the records a chunk behind; {geo.nbytes} B of shared memory")
 
 
 def phase_10(model, bench, lm, le):
@@ -1440,9 +1471,10 @@ def lattice_times(k: dict, plain_ms: dict) -> dict:
         "ntc_pv": dict(timed(
             "ntc_pv", lambda: kern.pv(plan, dims, prm, sig, bwd, Zb, tl, T_r),
             plain_ms["ntc_pv"], pv_in, cells, 2), design=pv_design(dims, sig)),
-        "ntc_walk": timed(
+        "ntc_walk": dict(timed(
             "ntc_walk", lambda: kern.walk(*walk_args), plain_ms["ntc_walk"],
             [k["start"][-1], N_r, T_r], steps, 2, walk_reads),
+            design=walk_design(dims.CN, dims.CK)),
     }
 
 

@@ -14,6 +14,8 @@ versions:
   pv_ckpt    / pv_ckpt_plain     K15 ntc_pv_ckpt     its checkpoint branch
                                  (two instances, pv_ckpt_instance)
   walk       / walk_plain        K16 ntc_walk        replaces _walk_kernel
+                                 (rows staged in chunks; two instances,
+                                 walk_geometry)
 
 The kernels are in csrc/ntc_lattice.cu, in float and double (#12 in float
 only, as its TPU kernel). As in
@@ -74,13 +76,16 @@ BWD_LAUNCHES = {"shared": 0, "device": 0}
 # pv_ckpt_instance): a thread block "cluster" a read, or one block ("device")
 BWD_CKPT_LAUNCHES = {"cluster": 0, "device": 0}
 PV_CKPT_LAUNCHES = {"cluster": 0, "device": 0}
+# ntc_walk's launches by instance (walk_geometry): tensor copies or cp.async
+WALK_LAUNCHES = {"tma": 0, "copy": 0}
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_RUNS[k] = 0
-    for counts in (PV_LAUNCHES, BWD_LAUNCHES, BWD_CKPT_LAUNCHES, PV_CKPT_LAUNCHES):
+    for counts in (PV_LAUNCHES, BWD_LAUNCHES, BWD_CKPT_LAUNCHES, PV_CKPT_LAUNCHES,
+                   WALK_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -647,6 +652,58 @@ def ckpt_cluster_fit(kernel: str, dims: nb.PlanDims, itemsize: int, G: int) -> i
 # K16: the traceback walk
 # ---------------------------------------------------------------------------
 
+WALK_MAX_ROWS = 64  # csrc/ntc_lattice.cu NTC_WALK_MAX_ROWS: rows a staged chunk, at most
+
+
+class WalkGeometry(NamedTuple):
+    """K16's launch at CN n-slots and CK k-slots (csrc/ntc_lattice.cu
+    walk_rows, walk_tma): `rows` (C) staged a chunk, `row_bytes` of one
+    (t, read)'s staged arrays, `nbytes` of shared memory the block takes,
+    and the instance that stages them: "tma" (a tensor copy of each array
+    a chunk) or "copy" (cp.async by a warp's lanes)."""
+    rows: int
+    row_bytes: int
+    nbytes: int
+    instance: str
+
+
+def _al128(b: int) -> int:
+    return (b + 127) & ~127
+
+
+def _walk_smem(CN: int, CK: int, NM: int, C: int) -> int:
+    """csrc/ntc_lattice.cu walk_smem_bytes: two stages of C rows (each
+    array's rows one 128-byte aligned block), two chunks of C * NM 16-byte
+    records, two 8-byte mbarriers."""
+    NC = CN * CK
+    stage = _al128(C * NC * 2) + _al128(C * NC * 4) + 2 * _al128(C * CN * 4)
+    return 2 * stage + 2 * C * NM * 16 + 16
+
+
+def _row_tma(nbytes: int) -> bool:
+    """csrc/ntc_lattice.cu walk_row_tma: a row the tensor copies take."""
+    w = nbytes // 8
+    return nbytes % 16 == 0 and (w <= 256 or w % 256 == 0)
+
+
+def walk_geometry(CN: int, CK: int) -> WalkGeometry:
+    """K16's chunk at (CN, CK), as csrc/ntc_lattice.cu counts it: a staged
+    row holds choices (NC int16), slots (NC int32), row_same and row_prev
+    (CN int32 each); C, the most rows up to WALK_MAX_ROWS whose two stages
+    and records fit SMEM_LIMIT. The same at every dtype (lp is gathered
+    from device memory). Raises ValueError where not one row fits."""
+    NM, NC = nw.n_micro(CN), CN * CK
+    C = next((c for c in range(WALK_MAX_ROWS, 0, -1)
+              if _walk_smem(CN, CK, NM, c) <= SMEM_LIMIT), 0)
+    if C < 1:
+        raise ValueError(f"ntc_walk: two stages of one row at CN {CN}, CK {CK} "
+                         f"take {_walk_smem(CN, CK, NM, 1)} B, more than the "
+                         f"block's {SMEM_LIMIT}")
+    tma = _row_tma(2 * NC) and _row_tma(4 * NC) and _row_tma(4 * CN)
+    return WalkGeometry(C, 6 * NC + 8 * CN, _walk_smem(CN, CK, NM, C),
+                        "tma" if tma else "copy")
+
+
 def walk_plain(lp, choices, slots, plan, i0, j0, k0, valid, N_r, T_r, K: int,
                A: int, kmer_size: int, S_max: int):
     PLAIN_RUNS["ntc_walk"] += 1
@@ -658,7 +715,8 @@ def walk_plain(lp, choices, slots, plan, i0, j0, k0, valid, N_r, T_r, K: int,
 def walk(lp, choices, slots, plan: nb.NTCPlan, i0, j0, k0, valid, N_r, T_r,
          K: int, A: int, kmer_size: int, S_max: int):
     """(rec (T_pad, N_MICRO, R, 8), fin (R, 2) int32): the walk's records,
-    for ops/ntc_walk.finish_records."""
+    for ops/ntc_walk.finish_records (kernel walk_kernel, its rows staged in
+    chunks of walk_geometry's C)."""
     if _on_cpu(lp):
         return walk_plain(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
                           T_r, K, A, kmer_size, S_max)
@@ -674,6 +732,10 @@ def walk(lp, choices, slots, plan: nb.NTCPlan, i0, j0, k0, valid, N_r, T_r,
             or choices.shape != (T_pad, R, CN, CK) or slots.shape != choices.shape
             or plan.row_same.shape != (T_pad, R, CN) or A != 4):
         raise ValueError(f"{name}: inputs do not match lp {tuple(lp.shape)}")
+    geo = walk_geometry(CN, CK)  # raises for a shape whose rows cannot be staged
+    if geo.instance == "tma":  # the tensor copies' global addresses
+        _check_aligned(name, choices=choices, slots=slots, row_same=plan.row_same,
+                       row_prev=plan.row_prev)
     NM = nw.n_micro(CN)
     rec = torch.empty((T_pad, NM, R, nw.NREC), dtype=dtype, device=dev)
     fin = torch.empty((R, 2), dtype=torch.int32, device=dev)
@@ -684,4 +746,5 @@ def walk(lp, choices, slots, plan: nb.NTCPlan, i0, j0, k0, valid, N_r, T_r,
         kmer_size // 2, S_max, NM, nb.slot_bits(CK), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
+    WALK_LAUNCHES[geo.instance] += 1
     return rec, fin

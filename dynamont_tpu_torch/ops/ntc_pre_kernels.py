@@ -34,6 +34,11 @@ uses sig[t-1], of the backward sig[t]; the rows past a read's T are dead):
   U       (T_pad, R, K)       TK combined log-posteriors, unnormalized
   finalE  (R, K)              TK forward E at row T_r-1 (Zf)
 
+K7 gives each thread 4 (or 8) columns of the TN row, contiguous in fp32
+and strided in fp64 (tn_fwd_geometry, tn_fwd_layout, tn_fwd_columns);
+K8's chain keeps B = threads(N2) threads, thread b owning columns b, b+B,
+... .
+
 K9 and K10 give each thread one k-mer group (tk_geometry): the A columns
 that share one successor group (K9) or one predecessor class (K10), so
 each group's logsumexp is computed once a row; tk_columns lists each
@@ -188,6 +193,48 @@ def _tree_sum(e, B: int):
 # K7: TN forward store
 # ---------------------------------------------------------------------------
 
+TN_FWD_VEC = 4  # csrc/ntc_pre.cu ALPHA: K7's columns go out four at a time
+
+
+class TnFwdGeometry(NamedTuple):
+    """K7's launch at width N2 (csrc/ntc_pre.cu tn_fwd_cols): `cols`
+    columns a thread, `threads` a block: ceil(N2 / cols) rounded up to a
+    whole warp, the threads past the row idle."""
+    threads: int
+    cols: int
+
+
+def tn_fwd_geometry(N2: int) -> TnFwdGeometry:
+    """K7's launch at N2 columns: 4 columns a thread up to N2 = 4 *
+    MAX_THREADS, 8 up to twice that. Raises ValueError for a width the
+    kernel does not take (N2 not a multiple of 4: its stores are vectors
+    of four columns)."""
+    if N2 < TN_FWD_VEC or N2 % TN_FWD_VEC or N2 > 2 * TN_FWD_VEC * MAX_THREADS:
+        raise ValueError(f"ntc_tn_fwd takes N2 a multiple of {TN_FWD_VEC} up to "
+                         f"{2 * TN_FWD_VEC * MAX_THREADS}, not {N2}")
+    cols = TN_FWD_VEC if N2 <= TN_FWD_VEC * MAX_THREADS else 2 * TN_FWD_VEC
+    return TnFwdGeometry((-(-N2 // cols) + 31) // 32 * 32, cols)
+
+
+def tn_fwd_layout(itemsize: int) -> str:
+    """K7's column layout at element size `itemsize` (csrc/ntc_pre.cu
+    tn_fwd_launch): "contiguous" in fp32 (thread q owns columns q*cols + j,
+    its neighbour in registers, vector stores), "strided" in fp64 (columns
+    q + j*threads, its neighbour through shared memory), whichever measured
+    faster in that dtype."""
+    return "strided" if itemsize == 8 else "contiguous"
+
+
+def tn_fwd_columns(N2: int, itemsize: int = 4):
+    """(threads, cols) int64: the columns thread q owns in K7 at element
+    size `itemsize`, in the order it walks them (columns >= N2 belong to
+    no one: the kernel neither reads their table nor stores them)."""
+    geo = tn_fwd_geometry(N2)
+    q = torch.arange(geo.threads)[:, None]
+    j = torch.arange(geo.cols)[None, :]
+    return q + j * geo.threads if tn_fwd_layout(itemsize) == "strided" else q * geo.cols + j
+
+
 def tn_fwd_plain(sig, tab, N_r, log_m1: float, log_e2: float):
     PLAIN_RUNS["ntc_tn_fwd"] += 1
     R, Tm1 = sig.shape
@@ -208,7 +255,8 @@ def tn_fwd_plain(sig, tab, N_r, log_m1: float, log_e2: float):
 
 
 def tn_fwd(sig, tab, N_r, log_m1: float, log_e2: float):
-    """fwd (T_pad, 2, R, N2): the TN forward lattice, every row."""
+    """fwd (T_pad, 2, R, N2): the TN forward lattice, every row (kernel
+    tn_fwd_kernel at tn_fwd_geometry's launch)."""
     if _on_cpu(sig):
         return tn_fwd_plain(sig, tab, N_r, log_m1, log_e2)
     name = "ntc_tn_fwd"
@@ -220,7 +268,7 @@ def tn_fwd(sig, tab, N_r, log_m1: float, log_e2: float):
     N2 = tab.shape[2] + 1
     if tab.shape[:2] != (3, R) or N_r.shape != (R,):
         raise ValueError(f"{name}: tab/N_r do not match sig {tuple(sig.shape)}")
-    B = _check_width(name, N2)
+    B = tn_fwd_geometry(N2).threads
     fwd = torch.empty((Tm1 + 1, 2, R, N2), dtype=dtype, device=sig.device)
     rc = _entry(name, dtype)(
         _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(fwd), R, Tm1 + 1, N2, B,

@@ -807,3 +807,103 @@ def test_pre_tk_ckpt_matches_dense_kernels_on_cuda(card, dtype):
     for f in ("cand", "cnt", "overflow", "Zf", "Zb"):
         torch.testing.assert_close(getattr(ckpt, f), getattr(dense, f), rtol=0, atol=0,
                                    equal_nan=True, msg=f)
+
+
+def _tn_case(N2, T_pad, dtype):
+    """(sig, tab, N_r) on the card for K7 at width N2: four reads of a
+    signal drawn from the rna002 table along random k-mer ids (dwell 9),
+    one with N2 - 1 live k-mer positions (N_r = N2), the others ragged."""
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+
+    model = load_model_for_pore("rna002")
+    rng = np.random.default_rng(N2 * 7 + T_pad)
+    N = np.array([N2, N2 // 2 + 1, 2, max(2, N2 - 3)], np.int32)
+    kid = rng.integers(0, model.num_kmers, size=(4, N2 - 1)).astype(np.int32)
+    kid[np.arange(N2 - 1)[None, :] >= N[:, None] - 1] = 0
+    dwell = kid[:, np.minimum(np.arange(T_pad - 1) // 9, N2 - 2)]
+    sig = rng.normal(model.means[dwell], model.stdevs[dwell])
+    cuda = lambda a: torch.from_numpy(np.asarray(a)).cuda()
+    tab = nb.tn_tables(cuda(kid), cuda(model.means), cuda(model.stdevs), dtype)
+    return cuda(sig).to(dtype), tab, cuda(N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N2", [64, 1000, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_tn_fwd_matches_plain_on_cuda(card, dtype, N2):
+    """K7 (tn_fwd_geometry's contiguous columns: 32, 256, 512 threads of 4
+    and 512 of 8) against its plain version on ragged reads, with T_pad - 1
+    just below, on and just above the signal stage (TK_CHUNK): the forward
+    store bit for bit, one launch each."""
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+
+    for Tm1 in (kn.TK_CHUNK - 1, kn.TK_CHUNK, kn.TK_CHUNK + 1):
+        sig, tab, N_r = _tn_case(N2, Tm1 + 1, dtype)
+        launches = kn.LAUNCHES["ntc_tn_fwd"]
+        got = kn.tn_fwd(sig, tab, N_r, LM, LE)
+        assert kn.LAUNCHES["ntc_tn_fwd"] == launches + 1
+        want = kn.tn_fwd_plain(sig, tab, N_r, LM, LE)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert torch.isfinite(want[Tm1, 1, 0, 1:]).any()  # the full read reaches its last row
+
+
+def _walk_lattice(dtype, caps):
+    """K16's inputs from the engine's lattice on the short reads at caps:
+    the plain pre-pass, plan, backward and posterior-Viterbi (lp, choices,
+    slots) and the start slots, all on the card."""
+    from dynamont_tpu_torch.constants import NTK_TRANSITIONS
+    from dynamont_tpu_torch.ops import ntc_batch as nb
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_walk as nw
+
+    sig, kid, N, T, _, _ = _ntc_bucket(dtype)
+    model = load_model_for_pore("rna002")
+    cuda = lambda a: torch.from_numpy(np.asarray(a, np.float64)).cuda()
+    means, c1, c2 = (cuda(a) for a in model.score_params())
+    tl = {k: math.log(v) for k, v in NTK_TRANSITIONS["rna002"].items()}
+    pn = nb.pre_tn_batch(sig, kid, N, T, means, cuda(model.stdevs), LM, LE, caps[0], dtype)
+    pk = nb.pre_tk_batch(sig, T, means, c1, c2, LM, LE, 4, caps[1], dtype)
+    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid, N, 1024, 4, 5,
+                                     pn.kn1, pn.kn2)
+    prm = kern.tab_gather_plain(nb.gather_index(plan), nb.combined_tables(means, c1, c2, 4,
+                                                                          dtype), dims)
+    bwd = kern.bwd_plain(plan, dims, prm, sig, tl, N, T)
+    lp, ch, slots, apE, _ = kern.pv_plain(plan, dims, prm, sig, bwd,
+                                          nb.ntc_zb_batch(plan, bwd[0]), tl, T)
+    return (lp, ch, slots, plan, *nw.start_slots(plan, apE, N, T), N, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caps", [(8, 120), (16, 240)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ntc_walk_matches_plain_on_cuda(card, dtype, caps):
+    """K16 (rows staged in chunks of walk_geometry's C, lp gathered a
+    chunk behind) against its plain version, records and fin bit for bit,
+    one launch each: on the engine's lattice of the short reads (CK padded
+    to 128 or 256: the tensor-copy instance), and on hand-built rows
+    (tests/test_torch_ntc_tn_walk_layout.walk_rows: a walk across every
+    chunk boundary, I-chains of two steps, a stuck read, an invalid read, a
+    read shorter than the bucket, random reads) at 3 and at 40 chunks, at
+    the caps (the cp.async instance) and as the engine pads them."""
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from test_torch_ntc_tn_walk_layout import walk_rows
+
+    same = lambda g, w: torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    padded = (caps[0], 128 * -(-caps[1] // 128))
+    cases = [(padded, _walk_lattice(dtype, caps), False)]
+    for dims in (caps, padded):
+        C = kern.walk_geometry(*dims).rows
+        cases += [(dims, walk_rows(n * C + 3, *dims, dtype, seed=n, device="cuda"), True)
+                  for n in (2, 39)]
+    for dims, args, hand_built in cases:
+        inst = kern.walk_geometry(*dims).instance
+        launches = dict(kern.WALK_LAUNCHES)
+        got = kern.walk(*args, 1024, 4, 5, 128)
+        assert kern.WALK_LAUNCHES == {k: v + (k == inst) for k, v in launches.items()}
+        want = kern.walk_plain(*args, 1024, 4, 5, 128)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            same(g, w)
+        if hand_built:
+            assert want[1][2, 1] == 1  # the stuck read
