@@ -199,13 +199,15 @@ Each phase prints its wall time. The line before the last is
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
-banded_fwd_vit's, ntc_tn_fwd's, ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's,
-ntc_bwd_ckpt's, ntc_walk's and ntc_pv's (and its `ckpt`'s) say which design
-ran (`design`: the staged chunks, the threads and their columns, the
-instance); the pre-pass kernels'
-(K7-K10) launches are those of phase 12's counted run and phase 13(c)'s
-(both run them), banded_vit's phase 15(a)'s, ntc_table_gather's the one run
-of its own entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
+banded_fwd_vit's, banded_fwd's, banded_bwd_train's, ntc_tn_fwd's,
+ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's, ntc_bwd_ckpt's, ntc_walk's and
+ntc_pv's (and its `ckpt`'s) say which design ran (`design`: the staged
+chunks, the threads and their columns, the instance); the pre-pass
+kernels' (K7-K10) launches are those of phase 12's counted run and phase
+13(c)'s (both run them), banded_fwd's phase 7's first training run's and
+phase 15(a)'s matrix route's (both run it; `launches_by_path`),
+banded_vit's phase 15(a)'s, ntc_table_gather's the one run of its own
+entry in phase 15(b) (it lies on no path), ntc_bwd_variant's and
 ntc_microop's those of phase 16's probe runs (no path runs them):
 ntc_bwd_variant's ms is the staged C=8 reverse variant's on the engine's
 bucket, its plain_ms the plain version's at (2, 256) (`plain_at`), beside
@@ -2092,10 +2094,11 @@ def phase_14_cli(m9, npz: str, reads, tmp: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_15(model, bench, small, launches: dict, max_err: dict) -> dict:
+def phase_15(model, bench, small, launches: dict, max_err: dict, by_path: dict) -> dict:
     """The matrix route, the stacked table gather and the single-read NT
-    CLIs (module docstring). Returns banded_vit's launches' source run and
-    ntc_table_gather's timing entry."""
+    CLIs (module docstring). Sets banded_vit's launches and adds the matrix
+    route's to banded_fwd's (by_path); returns ntc_table_gather's timing
+    entry."""
     import numpy as np
     import torch
 
@@ -2134,6 +2137,8 @@ def phase_15(model, bench, small, launches: dict, max_err: dict) -> dict:
             or used["banded_walk"] or any(plain.values())):
         raise AssertionError("the matrix route missed a kernel or ran another route")
     launches["banded_vit"] = used["banded_vit"]
+    by_path["banded_fwd"]["matrix route (15a)"] = used["banded_fwd"]
+    launches["banded_fwd"] = sum(by_path["banded_fwd"].values())
     # one bucket's split: the device program (CUDA events), then the host
     # (the posteriors and choices to the host, the native walk)
     its = items[:BATCH]
@@ -2528,6 +2533,7 @@ def main(argv=None) -> int:
                              for _, r in reads]
     max_err, launches, times = {}, {}, {}
     by_instance = {}  # K17's and K18's launches by instance (phase 13)
+    by_path = {"banded_fwd": {}}  # K5's launches by path (phases 7, 15(a))
 
     # 3. kernels against their plain versions
     phase.start("3")
@@ -2652,6 +2658,12 @@ def main(argv=None) -> int:
                                          f"{st.bwd_bytes} B of shared memory")
         times["banded_fwd_vit"]["design"] = (f"staged: chunks of {st.fwd_vit_rows} rows, "
                                              f"{st.fwd_vit_bytes} B of shared memory")
+        tst = kk.train_staging(train_b.B, train_b.sig.element_size())
+        times["banded_fwd"]["design"] = (f"staged: chunks of {tst.fwd_rows} rows, "
+                                         f"{tst.fwd_bytes} B of shared memory")
+        times["banded_bwd_train"]["design"] = (
+            f"staged with its fE rows: chunks of {tst.bwd_train_rows} rows, "
+            f"{tst.bwd_train_bytes} B of shared memory; one exp a numerator fold")
         # the matrix route's K4 over K5's and K1's rows of the same bucket:
         # against its plain version, then against K2's (ch, LPM, LPE)
         vfM, vfE = kk.forward(main_b, lm, le)
@@ -2712,6 +2724,7 @@ def main(argv=None) -> int:
                 outs.append(files_of(out))
                 if rep == 0:
                     launches.update({k: train_launches[k] for k in kk.TRAIN_KERNELS})
+                    by_path["banded_fwd"]["training (7)"] = train_launches["banded_fwd"]
             rows = outs[0]["params.csv"].decode().splitlines()
             log("[7] params.csv: " + " | ".join(rows))
             if len(rows) != 3 or not all(math.isfinite(float(v)) for row in rows[1:]
@@ -2826,7 +2839,7 @@ def main(argv=None) -> int:
     # 15. the matrix route, the stacked table gather, the NT CLIs
     phase.start("15")
     if want("15"):
-        times.update(phase_15(model, bench, small, launches, max_err))
+        times.update(phase_15(model, bench, small, launches, max_err, by_path))
     # 16. the probes of K13
     phase.start("16")
     if want("16"):
@@ -2842,6 +2855,8 @@ def main(argv=None) -> int:
                         "max_abs_err": max_err[name], **t})
         if name in by_instance:
             kernels[-1]["launches_by_instance"] = by_instance[name]
+        if by_path.get(name):
+            kernels[-1]["launches_by_path"] = by_path[name]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     log(card)

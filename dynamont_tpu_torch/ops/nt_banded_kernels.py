@@ -48,6 +48,8 @@ MAX_B = 1024  # one thread per band column
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 FWD_VIT_MAX_ROWS = 32  # rows per staged chunk of banded_fwd_vit, at most
 BWD_MAX_ROWS = 256  # rows per staged chunk of banded_bwd, at most
+FWD_MAX_ROWS = 256  # rows per staged chunk of banded_fwd, at most
+BWD_TRAIN_MAX_ROWS = 64  # rows per staged chunk of banded_bwd_train, at most
 
 
 class Staging(NamedTuple):
@@ -93,6 +95,43 @@ def staging(B: int, itemsize: int) -> Staging:
     return Staging(C2, fwd_vit_bytes(C2), C1, bwd_bytes(C1))
 
 
+class TrainStaging(NamedTuple):
+    """Chunks of banded_fwd (K5) and banded_bwd_train (K6) at one band
+    width: rows per chunk and the block's shared memory in bytes."""
+
+    fwd_rows: int
+    fwd_bytes: int
+    bwd_train_rows: int
+    bwd_train_bytes: int
+
+
+def train_staging(B: int, itemsize: int) -> TrainStaging:
+    """The chunk geometry K5 and K6 are launched with at band width B and
+    element size `itemsize` (4 or 8); each takes the most rows, up to
+    FWD_MAX_ROWS and BWD_TRAIN_MAX_ROWS, that fit in SMEM_LIMIT. The byte
+    counts repeat csrc/nt_banded_train.cu's fwd_smem_bytes and
+    bwd_train_smem_bytes. K5 keeps its two previous rows and two stages of
+    a window of C + B emission parameters of each of mu/c1/c2, C samples
+    and C + 1 band starts. K6 keeps its two previous rows, two stages of C
+    fE rows, of a window of C + B + 2 parameters of each of mu/c1/c2, of C
+    samples and of C + 1 band starts, and its band reduction over P
+    entries (B rounded up to a power of two)."""
+    P = 1 << (B - 1).bit_length()
+
+    def fwd_bytes(C):
+        stage = 3 * (B + C) + C
+        return (4 * B + 2 * stage) * itemsize + 2 * (C + 1) * 4
+
+    def bwd_train_bytes(C):
+        stage = 3 * (C + B + 2) + C
+        return (4 * B + 2 * C * B + 2 * stage + P) * itemsize + 2 * (C + 1) * 4
+
+    C5 = _most_rows("banded_fwd", fwd_bytes, FWD_MAX_ROWS, B, itemsize)
+    C6 = _most_rows("banded_bwd_train", bwd_train_bytes, BWD_TRAIN_MAX_ROWS, B,
+                    itemsize)
+    return TrainStaging(C5, fwd_bytes(C5), C6, bwd_train_bytes(C6))
+
+
 def reset_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
@@ -105,8 +144,8 @@ _ARGTYPES = {
     "nt_banded_fwd_vit": [_P] * 15 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
     "nt_banded_vit": [_P] * 12 + [_I] * 3 + [_P],
-    "nt_banded_fwd": [_P] * 10 + [_I] * 5 + [_D, _D, _P],
-    "nt_banded_bwd_train": [_P] * 13 + [_I] * 5 + [_D, _D, _P],
+    "nt_banded_fwd": [_P] * 10 + [_I] * 6 + [_D, _D, _P],
+    "nt_banded_bwd_train": [_P] * 13 + [_I] * 6 + [_D, _D, _P],
 }
 _bound: dict = {}
 
@@ -328,7 +367,11 @@ def forward_plain(batch: bb.BandedBatch, log_m1: float, log_e2: float):
 
 
 def forward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
-    """(fM, fE), each (R, T_pad, B); rows t >= T are -inf."""
+    """(fM, fE), each (R, T_pad, B); rows t >= T are -inf. A read whose
+    band start climbs by more than a column a row, far enough that a row
+    leaves the kernel's staged emission window, gets NaN in fE's row T-1,
+    so its Zf is NaN (inputs the CLIs refuse; the plain version has no
+    window)."""
     if _on_cpu(batch.sig):
         return forward_plain(batch, log_m1, log_e2)
     _check_batch("banded_fwd", batch)
@@ -340,7 +383,8 @@ def forward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
         _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
         _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
         _ptr(batch.bw), _ptr(fM), _ptr(fE), R, T_pad, batch.mu_pad.shape[1],
-        batch.B, batch.pad, log_m1, log_e2, _stream(fM.device))
+        batch.B, batch.pad, train_staging(batch.B, fM.element_size()).fwd_rows,
+        log_m1, log_e2, _stream(fM.device))
     _raise_on("banded_fwd", rc)
     LAUNCHES["banded_fwd"] += 1
     return fM, fE
@@ -358,7 +402,9 @@ def backward_train_plain(batch: bb.BandedBatch, fE, log_m1: float,
 
 def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
     """(bM, bE, rawM1, rawE2): the backward rows, each (R, T_pad, B), and
-    the per-read log numerators of m1 and e2, each (R,)."""
+    the per-read log numerators of m1 and e2, each (R,). A read whose band
+    start leaves the kernel's staged emission window (as in `backward`)
+    gets NaN in row 0 of bM and bE, so its Zb is NaN."""
     if _on_cpu(batch.sig):
         return backward_train_plain(batch, fE, log_m1, log_e2)
     _check_batch("banded_bwd_train", batch)
@@ -367,6 +413,7 @@ def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
     R, T_pad = batch.bstart.shape
     if fE.shape != (R, T_pad, batch.B) or fE.dtype != dtype:
         raise ValueError("banded_bwd_train: fE does not match the batch")
+    _check_aligned("banded_bwd_train", fE=fE)
     bM = torch.empty_like(fE)
     bE = torch.empty_like(fE)
     rawM1 = torch.empty((R,), dtype=dtype, device=fE.device)
@@ -376,7 +423,8 @@ def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
         _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
         _ptr(batch.bw), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(rawM1),
         _ptr(rawE2), R, T_pad, batch.mu_pad.shape[1], batch.B, batch.pad,
-        log_m1, log_e2, _stream(fE.device))
+        train_staging(batch.B, fE.element_size()).bwd_train_rows, log_m1,
+        log_e2, _stream(fE.device))
     _raise_on("banded_bwd_train", rc)
     LAUNCHES["banded_bwd_train"] += 1
     return bM, bE, rawM1, rawE2

@@ -227,6 +227,108 @@ def test_banded_bwd_window_exit_gives_nan_z_on_cuda(card, dtype):
     assert not ok[0]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "t_not_multiple", "t_within_chunk",
+                                  "t_eq_t_pad", "b32", "b_max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_training_kernels_match_plain_on_cuda(card, dtype, case):
+    """K5 and K6 at the edges of their staged chunks (C5 rows a chunk from
+    the bottom up, C6 from the top down, kk.train_staging): fM, fE and bM,
+    bE, rawM1, rawE2 bit for bit their plain versions', K6 over the plain
+    fE."""
+    b = _staging_case(case, dtype)
+    T = b.T.cpu().numpy()
+    st = kk.train_staging(b.B, b.sig.element_size())
+    C5, C6 = st.fwd_rows, st.bwd_train_rows
+    assert {"t_not_multiple": T[0] % C5 and T[0] > C5 and (T[0] - 1) % C6 and T[0] - 1 > C6,
+            "t_within_chunk": T[0] <= C5 and T[0] - 1 <= C6,
+            "t_eq_t_pad": (T == b.bstart.shape[1]).all()}.get(case, True)
+    fM, fE = kk.forward(b, LM, LE)
+    pM, pE = kk.forward_plain(b, LM, LE)
+    torch.cuda.synchronize()
+    assert torch.equal(fM, pM) and torch.equal(fE, pE)
+    del fM, fE, pM
+    got = kk.backward_train(b, pE, LM, LE)
+    want = kk.backward_train_plain(b, pE, LM, LE)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.isfinite(got[2]).all() and torch.isfinite(got[3]).all()
+
+
+def _window_exits(bstart, T, C, pad, down: bool) -> bool:
+    """Whether a row of one read leaves its chunk's staged emission window:
+    K6's chunks from the top down (window C + B + 2 wide from
+    bstart[hi + 1] - C - 2 + pad, clamped at 0; a row's offset in [0, C + 1]),
+    K5's from the bottom up (C + B wide from bstart[t0 - 1] - 2 + pad;
+    offsets in [0, C]); the rules of csrc/nt_banded_train.cu."""
+    bs = [int(x) for x in bstart]
+    if down:
+        for hi in range(T - 2, -1, -C):
+            lo = max(0, hi - C + 1)
+            w0 = max(0, bs[hi + 1] - C - 2 + pad)
+            if any(not 0 <= bs[t] - 2 + pad - w0 <= C + 1 for t in range(lo, hi + 1)):
+                return True
+        return False
+    for t0 in range(0, T, C):
+        w = bs[max(t0 - 1, 0)]
+        if any(not 0 <= bs[t] - w <= C for t in range(max(t0, 1), min(t0 + C, T))):
+            return True
+    return False
+
+
+def _jumping_case(dtype, device="cuda"):
+    """The climbing case's reads with read 0's band start raised by K5's
+    rows a chunk from row 150 on (capped at N - 1), so that a row of K5's
+    first chunk lies more than a chunk above the window staged for it."""
+    b = _climbing_case(dtype, device)
+    C5 = kk.train_staging(b.B, b.sig.element_size()).fwd_rows
+    N = int(b.N[0])
+    t = torch.arange(b.bstart.shape[1], device=b.bstart.device)
+    bstart = b.bstart.clone()
+    bstart[0] = torch.where(t >= 150, (bstart[0] + C5).clamp(max=N - 1),
+                            bstart[0]).to(torch.int32)
+    return b._replace(bstart=bstart)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["banded_fwd", "banded_bwd_train"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_training_kernels_window_exit_gives_nan_z_on_cuda(card, dtype, kernel):
+    """A band start that leaves its chunk's staged window: K5 turns that
+    read's fE row T-1 into NaN (Zf NaN), K6 its row 0 of bM and bE (Zb
+    NaN), so the Z gate rejects it; the other read stays bit for bit its
+    plain version's."""
+    fwd = kernel == "banded_fwd"
+    b = (_jumping_case if fwd else _climbing_case)(dtype)
+    T = b.T.cpu().numpy()
+    st = kk.train_staging(b.B, b.sig.element_size())
+    C = st.fwd_rows if fwd else st.bwd_train_rows
+    bstart = b.bstart.cpu()
+    assert _window_exits(bstart[0], int(T[0]), C, b.pad, not fwd)
+    assert not _window_exits(bstart[1], int(T[1]), C, b.pad, not fwd)
+    r = torch.arange(2, device="cuda")
+    pM, pE = kk.forward_plain(b, LM, LE)
+    if fwd:
+        got, want = kk.forward(b, LM, LE), (pM, pE)
+        Z = got[1][r, b.T.long() - 1, b.bw.long() + 1].cpu()
+        pZ = pE[r, b.T.long() - 1, b.bw.long() + 1].cpu()
+        assert torch.isnan(got[1][0, T[0] - 1]).all()
+    else:
+        got = kk.backward_train(b, pE, LM, LE)
+        want = kk.backward_train_plain(b, pE, LM, LE)
+        Z = got[1][r, 0, b.bw.long() + 1].cpu()
+        pZ = want[1][r, 0, b.bw.long() + 1].cpu()
+        assert torch.isnan(got[0][0, 0]).all() and torch.isnan(got[1][0, 0]).all()
+        assert torch.equal(got[2][1:], want[2][1:]) and torch.equal(got[3][1:], want[3][1:])
+    torch.cuda.synchronize()
+    assert torch.isnan(Z[0]) and not torch.isnan(pZ[0])
+    _same_band(got[0][1:], want[0][1:], T[1:])
+    _same_band(got[1][1:], want[1][1:], T[1:])
+    ok = bb.check_z_batch(np.zeros(2), Z.double().numpy(), T, b.B, dtype)
+    assert not ok[0]
+
+
 def _leaves_band(walked, b, N_max) -> bool:
     """Whether some read's walk reaches a column outside [0, B): replayed
     on the host from the recorded bases and closes."""

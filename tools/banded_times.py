@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """CUDA-event times of the main path's K1 (banded_bwd), K2
-(banded_fwd_vit) and K3 (banded_walk) for the checkout at --root, on one
-GPU:
+(banded_fwd_vit) and K3 (banded_walk), and of the basic trainer's K5
+(banded_fwd) and K6 (banded_bwd_train), for the checkout at --root, on
+one GPU:
 
     python3 tools/banded_times.py [--root DIR] [--reps 3] [--sweep]
+                                  [--group all|segment|train]
 
 From the package of --root (default: this checkout), on the buckets
-chip_smoke.py builds (rna002 reads of 1800 bases, mean dwell 9, T trimmed
-to 16000, decoded as the engine decodes them): (32, 16384, 512) in fp32,
-the main path's, and (2, 16384, 512) in fp64, phase 3's, at the band width
-the exact per-read fp64 rung takes for such reads. Each time is the mean of
---reps launches after one. With --sweep, where the checkout's K2 and K1
-take their chunk rows from ops/nt_banded_kernels.staging, each is also
-timed at every smaller chunk in SWEEP and BWD_SWEEP, its outputs compared
-with those at its own chunk. Prints the card's name and power limit, then
-one JSON line per time. Comparing two checkouts: run each in its own
-process, in one call (parent, change, change, parent).
+chip_smoke.py builds from rna002 reads of 1800 bases (mean dwell 9, T
+trimmed to 16000). Group segment, K1-K3: the reads decoded as the engine
+decodes them, (32, 16384, 512) in fp32, the main path's, and (2, 16384,
+512) in fp64, phase 3's, at the band width the exact per-read fp64 rung
+takes for such reads. Group train, K5 and K6: the reads prepared as the
+trainer prepares them (ops/nt_banded_batch.prepare_batch, t_pad_to 512),
+(24, 16384, 512) in fp32, the trainer's batch, and (2, 16384, 512) in
+fp64, K6 over K5's fE; and K5 on the matrix route's (32, 16384, 512) fp32
+bucket (prepared as BandedBatchEngine(device_pipeline=False) prepares
+it). Each time is the mean of --reps launches after one; each line's
+`fingerprint` sums the bit patterns of the kernel's outputs, so that two
+checkouts' lines compare bit for bit, and `C` gives the rows a staged
+chunk where the checkout's wrappers say. With --sweep, where the
+checkout's K2 and K1 take their chunk rows from
+ops/nt_banded_kernels.staging, each is also timed at every smaller chunk
+in SWEEP and BWD_SWEEP, its outputs compared with those at its own chunk.
+Prints the card's name and power limit, then one JSON line per time.
+Comparing two checkouts: run each in its own process, in one call
+(parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--group", choices=("all", "segment", "train"), default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -49,6 +61,7 @@ def main(argv=None) -> int:
     from dynamont_tpu_torch.models.packing import t_pad_ladder
     from dynamont_tpu_torch.models.params import params_from_numpy
     from dynamont_tpu_torch.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.ops import nt_banded_batch as bb
     from dynamont_tpu_torch.ops import nt_banded_device as dv
     from dynamont_tpu_torch.ops import nt_banded_kernels as kk
     from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
@@ -82,6 +95,18 @@ def main(argv=None) -> int:
         ev[1].synchronize()
         return ev[0].elapsed_time(ev[1]) / args.reps
 
+    def fingerprint(*ts) -> list:
+        """Each output's bit patterns summed as integers."""
+        out = []
+        for t in ts:
+            as_int = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[t.element_size()]
+            out.append(int(t.view(as_int).sum(dtype=torch.int64)))
+        return out
+
+    if args.group in ("all", "train"):
+        train_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint)
+    if args.group == "train":
+        return 0
     for items, dtype in ((reads, torch.float32), (reads[:2], torch.float64)):
         b, nmax = bucket(items, dtype)
         shape = [b.sig.shape[0], b.bstart.shape[1], b.B]
@@ -95,12 +120,14 @@ def main(argv=None) -> int:
             rows, bwd_rows = st.fwd_vit_rows, getattr(st, "bwd_rows", None)
         line = dict(root=root, dtype=dname, shape=shape)
         print(json.dumps(dict(line, kernel="banded_bwd", C=bwd_rows,
-                              ms=cuda_ms(lambda: kk.backward(b, lm, le)))), flush=True)
+                              ms=cuda_ms(lambda: kk.backward(b, lm, le)),
+                              fingerprint=fingerprint(bM, bE))), flush=True)
         print(json.dumps(dict(line, kernel="banded_fwd_vit", C=rows,
-                              ms=cuda_ms(lambda: kk.fwd_vit(b, bM, bE, Zb, lm, le)))),
-              flush=True)
+                              ms=cuda_ms(lambda: kk.fwd_vit(b, bM, bE, Zb, lm, le)),
+                              fingerprint=fingerprint(ch, LPM, LPE))), flush=True)
         print(json.dumps(dict(line, kernel="banded_walk",
-                              ms=cuda_ms(lambda: kk.walk(LPM, LPE, ch, b, nmax)))),
+                              ms=cuda_ms(lambda: kk.walk(LPM, LPE, ch, b, nmax)),
+                              fingerprint=fingerprint(*kk.walk(LPM, LPE, ch, b, nmax)))),
               flush=True)
         if args.sweep and rows is not None:
             staging = kk.staging
@@ -132,6 +159,41 @@ def main(argv=None) -> int:
         del bM, bE, ch, LPM, LPE
         torch.cuda.empty_cache()
     return 0
+
+
+def train_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint) -> None:
+    """K5 and K6 on the trainer's batches, K5 on the matrix route's bucket."""
+    import torch
+
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+
+    def batch(items, dtype):
+        kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in items]
+        return bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                                dtype=dtype, t_pad_to=512)
+
+    staging = getattr(kk, "train_staging", None)
+    for bucket, items, dtype in (("trainer", reads[:24], torch.float32),
+                                 ("trainer", reads[:2], torch.float64),
+                                 ("matrix", reads, torch.float32)):
+        b = batch(items, dtype)
+        st = staging(b.B, b.sig.element_size()) if staging else None
+        line = dict(root=root, bucket=bucket, dtype=str(dtype).removeprefix("torch."),
+                    shape=[b.sig.shape[0], b.bstart.shape[1], b.B])
+        fM, fE = kk.forward(b, lm, le)
+        print(json.dumps(dict(line, kernel="banded_fwd", C=st and st.fwd_rows,
+                              ms=cuda_ms(lambda: kk.forward(b, lm, le)),
+                              fingerprint=fingerprint(fM, fE))), flush=True)
+        del fM
+        if bucket == "trainer":
+            out = kk.backward_train(b, fE, lm, le)
+            print(json.dumps(dict(line, kernel="banded_bwd_train",
+                                  C=st and st.bwd_train_rows,
+                                  ms=cuda_ms(lambda: kk.backward_train(b, fE, lm, le)),
+                                  fingerprint=fingerprint(*out))), flush=True)
+            del out
+        del fE, b
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
