@@ -199,7 +199,7 @@ Each phase prints its wall time. The line before the last is
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
 fp32, whichever is larger); the last is {"ok": true, "device": {...}}.
 ntc_pv's entry carries its checkpoint mode's time as `ckpt`; banded_bwd's,
-banded_fwd_vit's, banded_fwd's, banded_bwd_train's, ntc_tn_fwd's,
+banded_fwd_vit's, banded_vit's, banded_fwd's, banded_bwd_train's, ntc_tn_fwd's,
 ntc_tk_bwd's, ntc_tk_fwd_u's, ntc_bwd's, ntc_bwd_ckpt's, ntc_walk's and
 ntc_pv's (and its `ckpt`'s) say which design ran (`design`: the staged
 chunks, the threads and their columns, the instance); the pre-pass
@@ -2679,6 +2679,10 @@ def main(argv=None) -> int:
         times["banded_vit"] = timed(
             "banded_vit", lambda: kk.viterbi_post(main_b, *vit_rows), plain_ms["banded_vit"],
             [*vit_rows, main_b.bstart, main_b.T, main_b.N, main_b.bw], cells(main_b), 3)
+        times["banded_vit"]["design"] = (
+            f"staged: chunks of {st.vit_rows} rows of fM/fE/bM/bE moved by bulk copies, "
+            f"{st.vit_bytes} B of shared memory; a chunk's posteriors formed there and "
+            "stored by bulk copies; two columns a thread")
         del main_b, bM, bE, ch, LPM, LPE, fE, train_b, runs, vit_rows, vfM, vfE
         torch.cuda.empty_cache()
 

@@ -33,7 +33,8 @@
 // window of the emission parameters) into shared memory in chunks of C
 // rows, from the top down, one chunk ahead of the chain; banded_fwd_vit
 // does the same from the bottom up and adds the chunk's bM and bE rows,
-// as the TPU kernels streamed them into VMEM. banded_walk runs two warps per read:
+// as the TPU kernels streamed them into VMEM; banded_vit stages its four
+// stored rows the same way. banded_walk runs two warps per read:
 // thread 0 walks choice rows staged in shared memory, and warp 1 copies
 // the next chunk in and gathers the recorded cells' posteriors.
 //
@@ -52,19 +53,28 @@
 // Packing several reads per block and filling the SMs is later work.
 // banded_vit has no recurrence besides the Viterbi step: it streams four
 // stored (T, B) tensors in and writes three, 25 bytes per band cell in
-// fp32 (a 2.0 ms bound at (32, 16384, 512)), so of the four its chain
-// comes nearest its bytes; it loads row t+1 of its inputs while row t's
-// step waits on the barrier.
+// fp32 (a 2.0 ms bound at (32, 16384, 512) over the whole card), and all
+// of a read's bytes go through its one SM: 12.5 KB a row (fp32, B 512).
+// Loaded one row ahead, each row waited about a round trip to device
+// memory, and its chain also formed and stored the row's posteriors a
+// cell at a time. It now moves its four rows into shared memory a chunk
+// of C rows ahead by bulk copies (the TMA unit), forms a chunk's
+// posteriors there before its rows run and stores them by bulk copies,
+// and takes two columns a thread: a row is left with the Viterbi step,
+// its shared-memory exchange and its barrier. What bounds it now is the
+// SM's traffic: without the Viterbi step the copies in and out alone take
+// about as long (~50 GB/s an SM; PERF.md §6), and more rows in flight (C)
+// is what shortens it.
 //
 // Exactness: every expression rounds as the plain-torch version does, op
 // by op: c1 - (c2*d)*d, (E_m + sc_b) + log_m1, logaddexp as
 // m + log1p(exp(-|a-b|)) (what torch.logaddexp computes), max-then-add in
 // the Viterbi step, and the choice bit as the float equality
 // vE_new == vM_e + lpe. The library is built with -fmad=false and without
-// fast math so no product is fused into a sum. banded_fwd_vit and
-// banded_vit take the Viterbi step in one function (viterbi_step), so the
-// matrix route's choices equal the fused path's wherever its stored
-// forward rows equal the fused kernel's.
+// fast math so no product is fused into a sum. banded_fwd_vit takes the
+// Viterbi step in viterbi_step and banded_vit in vit_step, which forms the
+// same values in the same order, so the matrix route's choices equal the
+// fused path's wherever its stored forward rows equal the fused kernel's.
 //
 // Traps: (1) B is the padded band width the JAX package computes; columns
 // j >= 2*bw+3 are always -inf and the Z gate counts T*B cells with that B.
@@ -72,8 +82,9 @@
 // untouched; reads of different T share one bucket. (3) Forward rows past
 // T are never computed: banded_fwd_vit and banded_vit write LPM = LPE =
 // -inf and ch = 0 there, as the plain versions do. (4) banded_fwd_vit's
-// bM/bE and banded_walk's ch are copied in 16-byte pieces: the wrappers
-// refuse a tensor that does not start 16-byte aligned.
+// bM/bE, banded_vit's fM/fE/bM/bE and banded_walk's ch are copied in
+// 16-byte pieces: the wrappers refuse a tensor that does not start
+// 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -466,69 +477,265 @@ __global__ void banded_fwd_vit_kernel(
 // banded_vit: log posteriors + Viterbi over stored forward and backward rows
 // (the matrix route; ref: NT_banded.cpp:139-189)
 // ---------------------------------------------------------------------------
+// The four stored rows arrive in chunks of C rows one chunk ahead of the
+// chain, double-buffered: thread 0 moves a chunk's rows of each tensor
+// (contiguous in the read's (T_pad, B) block) by one bulk copy into its
+// stage, counted on the stage's mbarrier, and the threads copy bstart of
+// rows t0 - 1 .. t0 + C - 1 (cp.async). Once a chunk has landed, the block
+// forms its posteriors piece by piece, lpm = (fM + bM) - Zb over the
+// stage's fM rows and lpe = (fE + bE) - Zb over its fE rows, thread 0
+// stores those rows to LPM and LPE by two bulk copies, and each row's two
+// band starts become its band shift and live columns (VitRow). The chain
+// then reads a row's lpm, lpe and VitRow from shared memory and stores its
+// choice bits a row at a time. No emission parameter is gathered, so there
+// is no window a band start could leave and no exit case. Measured on the
+// card (PERF.md §6): the threads' cp.async and 16-byte stores, a ring
+// of more, shorter chunks, a bulk copy a row, choice rows written out a
+// chunk at a time, an L2 prefetch, and one or four columns a thread were
+// each as fast or slower.
 template <typename S>
-__global__ void banded_vit_kernel(
+struct VitStage {
+  S* fM;    // [C][B] rows t0 .. t0 + C - 1; lpm once formed
+  S* fE;    // [C][B]; lpe once formed
+  S* bM;    // [C][B]
+  S* bE;    // [C][B]
+  int* bs;  // [C + 1] bstart[t0 - 1 + i]
+};
+
+// A row's band shift s1 (0 or 1) and its live columns [lo, hi): in_band's
+// bounds with lower 1.
+struct __align__(16) VitRow {
+  int lo, hi, s1, unused;
+};
+
+// Columns a thread of banded_vit takes: two adjacent band columns, so a
+// row's record, loop and barrier are paid once for two cells and B / 2
+// threads (whole or half warps) share the barrier.
+constexpr int VIT_COLS = 2;
+
+// Shared memory of banded_vit at band width B, C rows per chunk and element
+// size es: two stages of the four stored rows [4][C][B], the Viterbi rows
+// [2][B + 4] of M and E (column c at c + 2, -inf at -1 and B), the chunk's
+// VitRows [C], the stages' two mbarriers, then two stages of bstart. The
+// stages, the Viterbi rows, the VitRows and the mbarriers start 16-byte
+// aligned (B is a multiple of 32). ops/nt_banded_kernels.staging repeats
+// the sum.
+__host__ __device__ inline size_t vit_stage_elems(int B, int C) {
+  return 4 * (size_t)C * B;
+}
+__host__ __device__ inline size_t vit_smem_bytes(int B, int C, int es) {
+  return (2 * vit_stage_elems(B, C) + 4 * (size_t)(B + 4)) * es +
+         (size_t)C * sizeof(VitRow) + 2 * sizeof(uint64_t) +
+         2 * (size_t)(C + 1) * sizeof(int);
+}
+
+template <typename S>
+__device__ __forceinline__ VitStage<S> vit_stage(unsigned char* smem, int B,
+                                                 int C, int st) {
+  const size_t rows = (size_t)C * B;
+  S* a = reinterpret_cast<S*>(smem) + st * vit_stage_elems(B, C);
+  int* bs = reinterpret_cast<int*>(
+                smem + (2 * vit_stage_elems(B, C) + 4 * (size_t)(B + 4)) * sizeof(S) +
+                (size_t)C * sizeof(VitRow) + 2 * sizeof(uint64_t)) +
+            st * (C + 1);
+  return {a, a + rows, a + 2 * rows, a + 3 * rows, bs};
+}
+
+// 16 bytes as one vector move and as elements of S.
+template <typename S>
+union Piece {
+  uint4 u;
+  S v[16 / sizeof(S)];
+};
+
+// A thread's VIT_COLS adjacent cells as one vector move.
+template <typename S>
+struct alignas(VIT_COLS * sizeof(S)) Cols {
+  S v[VIT_COLS];
+};
+// and their choice bytes as one store
+using ChoiceBytes = uint16_t;
+static_assert(sizeof(ChoiceBytes) == VIT_COLS, "a choice byte a column");
+
+// viterbi_step's values for adjacent columns c .. c + VIT_COLS - 1 over
+// Viterbi rows with a -inf cell at each end (vm[-1] = vm[B] = -inf): the
+// shift picks the source columns by index, c - 1 + s1 for vE_m and c + s1
+// for vM_e and vE_e, with no select and no edge test. The same values in
+// the same order, so the same choice bits (cell u's in byte u). vm and ve
+// point at column c of the previous row.
+template <typename S>
+__device__ __forceinline__ ChoiceBytes vit_step(const S* vm, const S* ve, int s1,
+                                                const bool (&valid)[VIT_COLS],
+                                                const Cols<S>& lpm, const Cols<S>& lpe,
+                                                Cols<S>& vM_new, Cols<S>& vE_new) {
+  constexpr int J = VIT_COLS;
+  const S NEG = neg_inf<S>();
+  S e[J + 1], m[J];
+#pragma unroll
+  for (int u = 0; u <= J; ++u) e[u] = ve[u - 1 + s1];
+#pragma unroll
+  for (int u = 0; u < J; ++u) m[u] = vm[u + s1];
+  ChoiceBytes bits = 0;
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    vM_new.v[u] = valid[u] ? e[u] + lpm.v[u] : NEG;
+    vE_new.v[u] = valid[u] ? max_nan(m[u], e[u + 1]) + lpe.v[u] : NEG;
+    if (vE_new.v[u] == m[u] + lpe.v[u]) bits |= 1 << (8 * u);
+  }
+  return bits;
+}
+
+template <typename S>
+__global__ void __launch_bounds__(1024 / VIT_COLS) banded_vit_kernel(
     const S* __restrict__ fM, const S* __restrict__ fE,
     const S* __restrict__ bM, const S* __restrict__ bE,
     const S* __restrict__ Zb, const int* __restrict__ bstart,
     const int* __restrict__ T_arr, const int* __restrict__ N_arr,
     const int* __restrict__ bw_arr, uint8_t* __restrict__ ch,
-    S* __restrict__ LPM, S* __restrict__ LPE, int T_pad, int B) {
-  extern __shared__ unsigned char smem[];
-  S* VMs = reinterpret_cast<S*>(smem);  // Viterbi rows [2][B]
-  S* VEs = VMs + 2 * B;
+    S* __restrict__ LPM, S* __restrict__ LPE, int T_pad, int B, int C) {
+  constexpr int J = VIT_COLS;
+  constexpr int E = 16 / sizeof(S);  // elements of a 16-byte piece
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int q = threadIdx.x;
+  const int NT = B / J;   // threads
+  const int c0 = J * q;   // this thread's first column
+  // the Viterbi rows [2][B + 4], at this thread's first column of row buffer 0
+  S* vm_c = reinterpret_cast<S*>(smem) + 2 * vit_stage_elems(B, C) + 2 + c0;
+  S* ve_c = vm_c + 2 * (B + 4);
+  VitRow* rows_s = reinterpret_cast<VitRow*>(
+      reinterpret_cast<S*>(smem) + 2 * vit_stage_elems(B, C) + 4 * (B + 4));  // [C]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rows_s + C);  // [2], one a stage
   const int r = blockIdx.x;
-  const int j = threadIdx.x;
   const S NEG = neg_inf<S>();
   const int T = T_arr[r], N = N_arr[r], bw = bw_arr[r];
   const S zb = Zb[r];
   const int* bs_r = bstart + (size_t)r * T_pad;
   const size_t base = (size_t)r * T_pad * B;
+  const int nchunks = (T + C - 1) / C;
+  auto rows_of = [&](int k) { return T - k * C < C ? T - k * C : C; };
 
-  for (int t = T; t < T_pad; ++t) {  // rows past the read: defined fill
-    LPM[base + (size_t)t * B + j] = NEG;
-    LPE[base + (size_t)t * B + j] = NEG;
-    ch[base + (size_t)t * B + j] = 0;
+  // start the copies of chunk k (rows k*C .. k*C + n - 1) into its stage,
+  // once the bulk stores that read the stage (chunk k - 2's) are done
+  auto issue = [&](int k) {
+    const VitStage<S> s = vit_stage<S>(smem, B, C, k & 1);
+    const int t0 = k * C, n = rows_of(k);
+    if (q == 0) {
+      const size_t o = base + (size_t)t0 * B;
+      const unsigned bytes = (unsigned)(n * B * sizeof(S));
+      bulk_wait_read<1>();
+      fence_proxy_async();  // the stage's last reads, before its rewrite
+      mbar_expect(bars + (k & 1), 4 * bytes);
+      bulk_g2s(s.fM, fM + o, bytes, bars + (k & 1));
+      bulk_g2s(s.fE, fE + o, bytes, bars + (k & 1));
+      bulk_g2s(s.bM, bM + o, bytes, bars + (k & 1));
+      bulk_g2s(s.bE, bE + o, bytes, bars + (k & 1));
+    }
+    const int lo = k == 0 ? 1 : 0;  // chunk 0 has no row -1
+    cp_async_elems(s.bs + lo, bs_r + t0 - 1 + lo, n + 1 - lo, q, NT);
+    cp_async_commit();
+  };
+  // blocks until chunk k has landed
+  auto wait = [&](int k) {
+    cp_async_wait_all();
+    mbar_wait(bars + (k & 1), (k >> 1) & 1);
+    __syncthreads();
+  };
+  // chunk k's posteriors, formed over its stage's fM and fE rows a 16-byte
+  // piece at a time and stored to LPM and LPE by thread 0, and its VitRows
+  auto post = [&](int k) {
+    const VitStage<S> s = vit_stage<S>(smem, B, C, k & 1);
+    const int n = rows_of(k);
+    for (int p = q; p < n * B / E; p += NT) {
+      Piece<S> m, e, bm, be;
+      m.u = reinterpret_cast<const uint4*>(s.fM)[p];
+      e.u = reinterpret_cast<const uint4*>(s.fE)[p];
+      bm.u = reinterpret_cast<const uint4*>(s.bM)[p];
+      be.u = reinterpret_cast<const uint4*>(s.bE)[p];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        m.v[i] = (m.v[i] + bm.v[i]) - zb;
+        e.v[i] = (e.v[i] + be.v[i]) - zb;
+      }
+      reinterpret_cast<uint4*>(s.fM)[p] = m.u;
+      reinterpret_cast<uint4*>(s.fE)[p] = e.u;
+    }
+    for (int i = q; i < n; i += NT) {  // chunk 0's row 0 takes no step
+      const int bs = s.bs[i + 1];
+      const int ns = bs > 1 ? bs : 1;
+      const int ne = (bs + 2 * bw + 1) < N ? (bs + 2 * bw + 1) : N;
+      rows_s[i] = {ns - bs + 1, ne - bs + 1, bs != s.bs[i] ? 1 : 0, 0};
+    }
+    fence_proxy_async();  // the rows just written, before the bulk stores
+    __syncthreads();
+    if (q == 0) {
+      const size_t o = base + (size_t)k * C * B;
+      const unsigned bytes = (unsigned)(n * B * sizeof(S));
+      bulk_s2g(LPM + o, s.fM, bytes);
+      bulk_s2g(LPE + o, s.fE, bytes);
+      bulk_commit();
+    }
+  };
+
+  {  // rows past the read: defined fill
+    const size_t o = base + (size_t)T * B;
+    const size_t cells = (size_t)(T_pad - T) * B;
+    Piece<S> neg;
+#pragma unroll
+    for (int i = 0; i < E; ++i) neg.v[i] = NEG;
+    for (size_t p = q; p < cells / E; p += NT) {
+      reinterpret_cast<uint4*>(LPM + o)[p] = neg.u;
+      reinterpret_cast<uint4*>(LPE + o)[p] = neg.u;
+    }
+    for (size_t p = q; p < cells / 16; p += NT)
+      reinterpret_cast<uint4*>(ch + o)[p] = make_uint4(0, 0, 0, 0);
   }
-  LPM[base + j] = (fM[base + j] + bM[base + j]) - zb;
-  LPE[base + j] = (fE[base + j] + bE[base + j]) - zb;
-  ch[base + j] = 0;
-  int cur = 0;
-  VMs[j] = NEG;
-  VEs[j] = (j == bw + 1) ? S(0) : NEG;
-  // row t's four inputs, loaded one row ahead
-  S fm = NEG, fe = NEG, bm = NEG, be = NEG;
-  if (T > 1) {
-    const size_t c1 = base + B + j;
-    fm = fM[c1];
-    fe = fE[c1];
-    bm = bM[c1];
-    be = bE[c1];
+  if (q == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const size_t cell = base + (size_t)t * B + j;
-    const S lpm = (fm + bm) - zb;
-    const S lpe = (fe + be) - zb;
-    if (t + 1 < T) {
-      fm = fM[cell + B];
-      fe = fE[cell + B];
-      bm = bM[cell + B];
-      be = bE[cell + B];
-    }
-    const int bs = bs_r[t];
-    const bool s1 = bs != bs_r[t - 1];
-    const bool valid = in_band(j, bs, bw, N, 1);
-    LPM[cell] = lpm;
-    LPE[cell] = lpe;
-    S vM_new, vE_new;
-    ch[cell] = viterbi_step(VMs + cur * B, VEs + cur * B, j, B, s1, valid,
-                            lpm, lpe, vM_new, vE_new);
-    cur ^= 1;
-    VMs[cur * B + j] = vM_new;
-    VEs[cur * B + j] = vE_new;
-    __syncthreads();
+  issue(0);
+#pragma unroll
+  for (int u = 0; u < J; ++u) {
+    vm_c[u] = NEG;
+    ve_c[u] = (c0 + u == bw + 1) ? S(0) : NEG;
   }
+  if (q < 2) {  // the -inf cells at both ends of both rows
+    S* vm = vm_c - c0 + q * (B + 4);  // column 0 of row buffer q
+    vm[-1] = vm[B] = NEG;
+    vm[2 * (B + 4) - 1] = vm[2 * (B + 4) + B] = NEG;
+  }
+  *reinterpret_cast<ChoiceBytes*>(ch + base + c0) = 0;  // row 0 takes no step
+  wait(0);
+  post(0);
+  int o = 0;  // the previous row's buffer: 0 or B + 4
+  for (int k = 0; k < nchunks; ++k) {
+    const VitStage<S> s = vit_stage<S>(smem, B, C, k & 1);
+    if (k + 1 < nchunks) issue(k + 1);
+    const int i0 = k == 0 ? 1 : 0, n = rows_of(k);
+    const S* lm = s.fM + i0 * B + c0;
+    const S* le = s.fE + i0 * B + c0;
+    ChoiceBytes* ch_t = reinterpret_cast<ChoiceBytes*>(ch + base + (size_t)(k * C + i0) * B + c0);
+    for (int i = i0; i < n; ++i, lm += B, le += B, ch_t += B / J) {
+      const VitRow w = rows_s[i];
+      bool valid[J];
+#pragma unroll
+      for (int u = 0; u < J; ++u) valid[u] = c0 + u >= w.lo && c0 + u < w.hi;
+      Cols<S> vM_new, vE_new;
+      *ch_t = vit_step(vm_c + o, ve_c + o, w.s1, valid, *reinterpret_cast<const Cols<S>*>(lm),
+                       *reinterpret_cast<const Cols<S>*>(le), vM_new, vE_new);
+      o = (B + 4) - o;
+      *reinterpret_cast<Cols<S>*>(vm_c + o) = vM_new;
+      *reinterpret_cast<Cols<S>*>(ve_c + o) = vE_new;
+      __syncthreads();
+    }
+    if (k + 1 < nchunks) {
+      wait(k + 1);
+      post(k + 1);
+    }
+  }
+  if (q == 0) bulk_wait<0>();  // the last bulk stores have landed
 }
 
 // ---------------------------------------------------------------------------
@@ -722,10 +929,15 @@ template <typename S>
 int launch_vit(const S* fM, const S* fE, const S* bM, const S* bE,
                const S* Zb, const int* bstart, const int* T, const int* N,
                const int* bw, uint8_t* ch, S* LPM, S* LPE, int R, int T_pad,
-               int B, void* stream) {
-  const size_t smem = 4 * (size_t)B * sizeof(S);
-  banded_vit_kernel<S><<<R, B, smem, (cudaStream_t)stream>>>(
-      fM, fE, bM, bE, Zb, bstart, T, N, bw, ch, LPM, LPE, T_pad, B);
+               int B, int C, void* stream) {
+  if (C < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = vit_smem_bytes(B, C, sizeof(S));
+  cudaError_t err = cudaFuncSetAttribute(
+      banded_vit_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  banded_vit_kernel<S><<<R, B / VIT_COLS, smem, (cudaStream_t)stream>>>(
+      fM, fE, bM, bE, Zb, bstart, T, N, bw, ch, LPM, LPE, T_pad, B, C);
   return (int)cudaGetLastError();
 }
 
@@ -771,11 +983,11 @@ int launch_vit(const S* fM, const S* fE, const S* bM, const S* bE,
       const void* fM, const void* fE, const void* bM, const void* bE,        \
       const void* Zb, const void* bstart, const void* T, const void* N,      \
       const void* bw, void* ch, void* LPM, void* LPE, int R, int T_pad,      \
-      int B, void* stream) {                                                 \
+      int B, int C, void* stream) {                                          \
     return launch_vit<S>((const S*)fM, (const S*)fE, (const S*)bM,          \
                          (const S*)bE, (const S*)Zb, (const int*)bstart,     \
                          (const int*)T, (const int*)N, (const int*)bw,       \
-                         (uint8_t*)ch, (S*)LPM, (S*)LPE, R, T_pad, B,        \
+                         (uint8_t*)ch, (S*)LPM, (S*)LPE, R, T_pad, B, C,     \
                          stream);                                            \
   }
 

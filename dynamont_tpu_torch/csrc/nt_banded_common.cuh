@@ -1,11 +1,14 @@
 // Device helpers shared by the banded NT kernels (nt_banded.cu,
-// nt_banded_train.cu). Every helper rounds as the plain-torch versions in
+// nt_banded_train.cu) and, through ntc_lattice_common.cuh, the NTC
+// kernels. Every helper rounds as the plain-torch versions in
 // ops/nt_banded_batch.py round: the library is built with -fmad=false and
-// without fast math, so no product is fused into a sum.
+// without fast math, so no product is fused into a sum. Besides the
+// arithmetic: cp.async copies, mbarriers and bulk copies (the TMA unit).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace dynamont {
 
@@ -144,6 +147,69 @@ template <typename V>
 __device__ __forceinline__ void cp_async_elems(V* smem, const V* gmem, int n,
                                                int tid, int nt) {
   for (int i = tid; i < n; i += nt) cp_async_elem(smem + i, gmem + i);
+}
+
+// Hopper's bulk copies (cp.async.bulk, the TMA unit): one instruction moves
+// a 16-byte-aligned run of bytes from device to shared memory and counts
+// them on an mbarrier in shared memory, whose phase completes once its one
+// arrival (mbar_expect, with the bytes to come) and all those bytes are in.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ bool mbar_done(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  return done != 0;
+}
+// blocks until the phase of parity `parity` has completed; a phase that
+// never completes (bytes that never come) stops the kernel with an error
+// after ~2 s instead of hanging it
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const long long start = clock64();
+  while (!mbar_done(bar, parity))
+    if (clock64() - start > (1ll << 32)) __trap();
+}
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// Bulk copies from shared to device memory: each issuing thread's copies
+// join a group at bulk_commit; bulk_wait_read<N> blocks it until at most
+// its N groups committed last still read their shared memory, bulk_wait<N>
+// until at most N are still writing.
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders the generic proxy's accesses of shared memory before the bulk or
+// tensor copies that follow
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Dynamic shared memory above the 48 KB default needs the attribute.

@@ -2052,11 +2052,6 @@ __device__ __forceinline__ void tma_rows(void* dst, const CUtensorMap* m, int r,
         "r"(t0), "r"(smem_addr(bar))
       : "memory");
 }
-// orders the generic proxy's reads of a stage before the tensor copies
-// that overwrite it
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // `bytes` (even) from device to shared memory by the 32 lanes of a warp:
 // 16-byte pieces where both ends and the size allow them, else 4-byte

@@ -2,8 +2,7 @@
 // ntc_train.cu): the state and transition indices, the emission score and
 // the term-list logsumexp, each rounding as the plain versions in
 // ops/ntc_batch.py round (built with -fmad=false, no fast math); the row
-// stages; the mbarrier and bulk-copy helpers (ntc_train's row slots,
-// ntc_walk's tensor copies).
+// stages (the mbarrier and bulk-copy helpers are nt_banded_common.cuh's).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -178,44 +177,6 @@ __device__ __forceinline__ PvStage<S> pv_stage(unsigned char* base, int CN, int 
   return {cand_n,    cand_n + CN, cand_n + 2 * CN, col_same,       col_same + CK,
           hd,        allowed,     mu_k,            mu_k + CK,      mu_k + 2 * CK,
           mu_k + 3 * CK, mu_k + 3 * CK + 3 * CN};
-}
-
-// Hopper's bulk copies (cp.async.bulk, the TMA unit): one instruction moves
-// a 16-byte-aligned run of bytes from device to shared memory and counts
-// them on an mbarrier in shared memory, whose phase completes once its one
-// arrival (mbar_expect, with the bytes to come) and all those bytes are in.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ bool mbar_done(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-// blocks until the phase of parity `parity` has completed; a phase that
-// never completes (bytes that never come) stops the kernel with an error
-// after ~2 s instead of hanging it
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  const long long start = clock64();
-  while (!mbar_done(bar, parity))
-    if (clock64() - start > (1ll << 32)) __trap();
-}
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, unsigned bytes,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
 // A barrier of the n threads (a multiple of 32) that run the idle work.

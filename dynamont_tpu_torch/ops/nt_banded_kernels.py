@@ -50,16 +50,20 @@ FWD_VIT_MAX_ROWS = 32  # rows per staged chunk of banded_fwd_vit, at most
 BWD_MAX_ROWS = 256  # rows per staged chunk of banded_bwd, at most
 FWD_MAX_ROWS = 256  # rows per staged chunk of banded_fwd, at most
 BWD_TRAIN_MAX_ROWS = 64  # rows per staged chunk of banded_bwd_train, at most
+VIT_MAX_ROWS = 32  # rows per staged chunk of banded_vit, at most
 
 
 class Staging(NamedTuple):
-    """Chunks of banded_fwd_vit (K2) and banded_bwd (K1) at one band
-    width: rows per chunk and the block's shared memory in bytes."""
+    """Chunks of banded_fwd_vit (K2), banded_bwd (K1) and banded_vit (K4)
+    at one band width: rows per chunk and the block's shared memory in
+    bytes."""
 
     fwd_vit_rows: int
     fwd_vit_bytes: int
     bwd_rows: int
     bwd_bytes: int
+    vit_rows: int
+    vit_bytes: int
 
 
 def _most_rows(name: str, nbytes, most: int, B: int, itemsize: int) -> int:
@@ -71,16 +75,21 @@ def _most_rows(name: str, nbytes, most: int, B: int, itemsize: int) -> int:
 
 
 def staging(B: int, itemsize: int) -> Staging:
-    """The chunk geometry K2 and K1 are launched with at band width B and
-    element size `itemsize` (4 or 8); each takes the most rows, up to
-    FWD_VIT_MAX_ROWS and BWD_MAX_ROWS, that fit in SMEM_LIMIT. The byte
-    counts repeat csrc/nt_banded.cu's fwd_vit_smem_bytes and
-    bwd_smem_bytes. K2 keeps its four previous rows and two stages of C
-    rows of bM and bE, a window of C + B emission parameters of each of
-    mu/c1/c2, C samples and C + 1 band starts. K1 keeps its two previous
-    rows and two stages of a window of C + B + 2 parameters of each of
-    mu/c1/c2, C samples and C + 1 band starts. (K3's chunk is a constant
-    of the kernel, csrc/nt_banded.cu's WALK_ROWS.)"""
+    """The chunk geometry K2, K1 and K4 are launched with at band width B
+    and element size `itemsize` (4 or 8); each takes the most rows, up to
+    FWD_VIT_MAX_ROWS, BWD_MAX_ROWS and VIT_MAX_ROWS, that fit in
+    SMEM_LIMIT. The byte counts repeat csrc/nt_banded.cu's
+    fwd_vit_smem_bytes, bwd_smem_bytes and vit_smem_bytes. K2 keeps its
+    four previous rows and two stages of C rows of bM and bE, a window of
+    C + B emission parameters of each of mu/c1/c2, C samples and C + 1
+    band starts. K1 keeps its two previous rows and two stages of a
+    window of C + B + 2 parameters of each of mu/c1/c2, C samples and
+    C + 1 band starts. K4 keeps two stages of C rows of each of fM, fE, bM
+    and bE, its two previous Viterbi rows of M and E with two cells at
+    each end (a -inf cell beside the band), C 16-byte row records (band
+    shift and live columns), an 8-byte mbarrier a stage and two stages of
+    C + 1 band starts. (K3's chunk is a constant of the kernel,
+    csrc/nt_banded.cu's WALK_ROWS.)"""
 
     def fwd_vit_bytes(C):
         stage = 2 * C * B + 3 * (B + C) + C
@@ -90,9 +99,13 @@ def staging(B: int, itemsize: int) -> Staging:
         stage = 3 * (C + B + 2) + C
         return (4 * B + 2 * stage) * itemsize + 2 * (C + 1) * 4
 
+    def vit_bytes(C):
+        return (2 * 4 * C * B + 4 * (B + 4)) * itemsize + 16 * C + 16 + 2 * (C + 1) * 4
+
     C2 = _most_rows("banded_fwd_vit", fwd_vit_bytes, FWD_VIT_MAX_ROWS, B, itemsize)
     C1 = _most_rows("banded_bwd", bwd_bytes, BWD_MAX_ROWS, B, itemsize)
-    return Staging(C2, fwd_vit_bytes(C2), C1, bwd_bytes(C1))
+    C4 = _most_rows("banded_vit", vit_bytes, VIT_MAX_ROWS, B, itemsize)
+    return Staging(C2, fwd_vit_bytes(C2), C1, bwd_bytes(C1), C4, vit_bytes(C4))
 
 
 class TrainStaging(NamedTuple):
@@ -143,7 +156,7 @@ _ARGTYPES = {
     "nt_banded_bwd": [_P] * 10 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_fwd_vit": [_P] * 15 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_walk": [_P] * 10 + [_I] * 4 + [_P],
-    "nt_banded_vit": [_P] * 12 + [_I] * 3 + [_P],
+    "nt_banded_vit": [_P] * 12 + [_I] * 4 + [_P],
     "nt_banded_fwd": [_P] * 10 + [_I] * 6 + [_D, _D, _P],
     "nt_banded_bwd_train": [_P] * 13 + [_I] * 6 + [_D, _D, _P],
 }
@@ -334,7 +347,8 @@ def viterbi_post_plain(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
 
 def viterbi_post(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
     """(ch uint8, LPM, LPE), each (R, T_pad, B), from the stored forward
-    and backward rows and Zb."""
+    and backward rows and Zb; the kernel stages the four rows in chunks of
+    staging(B, itemsize).vit_rows rows."""
     if _on_cpu(fM):
         return viterbi_post_plain(batch, fM, fE, bM, bE, Zb)
     _check_batch("banded_vit", batch)
@@ -345,13 +359,15 @@ def viterbi_post(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
     if any(x.shape != (R, T_pad, batch.B) or x.dtype != dtype
            for x in (fM, fE, bM, bE)) or Zb.shape != (R,) or Zb.dtype != dtype:
         raise ValueError("banded_vit: fM/fE/bM/bE/Zb do not match the batch")
+    _check_aligned("banded_vit", fM=fM, fE=fE, bM=bM, bE=bE)
     ch = torch.empty(fM.shape, dtype=torch.uint8, device=fM.device)
     LPM = torch.empty_like(fM)
     LPE = torch.empty_like(fM)
     rc = _entry("nt_banded_vit", dtype)(
         _ptr(fM), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(batch.bstart),
         _ptr(batch.T), _ptr(batch.N), _ptr(batch.bw), _ptr(ch), _ptr(LPM),
-        _ptr(LPE), R, T_pad, batch.B, _stream(fM.device))
+        _ptr(LPE), R, T_pad, batch.B,
+        staging(batch.B, fM.element_size()).vit_rows, _stream(fM.device))
     _raise_on("banded_vit", rc)
     LAUNCHES["banded_vit"] += 1
     return ch, LPM, LPE

@@ -256,6 +256,60 @@ def test_staged_training_kernels_match_plain_on_cuda(card, dtype, case):
     assert torch.isfinite(got[2]).all() and torch.isfinite(got[3]).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "t_not_multiple", "t_within_chunk",
+                                  "t_eq_t_pad", "b32", "b_max", "t_one"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_staged_vit_matches_plain_and_fwd_vit_on_cuda(card, dtype, case):
+    """K4 at the edges of its staged chunks (C4 rows a chunk from the
+    bottom up, kk.staging's vit_rows) over the plain forward and backward
+    rows: ch, LPM and LPE bit for bit its plain version's and K2's on the
+    same bM, bE and Zb. t_one cuts the ragged bucket's second read to T 1
+    among longer reads."""
+    b = _staging_case("ragged" if case == "t_one" else case, dtype)
+    if case == "t_one":
+        b = b._replace(T=torch.where(torch.arange(3, device="cuda") == 1, 1, b.T).int())
+    T = b.T.cpu().numpy()
+    C4 = kk.staging(b.B, b.sig.element_size()).vit_rows
+    assert {"t_not_multiple": lambda: T[0] % C4 and (T[0] - 1) % C4 and T[0] > C4,
+            "t_within_chunk": lambda: T[0] <= C4,
+            "t_eq_t_pad": lambda: (T == b.bstart.shape[1]).all(),
+            "t_one": lambda: T[1] == 1 and (T[[0, 2]] > C4).all()}.get(case, lambda: True)()
+    fM, fE = kk.forward_plain(b, LM, LE)
+    bM, bE = kk.backward_plain(b, LM, LE)
+    Zb = bE[torch.arange(len(T), device="cuda"), 0, b.bw.long() + 1]
+    launches = kk.LAUNCHES["banded_vit"]
+    got = kk.viterbi_post(b, fM, fE, bM, bE, Zb)
+    want = kk.viterbi_post_plain(b, fM, fE, bM, bE, Zb)
+    fused = kk.fwd_vit(b, bM, bE, Zb, LM, LE)[:3]
+    torch.cuda.synchronize()
+    assert kk.LAUNCHES["banded_vit"] == launches + 1
+    for g, w, f in zip(got, want, fused):
+        assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_vit_launches_at_every_band_width_on_cuda(card, dtype):
+    """K4 at every band width it takes (multiples of 32 up to MAX_B, each
+    with its own chunk rows and B / 2 threads), on the b32 bucket widened
+    with -inf columns: ch, LPM and LPE bit for bit its plain version's."""
+    import torch.nn.functional as F
+
+    b = _staging_case("b32", dtype)
+    fM, fE = kk.forward_plain(b, LM, LE)
+    bM, bE = kk.backward_plain(b, LM, LE)
+    Zb = bE[torch.arange(3, device="cuda"), 0, b.bw.long() + 1]
+    for B in range(32, kk.MAX_B + 1, 32):
+        wide = _widened(b, B)
+        rows = [F.pad(x, (0, B - b.B), value=float("-inf")) for x in (fM, fE, bM, bE)]
+        got = kk.viterbi_post(wide, *rows, Zb)
+        want = kk.viterbi_post_plain(wide, *rows, Zb)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), B
+
+
 def _window_exits(bstart, T, C, pad, down: bool) -> bool:
     """Whether a row of one read leaves its chunk's staged emission window:
     K6's chunks from the top down (window C + B + 2 wide from

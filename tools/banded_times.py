@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """CUDA-event times of the main path's K1 (banded_bwd), K2
-(banded_fwd_vit) and K3 (banded_walk), and of the basic trainer's K5
-(banded_fwd) and K6 (banded_bwd_train), for the checkout at --root, on
-one GPU:
+(banded_fwd_vit) and K3 (banded_walk), of the basic trainer's K5
+(banded_fwd) and K6 (banded_bwd_train), and of the matrix route's K4
+(banded_vit), for the checkout at --root, on one GPU:
 
     python3 tools/banded_times.py [--root DIR] [--reps 3] [--sweep]
-                                  [--group all|segment|train]
+                                  [--group all|segment|train|matrix]
 
 From the package of --root (default: this checkout), on the buckets
 chip_smoke.py builds from rna002 reads of 1800 bases (mean dwell 9, T
@@ -17,13 +17,16 @@ trainer prepares them (ops/nt_banded_batch.prepare_batch, t_pad_to 512),
 (24, 16384, 512) in fp32, the trainer's batch, and (2, 16384, 512) in
 fp64, K6 over K5's fE; and K5 on the matrix route's (32, 16384, 512) fp32
 bucket (prepared as BandedBatchEngine(device_pipeline=False) prepares
-it). Each time is the mean of --reps launches after one; each line's
+it). Group matrix, K4: the matrix route's (32, 16384, 512) in fp32 and
+(2, 16384, 512) in fp64, prepared so, over K5's and K1's stored rows.
+Each time is the mean of --reps launches after one; each line's
 `fingerprint` sums the bit patterns of the kernel's outputs, so that two
 checkouts' lines compare bit for bit, and `C` gives the rows a staged
 chunk where the checkout's wrappers say. With --sweep, where the
 checkout's K2 and K1 take their chunk rows from
 ops/nt_banded_kernels.staging, each is also timed at every smaller chunk
-in SWEEP and BWD_SWEEP, its outputs compared with those at its own chunk.
+in SWEEP and BWD_SWEEP, and K4 in VIT_SWEEP, its outputs compared with
+those at its own chunk.
 Prints the card's name and power limit, then one JSON line per time.
 Comparing two checkouts: run each in its own process, in one call
 (parent, change, change, parent).
@@ -40,6 +43,7 @@ import sys
 
 SWEEP = {"float32": (4, 8, 12, 16), "float64": (2, 4, 6, 8)}
 BWD_SWEEP = (16, 32, 64, 128)
+VIT_SWEEP = (2, 4, 8)
 
 
 def main(argv=None) -> int:
@@ -48,7 +52,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--group", choices=("all", "segment", "train"), default="all")
+    ap.add_argument("--group", choices=("all", "segment", "train", "matrix"),
+                    default="all")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -105,7 +110,9 @@ def main(argv=None) -> int:
 
     if args.group in ("all", "train"):
         train_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint)
-    if args.group == "train":
+    if args.group in ("all", "matrix"):
+        matrix_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint, args.sweep)
+    if args.group in ("train", "matrix"):
         return 0
     for items, dtype in ((reads, torch.float32), (reads[:2], torch.float64)):
         b, nmax = bucket(items, dtype)
@@ -193,6 +200,43 @@ def train_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint) -> Non
                                   fingerprint=fingerprint(*out))), flush=True)
             del out
         del fE, b
+        torch.cuda.empty_cache()
+
+
+def matrix_times(root, model, reads, lm, le, bb, kk, cuda_ms, fingerprint,
+                 sweep: bool) -> None:
+    """K4 over K5's and K1's rows of the matrix route's buckets; with
+    `sweep`, where the checkout's K4 takes its chunk rows from
+    ops/nt_banded_kernels.staging, also at every smaller chunk in
+    VIT_SWEEP, its outputs compared with those at its own chunk."""
+    import torch
+
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+
+    for items, dtype in ((reads, torch.float32), (reads[:2], torch.float64)):
+        kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in items]
+        b = bb.prepare_batch([s for s, _ in items], kids, model, device="cuda",
+                             dtype=dtype, t_pad_to=512)
+        fM, fE = kk.forward(b, lm, le)
+        bM, bE = kk.backward(b, lm, le)
+        rows = (fM, fE, bM, bE, bE[torch.arange(len(items), device="cuda"), 0,
+                                   b.bw.long() + 1])
+        rows_of = getattr(kk.staging(b.B, fM.element_size()), "vit_rows", None)
+        out = kk.viterbi_post(b, *rows)
+        line = dict(root=root, bucket="matrix", dtype=str(dtype).removeprefix("torch."),
+                    shape=[len(items), b.bstart.shape[1], b.B], kernel="banded_vit")
+        print(json.dumps(dict(line, C=rows_of, ms=cuda_ms(lambda: kk.viterbi_post(b, *rows)),
+                              fingerprint=fingerprint(*out))), flush=True)
+        staging = kk.staging
+        for C in (c for c in VIT_SWEEP if sweep and rows_of and c < rows_of):
+            kk.staging = lambda B, itemsize, C=C: staging(B, itemsize)._replace(vit_rows=C)
+            try:
+                same = all(torch.equal(x, y) for x, y in zip(kk.viterbi_post(b, *rows), out))
+                ms = cuda_ms(lambda: kk.viterbi_post(b, *rows))
+            finally:
+                kk.staging = staging
+            print(json.dumps(dict(line, C=C, ms=ms, same_outputs=same)), flush=True)
+        del b, rows, fM, fE, bM, bE, out
         torch.cuda.empty_cache()
 
 
