@@ -193,7 +193,35 @@ result line):
      all 16384 rows, no kernel launch); (c) every microop block at ITERS
      16384; a C whose staged rows do not fit the card's shared memory is
      printed with its bytes, not run; no plain version stands in for a
-     kernel in the counted window.
+     kernel in the counted window;
+ 17. several devices and processes on the one card, every kernel counter
+     reset right before each path and read right after: (a) 8 phase-4
+     reads through BandedBatchEngine(devices=[cuda:0, cuda:0], batch 4)
+     and 4 through NTCBatchEngine(devices=[cuda:0, cuda:0], batch 2,
+     no fallback), each bucket on the next entry, outputs identical to
+     the same engines on [cuda:0], K1-K3 and K7-K11, K13, K15, K16
+     launched once a bucket; (b) one 4-read bucket's decode with the
+     device Hampel (hampel_on_device) on the card bit for bit the same
+     decode on CPU tensors, and the engine with the flag on that bucket;
+     (c) 16 phase-4 reads through the resquiggle CLI --mode basic in
+     process, then through two processes sharing the card with
+     --distributed over gloo on 127.0.0.1 (python -m
+     dynamont_tpu_torch.cli.resquiggle through runpy, behind the zstandard
+     stand-in): reads split by index into .rank0/.rank1, the union the
+     one-process rows (byte for byte where a read's bucket shape is the
+     same in both runs, else borders identical and probabilities within
+     2e-3), each rank's K1-K3 launched; (d) dynamont-train --mode basic,
+     fp32, one 24-read batch of phase-7 reads, in process and in two
+     processes with --distributed: params.csv and the checkpoints against
+     the one-process run (identical, or within rel 1e-5, Zchange within
+     0.1 nats, with the differences printed), each rank's K5 -> K6
+     launched; (e) make_ntc_sharded_train_step([cuda:0, cuda:0]) on 32
+     phase-13 reads, two shares of 16: Zf, Zb, the 13 term sums and the
+     k-mer moments of every read bit for bit the one-device training
+     bucket program's on the same padded 32-read bucket, the gate the
+     same, the pooled sums within rel 1e-5 of the one-device sums,
+     K7-K11, K17, K18 launched once a share. The card has one GPU: no run
+     here has two distinct GPUs.
 Each phase prints its wall time. The line before the last is
 {"kernels": [...]} with each kernel's bound (bytes each input read once and
 each output written once over 3.35 TB/s, or operations over 67 TFLOP/s
@@ -2450,6 +2478,352 @@ def ntc_train_split(eng, items) -> dict:
     return out
 
 
+# a process of phase 17(c)/(d): the CLI module given first, run as
+# `python -m` runs it (runpy), behind the CSV writer's zstandard stand-in;
+# prints the kernels' launch counts on a line of its own when it succeeds
+CHILD = r"""
+import json, runpy, sys
+import chip_smoke
+chip_smoke.zstd_stand_in()
+from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+mod = sys.argv[1]
+sys.argv = [mod] + sys.argv[2:]
+runpy.run_module(mod, run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps(dict(kk.LAUNCHES)), flush=True)
+"""
+
+
+def run_ranks(module: str, args: list, cwd: str, world: int = 2,
+              timeout: float = 300.0) -> list:
+    """`module` with `args` in `world` processes of CHILD at once, joined
+    by --distributed over gloo on 127.0.0.1; returns each rank's (launch
+    counts, wall seconds). Raises if a rank fails or outlasts timeout."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(world):
+            env = {k: v for k, v in os.environ.items() if not k.startswith("DYNAMONT_")}
+            env.update(PYTHONPATH=root, DYNAMONT_COORDINATOR=f"127.0.0.1:{port}",
+                       DYNAMONT_NUM_PROCESSES=str(world), DYNAMONT_PROCESS_ID=str(rank))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CHILD, module, *args, "--distributed"], cwd=cwd,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        out = []
+        for rank, pr in enumerate(procs):
+            so, se = pr.communicate(timeout=timeout)
+            if pr.returncode != 0:
+                raise AssertionError(f"rank {rank} of {module} exited {pr.returncode}: "
+                                     f"{se[-3000:]}")
+            counts = [ln for ln in so.splitlines() if ln.startswith("LAUNCHES ")]
+            out.append((json.loads(counts[-1][9:]), time.perf_counter() - t0))
+        return out
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+
+
+def basic_bucket_shapes(jobs, batch_size: int) -> list:
+    """(t_pad, B, N_max) of the bucket each job lands in when the banded
+    engine runs `jobs` as one chunk (models/batch.py's packing, the wire's
+    B and N_max)."""
+    from dynamont_tpu_torch.models.batch import MAX_BATCH_SAMPLES, T_PAD_TO
+    from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
+    from dynamont_tpu_torch.ops.geometry import effective_bandwidth
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+
+    shapes = [None] * len(jobs)
+    for group in pack_buckets([len(j.signal) for j in jobs], batch_size=batch_size,
+                              max_batch_samples=MAX_BATCH_SAMPLES, t_pad_to=T_PAD_TO,
+                              group=1):
+        N = [len(seq_to_kmer_ids(jobs[i].read, 5, 4)) + 1 for i in group]
+        bw = max(effective_bandwidth(400, n) for n in N)
+        shape = (t_pad_ladder(max(len(jobs[i].signal) for i in group) + 1, T_PAD_TO),
+                 round_up(2 * bw + 3, 128), round_up(max(N), 128))
+        for i in group:
+            shapes[i] = shape
+    return shapes
+
+
+def numbers_apart(a: bytes, b: bytes) -> float:
+    """The largest relative difference between the numeric fields of two
+    text files of the same layout (inf if the layouts differ)."""
+    la, lb = a.decode().split(), b.decode().split()
+    if len(la) != len(lb):
+        return math.inf
+    worst = 0.0
+    for x, y in zip(la, lb):
+        fx = [f for f in x.split(",")]
+        fy = [f for f in y.split(",")]
+        if len(fx) != len(fy):
+            return math.inf
+        for u, v in zip(fx, fy):
+            if u == v:
+                continue
+            try:
+                fu, fv = float(u), float(v)
+            except ValueError:
+                return math.inf
+            worst = max(worst, abs(fu - fv) / max(abs(fu), abs(fv), 1e-300))
+    return worst
+
+
+def phase_17(model, bench) -> None:
+    """Several devices and processes on the one card (module docstring):
+    the round-robin engines, the device Hampel, the two-process
+    resquiggle and training CLIs, the sharded NTC step."""
+    import numpy as np
+    import torch
+
+    from dynamont_tpu_torch.cli import resquiggle
+    from dynamont_tpu_torch.cli import train as train_cli
+    from dynamont_tpu_torch.io import readers
+    from dynamont_tpu_torch.models.batch import BandedBatchEngine, BatchItem
+    from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine, ntc_train_bucket_program
+    from dynamont_tpu_torch.models.params import params_from_numpy
+    from dynamont_tpu_torch.ops import nt_banded_device as dv
+    from dynamont_tpu_torch.ops import nt_banded_kernels as kk
+    from dynamont_tpu_torch.ops import ntc_kernels as kern
+    from dynamont_tpu_torch.ops import ntc_pre_kernels as kn
+    from dynamont_tpu_torch.ops import ntc_train_kernels as tk
+    from dynamont_tpu_torch.parallel import ntc_step
+    from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
+
+    mods = (kk, kn, kern, tk)
+    two = [torch.device("cuda", 0)] * 2
+    one = [torch.device("cuda", 0)]
+
+    def reset():
+        torch.cuda.synchronize()
+        for mod in mods:
+            mod.reset_counts()
+
+    def counts():
+        torch.cuda.synchronize()
+        used = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+        plain = {k: v for mod in mods for k, v in mod.PLAIN_RUNS.items() if v}
+        return used, plain
+
+    def expect(label, used, plain, kernels, n):
+        log(f"[17] {label}: launches {used} | plain {plain}")
+        if plain or any(used.get(k, 0) != n for k in kernels) or set(used) - set(kernels):
+            raise AssertionError(f"{label}: expected {kernels} {n} times each, no plain run")
+
+    def key(o):
+        summ = None if o.summaries is None else tuple(
+            np.asarray(x).tobytes() if hasattr(x, "shape") else x for x in o.summaries)
+        segs = None if o._segments is None else tuple(map(tuple, o._segments))
+        return o.error, segs, summ, o.Z
+
+    # (a) the round-robin engines
+    items = [BatchItem(s, r) for s, r in bench[:8]]
+    ref = BandedBatchEngine(model, "rna002", devices=one, batch_size=4).run(items)
+    eng = BandedBatchEngine(model, "rna002", devices=two, batch_size=4)
+    reset()
+    got = eng.run(items)
+    expect("17(a) banded [cuda:0, cuda:0]", *counts(), kk.SEGMENT_KERNELS, 2)
+    if eng.profile["device_buckets"] != [1, 1]:
+        raise AssertionError(f"buckets by device {eng.profile['device_buckets']}")
+    if any(o.error for o in got) or [key(o) for o in got] != [key(o) for o in ref]:
+        raise AssertionError("the banded engine on [cuda:0, cuda:0] differs from [cuda:0]")
+    log("[17] (a) BandedBatchEngine, 8 reads in buckets of 4 on [cuda:0, cuda:0]: "
+        "outputs identical to [cuda:0]")
+    items = [BatchItem(s, r) for s, r in bench[:4]]
+    kw = dict(batch_size=2, fallback=False)
+    ref = NTCBatchEngine(model, "rna002", devices=one, **kw).run(items)
+    eng = NTCBatchEngine(model, "rna002", devices=two, **kw)
+    reset()
+    got = eng.run(items)
+    expect("17(a) NTC [cuda:0, cuda:0]", *counts(),
+           (*kn.KERNELS, "ntc_tab_gather", "ntc_bwd", "ntc_pv", "ntc_walk"), 2)
+    if eng.profile["device_buckets"] != [1, 1]:
+        raise AssertionError(f"buckets by device {eng.profile['device_buckets']}")
+    if [key(o) for o in got] != [key(o) for o in ref]:
+        raise AssertionError("the NTC engine on [cuda:0, cuda:0] differs from [cuda:0]")
+    log(f"[17] (a) NTCBatchEngine, 4 reads in buckets of 2 on [cuda:0, cuda:0]: outputs "
+        f"identical to [cuda:0] ({sum(o.error is None for o in got)} of 4 segmented, the "
+        "rest the same no-fallback error)")
+    torch.cuda.empty_cache()
+
+    # (b) the device Hampel
+    rng = np.random.default_rng(17)
+    spiky = []
+    for s, r in bench[:4]:
+        s = s.copy()
+        s[rng.integers(1, len(s) - 3, 40)] += 8.0
+        spiky.append((s, r))
+    kids = [seq_to_kmer_ids(r, model.kmer_size, model.alphabet_size) for _, r in spiky]
+    decoded = []
+    for dev in ("cuda", "cpu"):
+        wire = dv.prepare_wire([s for s, _ in spiky], kids, device=dev, t_pad=16384)
+        p = params_from_numpy(model, 0.03, 0.97, device=dev, dtype=torch.float32)
+        decoded.append([x.cpu() for x in dv.decode(wire, p.means, p.c1, p.c2,
+                                                   torch.float32, hampel=True)[:5]])
+        if dev == "cuda":
+            raw = dv.decode(wire, p.means, p.c1, p.c2, torch.float32).sig.cpu()
+    for name, a, b in zip(("sig", "mu_pad", "c1_pad", "c2_pad", "bstart"), *decoded):
+        if not torch.equal(a.view(torch.uint8) if a.is_floating_point() else a,
+                           b.view(torch.uint8) if b.is_floating_point() else b):
+            raise AssertionError(f"device Hampel decode: {name} differs from the CPU's")
+    n_filtered = int((decoded[0][0] != raw).sum())
+    on = BandedBatchEngine(model, "rna002", device="cuda", hampel_on_device=True)
+    off = BandedBatchEngine(model, "rna002", device="cuda")
+    its = [BatchItem(s, r) for s, r in spiky]
+    got_on, got_off = on.run(its), off.run(its)
+    if any(o.error for o in got_on):
+        raise AssertionError("the engine with the device Hampel failed a read")
+    log(f"[17] (b) device Hampel on a (4, 16384) bucket: decode bit for bit the CPU's, "
+        f"{n_filtered} samples replaced; engine with hampel_on_device: {len(got_on)} reads "
+        f"segmented, {sum(key(a) != key(b) for a, b in zip(got_on, got_off))} differ from "
+        "the unfiltered run")
+
+    plain_csv = zstd_stand_in()
+    with tempfile.TemporaryDirectory(prefix="dynamont_multi_") as tmp:
+        # (c) the two-process resquiggle CLI
+        tsv = os.path.join(tmp, "reads.tsv")
+        write_tsv(tsv, bench[:16])
+        args = ["--tsv", tsv, "--mode", "basic", "-p", "rna002", "--device", "cuda"]
+        one_out = os.path.join(tmp, "one.csv.zst")
+        reset()
+        t0 = time.perf_counter()
+        resquiggle.main(args + ["-o", one_out])
+        one_wall = time.perf_counter() - t0
+        expect("17(c) resquiggle, one process", *counts(), kk.SEGMENT_KERNELS, 1)
+        two_out = os.path.join(tmp, "two.csv.zst")
+        ranks = run_ranks("dynamont_tpu_torch.cli.resquiggle", args + ["-o", two_out], tmp)
+        for rank, (used, wall) in enumerate(ranks):
+            log(f"[17] (c) rank {rank}: launches {used}, done {wall:.2f} s after the start")
+            if any(used.get(k, 0) < 1 for k in kk.SEGMENT_KERNELS):
+                raise AssertionError(f"rank {rank} missed a segmentation kernel")
+        jobs = list(readers.generate_tsv_jobs(tsv, True))
+        shapes_one = basic_bucket_shapes(jobs, 32)
+        shapes_rank = [basic_bucket_shapes(jobs[k::2], 32) for k in range(2)]
+        rows_one = {}
+        for row in read_rows(one_out, plain_csv):
+            rows_one.setdefault(row[0], []).append(row)
+        same = near = 0
+        worst = 0.0
+        for k in range(2):
+            rows = {}
+            for row in read_rows(f"{two_out}.rank{k}", plain_csv):
+                rows.setdefault(row[0], []).append(row)
+            if sorted(rows) != sorted(j.readid for j in jobs[k::2]):
+                raise AssertionError(f"rank {k} wrote reads {sorted(rows)}")
+            for j, job in enumerate(jobs[k::2]):
+                g, w = rows[job.readid], rows_one[job.readid]
+                if shapes_rank[k][j] == shapes_one[2 * j + k]:
+                    if g != w:
+                        raise AssertionError(f"{job.readid}: rows differ in the same bucket shape")
+                    same += 1
+                    continue
+                if [r[:8] + r[9:] for r in g] != [r[:8] + r[9:] for r in w]:
+                    raise AssertionError(f"{job.readid}: borders differ")
+                d = max(abs(float(a[8]) - float(b[8])) for a, b in zip(g, w))
+                worst = max(worst, d)
+                if d > 2e-3:
+                    raise AssertionError(f"{job.readid}: probabilities off by {d}")
+                near += 1
+        log(f"[17] (c) resquiggle --mode basic, 16 reads: one process {one_wall:.2f} s; two "
+            f"processes sharing the card {max(w for _, w in ranks):.2f} s (start to the last "
+            f"rank's end); the union of .rank0/.rank1 is the one-process CSV: {same} reads "
+            f"byte for byte in the same bucket shape, {near} in another shape with borders "
+            f"identical (probabilities within {worst:.2e})")
+
+        # (d) the two-process training CLI
+        tsv = os.path.join(tmp, "train.tsv")
+        write_tsv(tsv, bench[:TRAIN_BATCH])
+        args = ["--tsv", tsv, "-p", "rna002", "--mode", "basic", "-q", "0",
+                "--batch_size", str(TRAIN_BATCH), "--max_batches", "1",
+                "--precision", "fp32", "--device", "cuda"]
+        out1 = os.path.join(tmp, "train1")
+        reset()
+        t0 = time.perf_counter()
+        train_cli.main(args + ["-o", out1])
+        one_wall = time.perf_counter() - t0
+        expect("17(d) train, one process", *counts(), kk.TRAIN_KERNELS, 2)
+        out2 = os.path.join(tmp, "train2")
+        ranks = run_ranks("dynamont_tpu_torch.cli.train", args + ["-o", out2], tmp)
+        for rank, (used, wall) in enumerate(ranks):
+            log(f"[17] (d) rank {rank}: launches {used}, done {wall:.2f} s after the start")
+            if any(used.get(k, 0) != 2 for k in kk.TRAIN_KERNELS):
+                raise AssertionError(f"rank {rank} did not run K5 -> K6 on its share")
+        f1, f2 = files_of(out1), files_of(out2)
+        if sorted(f1) != sorted(f2):
+            raise AssertionError(f"files {sorted(f1)} against {sorted(f2)}")
+        p1, p2 = (f["params.csv"].decode().splitlines() for f in (f1, f2))
+        log("[17] (d) params.csv one process: " + " | ".join(p1))
+        log("[17] (d) params.csv two processes: " + " | ".join(p2))
+        if f1 == f2:
+            log(f"[17] (d) dynamont-train --mode basic, {TRAIN_BATCH} reads: one process "
+                f"{one_wall:.2f} s, two {max(w for _, w in ranks):.2f} s; all "
+                f"{len(f1)} files byte-identical")
+        else:
+            r1, r2 = p1[1].split(","), p2[1].split(",")
+            rel = max(numbers_apart(f1[n], f2[n]) for n in f1 if n != "params.csv")
+            rel = max(rel, numbers_apart(",".join(r1[3:-1]).encode(),
+                                         ",".join(r2[3:-1]).encode()))
+            dz = abs(float(r1[-1]) - float(r2[-1]))
+            log(f"[17] (d) dynamont-train --mode basic, {TRAIN_BATCH} reads: one process "
+                f"{one_wall:.2f} s, two {max(w for _, w in ranks):.2f} s; files differ: "
+                f"largest relative difference {rel:.2e}, Zchange {dz:.3e} apart")
+            if p1[0] != p2[0] or r1[:3] != r2[:3] or rel > 1e-5 or dz > 0.1:
+                raise AssertionError("two-process training off the one-process run")
+
+    # (e) the sharded NTC step against the one-device training program
+    reads = bench[:32]
+    shard = ntc_step.prepare_ntc_shard(reads, model, two)
+    step = ntc_step.make_ntc_sharded_train_step(two, model, "rna002")
+    reset()
+    t0 = time.perf_counter()
+    res = step(shard)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    expect("17(e) sharded NTC step", *counts(), (*kn.KERNELS, "ntc_tab_gather", *tk.KERNELS), 2)
+    eng = NTCBatchEngine(model, "rna002", device="cuda")
+    T_arr, N_arr, sig, kid, _ = eng._pad_bucket(list(range(32)),
+                                                [BatchItem(s, r) for s, r in reads])
+    for name, whole in (("sig", sig), ("kid", kid)):
+        parts = np.concatenate([getattr(q, name).cpu().numpy() for q in shard.parts])
+        if not np.array_equal(parts, whole):
+            raise AssertionError(f"the shares' {name} is not the engine's padded bucket")
+    put = lambda a: torch.from_numpy(a).cuda()
+    t0 = time.perf_counter()
+    want = ntc_train_bucket_program(
+        put(sig), put(kid), put(N_arr), put(T_arr), eng.tensors, A=model.alphabet_size,
+        S=model.kmer_size, log_ppm=eng.log_ppm, log_ppe=eng.log_ppe, trans_log=eng.trans_log,
+        CN=eng.cap_n, CK0=eng.cap_k, dtype=torch.float32)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    for k in ("Zf", "Zb", "term_lse", "em"):
+        a, b = res[k].cpu(), want[k].cpu()
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"sharded NTC step: {k} differs from the one-device program")
+    ok1, pooled1 = ntc_step.bucket_sums(want, put(T_arr), put(N_arr), eng.tensors["means"],
+                                        (eng.cap_n, eng.cap_k), torch.float32)
+    if not torch.equal(res["ok"].cpu(), ok1.cpu()):
+        raise AssertionError("sharded NTC step: the gate differs")
+    rel = 0.0
+    for name, a, b in zip(ntc_step.NTCPooled._fields, res["pooled"], pooled1):
+        a, b = a.double().cpu(), b.double().cpu()
+        rel = max(rel, float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()))
+    if rel > 1e-5:
+        raise AssertionError(f"sharded NTC step: pooled sums off by rel {rel}")
+    log(f"[17] (e) make_ntc_sharded_train_step([cuda:0, cuda:0]), 32 reads in two shares "
+        f"of 16: {step_ms:.1f} ms against the one-device 32-read program's {one_ms:.1f} ms "
+        f"(host clock); Zf, Zb, term sums and moments of every read bit for bit, "
+        f"{int(res['ok'].sum())} of 32 pass the gate as there, pooled sums within rel "
+        f"{rel:.2e}")
+    del res, want
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2848,6 +3222,10 @@ def main(argv=None) -> int:
     phase.start("16")
     if want("16"):
         times.update(phase_16(model, bench, launches, max_err))
+    # 17. several devices and processes on the card
+    phase.start("17")
+    if want("17"):
+        phase_17(model, bench)
     phase.end()
 
     kernels = []

@@ -30,7 +30,13 @@ module names so each counterpart is found at the same path:
   models/                   parameters, per-read and batched engines:
                             batch.py (basic mode), ntc_batch.py (resquiggle
                             mode), nt.py / nt_banded.py / ntc.py per read
-  training/trainer.py       the training driver, both modes
+  training/trainer.py       the training driver, both modes, on one or more
+                            devices and processes
+  parallel/                 device lists, multi-process bring-up (gloo),
+                            the sharded basic and NTC training steps
+  eval/, plot/              evaluation and plotting tools (copies of the JAX
+                            package's; plot/segmentation.py segments on
+                            --device)
   cli/resquiggle.py         dynamont-resquiggle --mode basic|resquiggle
   cli/train.py              dynamont-train --mode basic|resquiggle
   cli/ntc_main.py           dynamont-NTC (single read, stdin protocol)
@@ -40,7 +46,8 @@ module names so each counterpart is found at the same path:
                             (see _build.py)
 
 Host code without JAX (constants, pore models, k-mers, geometry, packing,
-readers, CSV writers, the native library and the model tables) is kept as
+readers, CSV writers, the native library, the model tables, eval/ and
+plot/) is kept as
 this package's own copy of the JAX package's module, never imported from
 `dynamont_tpu`; tests/test_torch_isolation.py holds the copies equal and
 scans the imports. This package imports `torch` and never `jax`.

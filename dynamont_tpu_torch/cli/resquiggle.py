@@ -2,11 +2,15 @@
 dynamont_tpu/cli/resquiggle.py).
 
 Reads come from a plain TSV (--tsv) or a dorado BAM + raw directory; they
-are bucketed and segmented on one device by the banded engine (--mode
-basic) or the NTC engine (--mode resquiggle, models/ntc_batch), and the
-results stream to a zstd CSV with the reference's columns and `.errors`
-sidecar. --ntc-native-9mer runs a >5-mer model at its native K in
-resquiggle mode instead of reducing it to 5-mer tables.
+are bucketed and segmented by the banded engine (--mode basic) or the NTC
+engine (--mode resquiggle, models/ntc_batch), buckets round-robin over
+every visible GPU for --device cuda (one for cuda:N), and the results
+stream to a zstd CSV with the reference's columns and `.errors` sidecar.
+--ntc-native-9mer runs a >5-mer model at its native K in resquiggle mode
+instead of reducing it to 5-mer tables. --distributed splits the read
+stream over processes (read i to rank i % world, torch.distributed on
+gloo; DYNAMONT_COORDINATOR / DYNAMONT_NUM_PROCESSES / DYNAMONT_PROCESS_ID
+or torchrun's variables), each writing <outfile>.rank<k>.
 
     python -m dynamont_tpu_torch.cli.resquiggle --tsv reads.tsv \\
         -o out.csv.zst --mode basic|resquiggle -p rna002 [--device cuda]
@@ -42,8 +46,17 @@ def build_parser() -> ArgumentParser:
                    help="accepted for reference compatibility; device "
                         "batching replaces the process pool")
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; the run "
-                        "fails rather than fall back to the CPU)")
+                   help="torch device to run on: cuda (default) every "
+                        "visible GPU, buckets round-robin, cuda:N one, cpu "
+                        "the plain-torch path; the run fails rather than "
+                        "fall back to the CPU")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process run over torch.distributed (gloo): "
+                        "each process takes every world-th read (round-robin "
+                        "shard of the job stream; output files get a "
+                        ".rank<k> suffix). Set DYNAMONT_COORDINATOR, "
+                        "DYNAMONT_NUM_PROCESSES, DYNAMONT_PROCESS_ID (or run "
+                        "under torchrun); a failed bring-up ends the run")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted run: reads already in the "
                         "output CSV are skipped, new results are appended")
@@ -77,32 +90,46 @@ def main(argv=None):
     from dynamont_tpu_torch.models.registry import load_model_for_pore
     from dynamont_tpu_torch.models.batch import BandedBatchEngine
     from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+    from dynamont_tpu_torch.parallel.mesh import (
+        init_distributed, local_devices, rank_world,
+    )
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("--device cuda: torch sees no CUDA device (pass --device cpu "
               "to run the plain-torch path)", file=sys.stderr)
         raise SystemExit(2)
+    devices = local_devices(args.device)
 
     rna = is_rna(args.pore)
     model = load_model_for_pore(args.pore, args.model_path)
+    # multi-process data parallelism: reads are embarrassingly parallel, so
+    # each process handles a round-robin shard of the job stream and
+    # writes its own output file (no cross-process tensor traffic)
+    rank, world = 0, 1
+    outfile = args.outfile
+    if args.distributed:
+        init_distributed(required=True)
+        rank, world = rank_world()
+        if world > 1:
+            outfile = f"{args.outfile}.rank{rank}"
     done: set = set()
-    resume = args.resume and os.path.exists(args.outfile)
+    resume = args.resume and os.path.exists(outfile)
     if resume:
-        done = out_io.prepare_resume(args.outfile)
+        done = out_io.prepare_resume(outfile)
         print(f"resume: skipping {len(done)} already-segmented reads",
               file=sys.stderr)
-    writer = out_io.SegmentationWriter(args.outfile, append=resume)
+    writer = out_io.SegmentationWriter(outfile, append=resume)
 
     def jobs():
         if args.tsv is not None:
-            for job in readers.generate_tsv_jobs(args.tsv, rna, args.qscore):
-                if job.readid not in done:
+            source = readers.generate_tsv_jobs(args.tsv, rna, args.qscore)
+            for i, job in enumerate(source):
+                if i % world == rank and job.readid not in done:
                     yield job
             return
-        for raw in readers.generate_bam_jobs(args.raw, args.basecalls,
-                                             args.qscore):
-            if raw[6] in done:
+        for i, raw in enumerate(readers.generate_bam_jobs(
+                args.raw, args.basecalls, args.qscore)):
+            if i % world != rank or raw[6] in done:
                 continue
             try:
                 yield readers.materialize_bam_job(raw, rna)
@@ -112,13 +139,13 @@ def main(argv=None):
 
     try:
         if args.mode == "basic":
-            eng = BandedBatchEngine(model, args.pore, device=device,
+            eng = BandedBatchEngine(model, args.pore, devices=devices,
                                     batch_size=bucket)
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: 3, ")
         else:
             # cap-overflow reads re-run inside the engine (wide rung, then
             # the exact per-read path)
-            eng = NTCBatchEngine(model, args.pore, device=device,
+            eng = NTCBatchEngine(model, args.pore, devices=devices,
                                  batch_size=bucket,
                                  native_kmer=args.ntc_native_9mer)
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: ")

@@ -3,11 +3,15 @@
 src/python/segmentation/train.py).
 
 Same flags and defaults (batch_size 24, epochs 1, qscore 10), same
-trained_{epoch}_{batch}.model checkpoints and params.csv, on one torch
-device. --distributed is not ported yet.
+trained_{epoch}_{batch}.model checkpoints and params.csv. --device cuda
+trains on every visible GPU (a batch split over them), cuda:N on one.
+--distributed runs one process per host (or per GPU, each with its own
+--device cuda:N) over torch.distributed's gloo backend: set
+DYNAMONT_COORDINATOR (host:port of rank 0), DYNAMONT_NUM_PROCESSES and
+DYNAMONT_PROCESS_ID, or run under torchrun.
 
     python -m dynamont_tpu_torch.cli.train --tsv reads.tsv -o outdir \\
-        -p rna002 --mode basic|resquiggle [--device cuda]
+        -p rna002 --mode basic|resquiggle [--device cuda] [--distributed]
 """
 
 from __future__ import annotations
@@ -43,11 +47,19 @@ def build_parser() -> ArgumentParser:
                         "checkpoint in the output dir (skips the batches "
                         "params.csv records as done)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training: not yet ported to the "
-                        "PyTorch package (exits with an error)")
+                   help="multi-process run over torch.distributed (gloo): "
+                        "every process reads the same job stream and trains "
+                        "the round-robin shard of each batch; per-read "
+                        "estimates merge across processes before pooling "
+                        "(identical params on every process); rank 0 "
+                        "writes params.csv/checkpoints (shared outdir). Set "
+                        "DYNAMONT_COORDINATOR, DYNAMONT_NUM_PROCESSES, "
+                        "DYNAMONT_PROCESS_ID (or run under torchrun); a "
+                        "failed bring-up ends the run")
     p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; the run "
-                        "fails rather than fall back to the CPU)")
+                   help="torch device to run on: cuda (default) every "
+                        "visible GPU, cuda:N one, cpu the plain-torch path; "
+                        "the run fails rather than fall back to the CPU")
     return p
 
 
@@ -58,30 +70,32 @@ def main(argv=None):
     if args.tsv is None and (args.raw is None or args.basecalls is None):
         print("provide either --tsv or both --raw and --basecalls", file=sys.stderr)
         raise SystemExit(2)
-    if args.distributed:
-        print("--distributed training is not yet ported to the PyTorch "
-              "package; use dynamont_tpu's dynamont-train", file=sys.stderr)
-        raise SystemExit(2)
 
     import torch
 
     from dynamont_tpu_torch.constants import is_rna
     from dynamont_tpu_torch.io import readers
     from dynamont_tpu_torch.models.registry import get_model_path
+    from dynamont_tpu_torch.parallel.mesh import init_distributed, local_devices
     from dynamont_tpu_torch.training.trainer import Trainer, read_passes_filters
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         print("--device cuda: torch sees no CUDA device (pass --device cpu "
               "to run the plain-torch path)", file=sys.stderr)
         raise SystemExit(2)
+    devices = local_devices(args.device)
+    if args.distributed:
+        # fail loudly: a half-initialized "distributed" training would
+        # silently train every batch on every host
+        init_distributed(required=True)
 
     rna = is_rna(args.pore)
     model_path = args.model_path or get_model_path(args.pore)
     trainer = Trainer(
         args.mode, args.pore, args.outdir, model_path,
         batch_size=args.batch_size, epochs=args.epochs, resume=args.resume,
-        precision=args.precision, device=device,
+        precision=args.precision, distributed=args.distributed,
+        devices=devices,
     )
 
     def jobs():

@@ -13,7 +13,11 @@ quantization, the full posterior matrices from K5 -> K1 -> K4
 (ops/nt_banded_batch.banded_batch_run), walked on the host by the native
 traceback; collect() runs it bucket by bucket.
 
-One device, given explicitly.
+The devices are given explicitly: `device=` one, or `devices=` a list that
+buckets go to round-robin (counterpart of the JAX engine's `devices`, which
+defaults to every local chip; the CLIs turn `--device cuda` into every
+visible GPU, parallel/mesh.local_devices). Each device holds its own copy
+of the k-mer tables, and a bucket's fp64 retries run on its own device.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from dynamont_tpu_torch.models.nt_banded import run_nt_banded
 from dynamont_tpu_torch.models.params import params_from_numpy
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_device as dv
+from dynamont_tpu_torch.parallel.mesh import on_device
 
 # bucket limits of the JAX engine's defaults: padded lengths on the
 # t_pad_ladder floored at 512 rows, at most 4M padded samples per bucket
@@ -66,6 +71,29 @@ class BatchOutput:
         return self._segments
 
 
+def device_list(device, devices) -> list[torch.device]:
+    """The engines' device list: `devices`, else [`device`]; every CUDA
+    entry must be visible."""
+    if (device is None) == (devices is None):
+        raise TypeError("give exactly one of device= and devices=")
+    devs = [torch.device(d) for d in (devices if devices is not None else [device])]
+    if not devs:
+        raise ValueError("devices= is empty")
+    for d in devs:
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {d} requested but torch sees no CUDA device")
+    return devs
+
+
+def next_device(eng) -> torch.device:
+    """The device of an engine's next bucket, round-robin over
+    eng.devices, counted in eng.profile["device_buckets"]."""
+    slot = eng._next_dev % len(eng.devices)
+    eng._next_dev += 1
+    eng.profile["device_buckets"][slot] += 1
+    return eng.devices[slot]
+
+
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     """Start a copy of x into pinned host memory (no wait on CUDA)."""
     if x.device.type == "cpu":
@@ -76,14 +104,16 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
 
 
 class BandedBatchEngine:
-    """Runs banded segmentation over arbitrary read lists on one device."""
+    """Runs banded segmentation over arbitrary read lists, its buckets
+    round-robin over its devices."""
 
-    def __init__(self, model, pore: str, *, device, dtype=torch.float32,
-                 batch_size: int = 32, band: int = 400,
-                 fp64_fallback: bool = True, device_pipeline: bool = True):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+    def __init__(self, model, pore: str, *, device=None, devices=None,
+                 dtype=torch.float32, batch_size: int = 32, band: int = 400,
+                 fp64_fallback: bool = True, device_pipeline: bool = True,
+                 hampel_on_device: bool = False):
+        self.devices = device_list(device, devices)
+        self.device = self.devices[0]
+        self._next_dev = 0
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
         self.model = model
@@ -95,13 +125,20 @@ class BandedBatchEngine:
         self.fp64_fallback = fp64_fallback
         self.device_pipeline = device_pipeline
         # wall-clock accounting across run() calls: dispatch = host prep +
-        # queueing, collect = device wait + summary decode
+        # queueing, collect = device wait + summary decode; device_buckets
+        # counts the buckets sent to each entry of the device list
         self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
-                        "collect_s": 0.0}
-        p = params_from_numpy(model, self.m1, self.e2, device=self.device,
-                              dtype=dtype)
-        self._dev_run = dv.make_device_fn(p.means, p.c1, p.c2, p.log_m1,
-                                          p.log_e2)
+                        "collect_s": 0.0,
+                        "device_buckets": [0] * len(self.devices)}
+        # the k-mer tables once per distinct device
+        self._dev_run = {}
+        for d in self.devices:
+            if d not in self._dev_run:
+                p = params_from_numpy(model, self.m1, self.e2, device=d,
+                                      dtype=dtype)
+                self._dev_run[d] = dv.make_device_fn(
+                    p.means, p.c1, p.c2, p.log_m1, p.log_e2,
+                    hampel=hampel_on_device)
         self._run = bb.make_banded_batch_fn(self.m1, self.e2)
 
     def _buckets(self, items: list[BatchItem]):
@@ -125,10 +162,11 @@ class BandedBatchEngine:
         t0 = time.perf_counter()
         groups = [[valid[g] for g in group]
                   for group in self._buckets([items[i] for i in valid])]
-        pending = groups
         if self.device_pipeline:
             pending = [self._dispatch_bucket([items[i] for i in gidx], gidx)
                        for gidx in groups]
+        else:
+            pending = [(gidx, next_device(self)) for gidx in groups]
         self.profile["dispatch_s"] += time.perf_counter() - t0
         return items, outputs, valid, pending
 
@@ -141,7 +179,8 @@ class BandedBatchEngine:
             if self.device_pipeline:
                 self._collect_bucket(bucket, outputs)
             else:
-                self._run_bucket([items[i] for i in bucket], bucket, outputs)
+                gidx, dev = bucket
+                self._run_bucket([items[i] for i in gidx], gidx, outputs, dev)
         self.profile["buckets"] += len(pending)
         self.profile["reads"] += len(valid)
         self.profile["collect_s"] += time.perf_counter() - t1
@@ -157,22 +196,24 @@ class BandedBatchEngine:
             for it in its
         ]
         t_pad = t_pad_ladder(max(len(it.signal) for it in its) + 1, T_PAD_TO)
-        wire = dv.prepare_wire(
-            [it.signal for it in its], kmer_ids, band=self.band,
-            device=self.device, t_pad=t_pad,
-        )
-        res = self._dev_run(wire)
-        host = dv.DeviceSegResult(*(_to_host(x) for x in res))
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        dev = next_device(self)
+        with on_device(dev):
+            wire = dv.prepare_wire(
+                [it.signal for it in its], kmer_ids, band=self.band,
+                device=dev, t_pad=t_pad,
+            )
+            res = self._dev_run[dev](wire)
+            host = dv.DeviceSegResult(*(_to_host(x) for x in res))
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
         T = np.array([len(it.signal) + 1 for it in its])
         N = np.array([len(k) + 1 for k in kmer_ids])
-        return its, gidx, T, N, wire.B, host, done
+        return its, gidx, T, N, wire.B, host, done, dev
 
     def _collect_bucket(self, bucket, outputs):
-        its, gidx, T, N, B, host, done = bucket
+        its, gidx, T, N, B, host, done, dev = bucket
         if done is not None:
             done.synchronize()
         Zf = host.Zf.numpy().astype(np.float64)
@@ -183,7 +224,7 @@ class BandedBatchEngine:
         for j, out_i in enumerate(gidx):
             if not ok[j]:
                 outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
-                                              float(Zb[j]))
+                                              float(Zb[j]), dev)
             else:
                 outputs[out_i] = BatchOutput(
                     its[j], None, float(Zb[j]),
@@ -191,18 +232,21 @@ class BandedBatchEngine:
                                self.model.kmer_size),
                 )
 
-    def _run_bucket(self, its: list[BatchItem], gidx: list[int], outputs):
-        """One bucket through the matrix route: host-prepared raw signals,
-        the posterior matrices on the device, the native host walk."""
+    def _run_bucket(self, its: list[BatchItem], gidx: list[int], outputs,
+                    dev: torch.device):
+        """One bucket through the matrix route on `dev`: host-prepared raw
+        signals, the posterior matrices on the device, the native host
+        walk."""
         kmer_ids = [
             seq_to_kmer_ids(it.read, self.model.kmer_size,
                             self.model.alphabet_size)
             for it in its
         ]
-        batch = bb.prepare_batch(
-            [it.signal for it in its], kmer_ids, self.model, self.band,
-            device=self.device, dtype=self.dtype, t_pad_to=T_PAD_TO)
-        res = self._run(batch)
+        with on_device(dev):
+            batch = bb.prepare_batch(
+                [it.signal for it in its], kmer_ids, self.model, self.band,
+                device=dev, dtype=self.dtype, t_pad_to=T_PAD_TO)
+            res = self._run(batch)
         Zf = res.Zf.cpu().numpy().astype(np.float64)
         Zb = res.Zb.cpu().numpy().astype(np.float64)
         T, N, bw = (x.cpu().numpy() for x in (batch.T, batch.N, batch.bw))
@@ -212,7 +256,7 @@ class BandedBatchEngine:
         for j, out_i in enumerate(gidx):
             if not ok[j]:
                 outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
-                                              float(Zb[j]))
+                                              float(Zb[j]), dev)
             else:
                 outputs[out_i] = BatchOutput(its[j], seg_lists[j],
                                              float(Zb[j]))
@@ -224,10 +268,11 @@ class BandedBatchEngine:
             return f"input validation failed (reference exit {e.code})"
         return None
 
-    def _z_fail(self, it: BatchItem, zf: float, zb: float) -> BatchOutput:
+    def _z_fail(self, it: BatchItem, zf: float, zb: float,
+                dev: torch.device) -> BatchOutput:
         """A read failing the fp32 gate is usually fp32 round-off: it
-        re-runs on the exact per-read fp64 rung. fp64 gate failures are
-        terminal — the reference's exit-3 contract
+        re-runs on the exact per-read fp64 rung, on its bucket's device.
+        fp64 gate failures are terminal — the reference's exit-3 contract
         (NT_banded_main.cpp:156-183)."""
         err = f"Z values between matrices do not match! Zf: {zf}, Zb: {zb}"
         if self.dtype == torch.float32 and self.fp64_fallback:
@@ -236,7 +281,7 @@ class BandedBatchEngine:
                 res = run_nt_banded(
                     it.signal, it.read, self.model, self.pore,
                     {"m1": self.m1, "e2": self.e2}, band=self.band,
-                    device=self.device, dtype=torch.float64, validate=False,
+                    device=dev, dtype=torch.float64, validate=False,
                 )
                 return BatchOutput(it, res.segments, res.Z)
             except ZConsistencyError as e:

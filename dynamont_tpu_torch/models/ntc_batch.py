@@ -36,7 +36,11 @@ Zb; the host turns the sums into per-read transitions and k-mer tables
 or fails a Z gate trains on the exact per-read path; training has no wide
 rung, in the JAX engine either.
 
-What differs from the JAX engine: one device, given explicitly; the read
+Devices: `device=` one, or `devices=` a list that buckets go to round-robin
+(the JAX engine's `devices`), each with its own copy of the tables; a
+bucket's wide and exact rungs run on the bucket's own device.
+
+What differs from the JAX engine: the devices are given explicitly; the read
 axis is padded to the bucket's own size, not to the TPU geometry's 16; the
 caps are the JAX kernel route's on every device, and train() runs the
 batched program in both precisions (the JAX engine runs it only on its
@@ -58,7 +62,9 @@ import torch
 from dynamont_tpu_torch.constants import (
     EPSILON, NT_TRANSITIONS, NTK_TRANSITIONS, resolve_transitions,
 )
-from dynamont_tpu_torch.models.batch import BatchItem, BatchOutput, _to_host
+from dynamont_tpu_torch.models.batch import (
+    BatchItem, BatchOutput, _to_host, device_list, next_device,
+)
 from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
 from dynamont_tpu_torch.ops import ntc_batch as nb
@@ -67,6 +73,7 @@ from dynamont_tpu_torch.ops import ntc_train_kernels as tkern
 from dynamont_tpu_torch.ops import ntc_walk as nw
 from dynamont_tpu_torch.ops.ntc_pre_kernels import BIG_K
 from dynamont_tpu_torch.ops.ntc_train import TRAIN_THRESHOLD
+from dynamont_tpu_torch.parallel.mesh import on_device
 from dynamont_tpu_torch.utils.kmer import int2kmer, int2kmers_batch, seq_to_kmer_ids
 from dynamont_tpu_torch.utils.logmath import logsumexp
 
@@ -248,20 +255,32 @@ def emissions_from_moments(em: np.ndarray, model) -> dict:
     return out
 
 
-class NTCBatchEngine:
-    """NTC segmentation over arbitrary read lists on one device (bucketed,
-    fp32 by default). Interface as models.batch.BandedBatchEngine."""
+def model_tensors(model, device, dtype) -> dict:
+    """The bucket programs' `tensors` for a pore model on `device`: its
+    means, stdevs, c1 and c2 in fp64 and K11's combined table in `dtype`."""
+    means, c1, c2 = model.score_params()
+    put = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=device)
+    te = dict(means=put(means), stdevs=put(model.stdevs), c1=put(c1), c2=put(c2))
+    te["table"] = nb.combined_tables(te["means"], te["c1"], te["c2"],
+                                     model.alphabet_size, dtype)
+    return te
 
-    def __init__(self, model, pore: str, *, device,
+
+class NTCBatchEngine:
+    """NTC segmentation over arbitrary read lists, its buckets round-robin
+    over its devices (fp32 by default). Interface as
+    models.batch.BandedBatchEngine."""
+
+    def __init__(self, model, pore: str, *, device=None, devices=None,
                  transition_overrides: dict | None = None,
                  dtype=torch.float32, batch_size: int = 16,
                  max_batch_samples: int = 2_000_000, t_pad_to: int = 2048,
                  n_pad_to: int = 256, cap_n: int = 8, cap_k: int = 120,
                  fallback: bool = True, wide_retry: bool = True,
                  native_kmer: bool = False):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+        self.devices = device_list(device, devices)
+        self.device = self.devices[0]
+        self._next_dev = 0
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, not {dtype}")
         if model.kmer_size > 5 and not native_kmer:
@@ -288,17 +307,18 @@ class NTCBatchEngine:
         self.trans_log = {k: math.log(v) for k, v in ntk.items()}
         nt = NT_TRANSITIONS[pore]
         self.log_ppm, self.log_ppe = math.log(nt["m1"]), math.log(nt["e2"])
-        means, c1, c2 = model.score_params()
-        put = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=self.device)
-        self.tensors = dict(means=put(means), stdevs=put(model.stdevs),
-                            c1=put(c1), c2=put(c2))
-        self.tensors["table"] = nb.combined_tables(
-            self.tensors["means"], self.tensors["c1"], self.tensors["c2"],
-            model.alphabet_size, dtype)
-        # wall-clock accounting across run() calls (see --profile)
+        # the tables once per distinct device; `tensors` are the first's
+        self._tensors = {}
+        for d in self.devices:
+            if d not in self._tensors:
+                self._tensors[d] = model_tensors(model, d, dtype)
+        self.tensors = self._tensors[self.device]
+        # wall-clock accounting across run() calls (see --profile);
+        # device_buckets counts the buckets sent to each entry of the list
         self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
                         "collect_s": 0.0, "wide_retries": 0, "wide_s": 0.0,
-                        "exact_retries": 0, "exact_s": 0.0}
+                        "exact_retries": 0, "exact_s": 0.0,
+                        "device_buckets": [0] * len(self.devices)}
 
     # -- batching ----------------------------------------------------------
     def _buckets(self, idxs, items, batch_size: int):
@@ -354,22 +374,27 @@ class NTCBatchEngine:
         escalation ladder on the reads that need it."""
         items, outputs, valid, pending = handle
         t1 = time.perf_counter()
-        retry: list[int] = []
+        # the reads to retry, by the device of their bucket
+        retry: dict = {}
         for bucket in pending:
-            retry += self._collect(bucket, items, outputs)
+            retry.setdefault(bucket[-1], []).extend(
+                self._collect(bucket, items, outputs))
+        n_retry = sum(len(v) for v in retry.values())
         t2 = time.perf_counter()
-        use_wide = bool(retry) and self.fallback and self.wide_retry
-        exact = self._run_wide(retry, items, outputs) if use_wide else retry
+        use_wide = bool(n_retry) and self.fallback and self.wide_retry
+        exact = {dev: self._run_wide(idxs, items, outputs, dev) if use_wide else idxs
+                 for dev, idxs in retry.items()}
         t3 = time.perf_counter()
-        for i in exact:
-            outputs[i] = self._run_exact(items[i])
+        for dev, idxs in exact.items():
+            for i in idxs:
+                outputs[i] = self._run_exact(items[i], dev)
         pr = self.profile
         pr["buckets"] += len(pending)
         pr["reads"] += len(valid)
         pr["collect_s"] += t2 - t1
-        pr["wide_retries"] += len(retry) if use_wide else 0
+        pr["wide_retries"] += n_retry if use_wide else 0
         pr["wide_s"] += t3 - t2
-        pr["exact_retries"] += len(exact)
+        pr["exact_retries"] += sum(len(v) for v in exact.values())
         pr["exact_s"] += time.perf_counter() - t3
         return outputs  # type: ignore[return-value]
 
@@ -379,10 +404,10 @@ class NTCBatchEngine:
     def train(self, items: list[BatchItem], exact=None) -> list:
         """Per-read Baum-Welch estimates: each bucket through
         ntc_train_bucket_program in the engine's dtype; a read that
-        overflows the caps or fails a Z gate goes to `exact(item)`, by
-        default the exact per-read path in train mode (_train_exact).
-        Returns, per read, (trained_transitions, trained_emissions, Z) or
-        an Exception."""
+        overflows the caps or fails a Z gate goes to `exact(item, device)`
+        on its bucket's device, by default the exact per-read path in
+        train mode (_train_exact). Returns, per read,
+        (trained_transitions, trained_emissions, Z) or an Exception."""
         if self.model.num_kmers > BIG_K:
             raise NotImplementedError(
                 f"NTC training at K = {self.model.num_kmers}: training runs "
@@ -399,7 +424,8 @@ class NTCBatchEngine:
                     f"input validation failed (reference exit {e.code})")
         K = self.model.num_kmers
         for gidx in self._buckets(valid, items, self.batch_size):
-            T_arr, N_arr, host = self._train_bucket(gidx, items)
+            dev = next_device(self)
+            T_arr, N_arr, host = self._train_bucket(gidx, items, dev=dev)
             for j, i in enumerate(gidx):
                 if host["ovf_tn"][j] or host["ovf_tk"][j]:
                     err = "cap overflow"
@@ -410,60 +436,72 @@ class NTCBatchEngine:
                     outputs[i] = RuntimeError(f"{err} (no fallback)")
                 elif err is not None:
                     self.profile["exact_retries"] += 1
-                    outputs[i] = exact(items[i])
+                    outputs[i] = exact(items[i], dev)
                 else:
                     outputs[i] = (trans_from_terms(host["term_lse"][:, j]),
                                   emissions_from_moments(host["em"][j], self.model),
                                   float(host["Zf"][j]))
         return outputs
 
-    def _train_bucket(self, gidx, items, keep: dict | None = None):
-        """(T_arr, N_arr, host results) of one bucket's training program."""
+    def _train_bucket(self, gidx, items, keep: dict | None = None,
+                      dev: torch.device | None = None):
+        """(T_arr, N_arr, host results) of one bucket's training program,
+        on `dev` (the engine's first device by default)."""
+        dev = self.device if dev is None else dev
         T_arr, N_arr, sig, kid, _ = self._pad_bucket(gidx, items)
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        res = ntc_train_bucket_program(
-            put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
-            self.tensors, A=self.model.alphabet_size, S=self.model.kmer_size,
-            log_ppm=self.log_ppm, log_ppe=self.log_ppe, trans_log=self.trans_log,
-            CN=self.cap_n, CK0=self.cap_k, dtype=self.dtype, keep=keep)
-        return T_arr, N_arr, {k: v.cpu().numpy() for k, v in res.items()}
+        put = lambda a: torch.from_numpy(a).to(dev)
+        with on_device(dev):
+            res = ntc_train_bucket_program(
+                put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
+                self._tensors[dev], A=self.model.alphabet_size,
+                S=self.model.kmer_size, log_ppm=self.log_ppm,
+                log_ppe=self.log_ppe, trans_log=self.trans_log, CN=self.cap_n,
+                CK0=self.cap_k, dtype=self.dtype, keep=keep)
+            return T_arr, N_arr, {k: v.cpu().numpy() for k, v in res.items()}
 
-    def _train_exact(self, it: BatchItem):
-        """The exact per-read fp64 path in train mode, on the engine's
-        device; its Z-gate errors are the read's result."""
+    def _train_exact(self, it: BatchItem, dev: torch.device | None = None):
+        """The exact per-read fp64 path in train mode, on `dev` (the
+        engine's first device by default); its Z-gate errors are the
+        read's result."""
         from dynamont_tpu_torch.models.ntc import (
             NTCPreprocessError, NTCZError, run_ntc,
         )
 
         try:
             res = run_ntc(it.signal, it.read, self.model, self.pore,
-                          self.overrides, mode="train", device=self.device,
+                          self.overrides, mode="train",
+                          device=self.device if dev is None else dev,
                           validate=False)
         except (NTCPreprocessError, NTCZError) as e:
             return e
         return res.trained_transitions, res.trained_emissions, res.Z
 
     def _dispatch(self, gidx, items, cap_n: int, cap_k: int,
-                  keep: dict | None = None, ckpt: bool | None = None):
+                  keep: dict | None = None, ckpt: bool | None = None,
+                  dev: torch.device | None = None):
+        """Queue one bucket on `dev` (the next device round-robin by
+        default); returns its handle for _collect."""
+        dev = next_device(self) if dev is None else dev
         T_arr, N_arr, sig, kid, N2 = self._pad_bucket(gidx, items)
         # segment cap: one per base plus polish slack (overflow -> ladder)
         S_max = round_up(N2 + N2 // 4 + 64, 128)
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        res = ntc_bucket_program(
-            put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
-            self.tensors, A=self.model.alphabet_size, S=self.model.kmer_size,
-            log_ppm=self.log_ppm, log_ppe=self.log_ppe,
-            trans_log=self.trans_log, CN=cap_n, CK0=cap_k, S_max=S_max,
-            dtype=self.dtype, keep=keep, ckpt=ckpt)
-        host = {k: _to_host(v) for k, v in res.items()}
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return gidx, T_arr, N_arr, host, done, (cap_n, cap_k)
+        put = lambda a: torch.from_numpy(a).to(dev)
+        with on_device(dev):
+            res = ntc_bucket_program(
+                put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
+                self._tensors[dev], A=self.model.alphabet_size,
+                S=self.model.kmer_size, log_ppm=self.log_ppm,
+                log_ppe=self.log_ppe, trans_log=self.trans_log, CN=cap_n,
+                CK0=cap_k, S_max=S_max, dtype=self.dtype, keep=keep, ckpt=ckpt)
+            host = {k: _to_host(v) for k, v in res.items()}
+            done = None
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+        return gidx, T_arr, N_arr, host, done, (cap_n, cap_k), dev
 
     def _collect(self, bucket, items, outputs) -> list[int]:
-        gidx, T_arr, N_arr, host, done, caps = bucket
+        gidx, T_arr, N_arr, host, done, caps, _ = bucket
         if done is not None:
             done.synchronize()
         host = {k: v.numpy() for k, v in host.items()}
@@ -538,14 +576,17 @@ class NTCBatchEngine:
         scale = math.exp(min(diff, 700.0))
         return [(st, bp, t0, p * scale, pk) for st, bp, t0, p, pk in segs]
 
-    def _run_wide(self, idxs: list[int], items, outputs) -> list[int]:
-        """The wide rung: overflowing reads re-run at self.wide_caps in
-        buckets of at most WIDE_READS. Returns the reads that still overflow
-        or fail their Z gates (a wide-rung Z failure is not terminal: the
-        exact path may succeed)."""
+    def _run_wide(self, idxs: list[int], items, outputs,
+                  dev: torch.device | None = None) -> list[int]:
+        """The wide rung on `dev` (the engine's first device by default):
+        overflowing reads re-run at self.wide_caps in buckets of at most
+        WIDE_READS. Returns the reads that still overflow or fail their Z
+        gates (a wide-rung Z failure is not terminal: the exact path may
+        succeed)."""
+        dev = self.device if dev is None else dev
         still: list[int] = []
         for gidx in self._buckets(idxs, items, min(self.batch_size, WIDE_READS)):
-            bucket = self._dispatch(gidx, items, *self.wide_caps)
+            bucket = self._dispatch(gidx, items, *self.wide_caps, dev=dev)
             still += self._collect(bucket, items, outputs)
             for i in gidx:
                 if (i not in still and outputs[i] is not None
@@ -557,8 +598,10 @@ class NTCBatchEngine:
                   "overflow; falling to exact fp64", file=sys.stderr)
         return still
 
-    def _run_exact(self, it: BatchItem) -> BatchOutput:
-        """The exact per-read fp64 path, on the engine's device."""
+    def _run_exact(self, it: BatchItem,
+                   dev: torch.device | None = None) -> BatchOutput:
+        """The exact per-read fp64 path, on `dev` (the engine's first
+        device by default)."""
         if not self.fallback:
             return BatchOutput(it, None, math.nan,
                                "candidate cap overflow (no fallback)")
@@ -576,7 +619,8 @@ class NTCBatchEngine:
 
         try:
             res = run_ntc(it.signal, it.read, self.model, self.pore,
-                          self.overrides, device=self.device, validate=False)
+                          self.overrides, device=self.device if dev is None else dev,
+                          validate=False)
             return BatchOutput(it, res.segments, res.Z)
         except (NTCPreprocessError, NTCZError) as e:
             return BatchOutput(it, None, math.nan, str(e))

@@ -1,9 +1,10 @@
 """Device-resident banded segmentation: compact wire format in, per-base
 segment summaries out (counterpart of dynamont_tpu/ops/nt_banded_device.py).
 
-    int16 samples --> affine normalize --> band starts by cumsum -->
-    mu/c1/c2 gathers --> banded_bwd --> banded_fwd_vit --> banded_walk -->
-    grouped medians --> per-base (start, median posterior)
+    int16 samples --> affine normalize --> [window-3 Hampel] --> band
+    starts by cumsum --> mu/c1/c2 gathers --> banded_bwd --> banded_fwd_vit
+    --> banded_walk --> grouped medians --> per-base (start, median
+    posterior)
 
 Only the wire crosses host -> device (int16 samples, k-mer ids, bit-packed
 band shifts, per-read scalars: ~2.3 bytes/sample) and only the summaries
@@ -118,13 +119,41 @@ def _unpack_shift_bits(bits, T_pad: int):
     return b.reshape(bits.shape[0], -1)[:, :T_pad].to(torch.int32)
 
 
-def decode(wire: WireBatch, means_t, c1_t, c2_t, dtype) -> bb.BandedBatch:
+def _median3(a, b, c):
+    return torch.maximum(torch.minimum(a, b),
+                         torch.minimum(torch.maximum(a, b), c))
+
+
+def hampel3(sig, L, n_sigmas: float = 3.0):
+    """Window-3 Hampel filter along the last axis, reference semantics
+    (ref: FileIO.py:17-43; counterpart of hampel3_device): positions i in
+    [1, L-3] compare against the median of the original sig[i-1..i+1], and
+    outliers are replaced by that median. L, the true length, is a tensor
+    broadcast against sig's leading axes (one per read) or an int."""
+    k = 1.4826
+    left = torch.cat([sig[..., :1], sig[..., :-1]], dim=-1)
+    right = torch.cat([sig[..., 1:], sig[..., -1:]], dim=-1)
+    med = _median3(left, sig, right)
+    mad = k * _median3((left - med).abs(), (sig - med).abs(),
+                       (right - med).abs())
+    i = torch.arange(sig.shape[-1], device=sig.device)
+    L = torch.as_tensor(L, device=sig.device)[..., None]
+    outlier = (i >= 1) & (i < L - 2) & ((sig - med).abs() > n_sigmas * mad)
+    return torch.where(outlier, med, sig)
+
+
+def decode(wire: WireBatch, means_t, c1_t, c2_t, dtype,
+           hampel: bool = False) -> bb.BandedBatch:
     """Wire fields -> the padded batch the kernels read, on the wire's
-    device: sig = dac * a + b in `dtype`, band starts as the cumsum of
-    the shift bits minus bw, and per-position mu/c1/c2 gathered from the
-    k-mer tables, padded by (pad, pad + B)."""
+    device: sig = dac * a + b in `dtype` (with hampel, then the window-3
+    Hampel filter over each read's T - 1 samples, as the JAX decode's
+    hampel flag), band starts as the cumsum of the shift bits minus bw,
+    and per-position mu/c1/c2 gathered from the k-mer tables, padded by
+    (pad, pad + B)."""
     sig = wire.dacs.to(dtype) * wire.aff_a[:, None].to(dtype) \
         + wire.aff_b[:, None].to(dtype)
+    if hampel:
+        sig = hampel3(sig, wire.T - 1)
     shift = _unpack_shift_bits(wire.shift_bits, wire.T_pad)
     bstart = (torch.cumsum(shift, dim=1) - wire.bw[:, None]).to(torch.int32)
     live = torch.arange(wire.N_max - 1, device=sig.device) < (wire.N[:, None] - 1)
@@ -138,21 +167,23 @@ def decode(wire: WireBatch, means_t, c1_t, c2_t, dtype) -> bb.BandedBatch:
 
 def banded_batch_run_device(wire: WireBatch, means_t, c1_t, c2_t,
                             log_m1: float, log_e2: float,
-                            dtype=torch.float32) -> DeviceSegResult:
+                            dtype=torch.float32,
+                            hampel: bool = False) -> DeviceSegResult:
     """Whole-pipeline device program for one padded bucket."""
-    batch = decode(wire, means_t, c1_t, c2_t, dtype)
+    batch = decode(wire, means_t, c1_t, c2_t, dtype, hampel)
     Zf, Zb, starts, medians = kk.banded_segment(batch, wire.N_max, log_m1,
                                                 log_e2)
     return DeviceSegResult(Zf=Zf, Zb=Zb, starts=starts, medians=medians)
 
 
-def make_device_fn(means_t, c1_t, c2_t, log_m1: float, log_e2: float):
+def make_device_fn(means_t, c1_t, c2_t, log_m1: float, log_e2: float,
+                   hampel: bool = False):
     """wire -> summaries entry over k-mer tables already resident on the
     device (models/params.params_from_numpy); computes in their dtype."""
 
     def run(wire: WireBatch) -> DeviceSegResult:
         return banded_batch_run_device(wire, means_t, c1_t, c2_t, log_m1,
-                                       log_e2, means_t.dtype)
+                                       log_e2, means_t.dtype, hampel)
 
     return run
 

@@ -37,6 +37,7 @@ import torch
 
 from dynamont_tpu_torch import _build
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
+from dynamont_tpu_torch.parallel.mesh import on_device
 
 SEGMENT_KERNELS = ("banded_bwd", "banded_fwd_vit", "banded_walk")
 TRAIN_KERNELS = ("banded_fwd", "banded_bwd_train")
@@ -250,12 +251,13 @@ def backward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
     bM = torch.empty((R, T_pad, batch.B), dtype=batch.sig.dtype,
                      device=batch.sig.device)
     bE = torch.empty_like(bM)
-    rc = _entry("nt_banded_bwd", bM.dtype)(
-        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
-        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
-        _ptr(batch.bw), _ptr(bM), _ptr(bE), R, T_pad, batch.mu_pad.shape[1],
-        batch.B, batch.pad, staging(batch.B, bM.element_size()).bwd_rows,
-        log_m1, log_e2, _stream(bM.device))
+    with on_device(bM.device):
+        rc = _entry("nt_banded_bwd", bM.dtype)(
+            _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+            _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+            _ptr(batch.bw), _ptr(bM), _ptr(bE), R, T_pad, batch.mu_pad.shape[1],
+            batch.B, batch.pad, staging(batch.B, bM.element_size()).bwd_rows,
+            log_m1, log_e2, _stream(bM.device))
     _raise_on("banded_bwd", rc)
     LAUNCHES["banded_bwd"] += 1
     return bM, bE
@@ -287,13 +289,14 @@ def fwd_vit(batch: bb.BandedBatch, bM, bE, Zb, log_m1: float, log_e2: float):
     LPM = torch.empty_like(bM)
     LPE = torch.empty_like(bM)
     Zf = torch.full((R,), float("-inf"), dtype=dtype, device=bM.device)
-    rc = _entry("nt_banded_fwd_vit", dtype)(
-        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
-        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
-        _ptr(batch.bw), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(ch), _ptr(LPM),
-        _ptr(LPE), _ptr(Zf), R, T_pad, batch.mu_pad.shape[1], batch.B,
-        batch.pad, staging(batch.B, bM.element_size()).fwd_vit_rows, log_m1,
-        log_e2, _stream(bM.device))
+    with on_device(bM.device):
+        rc = _entry("nt_banded_fwd_vit", dtype)(
+            _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+            _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+            _ptr(batch.bw), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(ch), _ptr(LPM),
+            _ptr(LPE), _ptr(Zf), R, T_pad, batch.mu_pad.shape[1], batch.B,
+            batch.pad, staging(batch.B, bM.element_size()).fwd_vit_rows, log_m1,
+            log_e2, _stream(bM.device))
     _raise_on("banded_fwd_vit", rc)
     LAUNCHES["banded_fwd_vit"] += 1
     return ch, LPM, LPE, Zf
@@ -327,10 +330,11 @@ def walk(LPM, LPE, ch, batch: bb.BandedBatch, N_max: int):
     path_n = torch.empty((R, T_pad - 1), dtype=torch.int32, device=LPM.device)
     prob = torch.empty((R, T_pad - 1), dtype=dtype, device=LPM.device)
     close = torch.empty((R, T_pad - 1), dtype=torch.uint8, device=LPM.device)
-    rc = _entry("nt_banded_walk", dtype)(
-        _ptr(LPM), _ptr(LPE), _ptr(ch), _ptr(batch.bstart), _ptr(batch.T),
-        _ptr(batch.N), _ptr(batch.bw), _ptr(path_n), _ptr(prob), _ptr(close),
-        R, T_pad, B, N_max, _stream(LPM.device))
+    with on_device(LPM.device):
+        rc = _entry("nt_banded_walk", dtype)(
+            _ptr(LPM), _ptr(LPE), _ptr(ch), _ptr(batch.bstart), _ptr(batch.T),
+            _ptr(batch.N), _ptr(batch.bw), _ptr(path_n), _ptr(prob), _ptr(close),
+            R, T_pad, B, N_max, _stream(LPM.device))
     _raise_on("banded_walk", rc)
     LAUNCHES["banded_walk"] += 1
     return path_n, prob, close.bool()
@@ -363,11 +367,12 @@ def viterbi_post(batch: bb.BandedBatch, fM, fE, bM, bE, Zb):
     ch = torch.empty(fM.shape, dtype=torch.uint8, device=fM.device)
     LPM = torch.empty_like(fM)
     LPE = torch.empty_like(fM)
-    rc = _entry("nt_banded_vit", dtype)(
-        _ptr(fM), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(batch.bstart),
-        _ptr(batch.T), _ptr(batch.N), _ptr(batch.bw), _ptr(ch), _ptr(LPM),
-        _ptr(LPE), R, T_pad, batch.B,
-        staging(batch.B, fM.element_size()).vit_rows, _stream(fM.device))
+    with on_device(fM.device):
+        rc = _entry("nt_banded_vit", dtype)(
+            _ptr(fM), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(Zb), _ptr(batch.bstart),
+            _ptr(batch.T), _ptr(batch.N), _ptr(batch.bw), _ptr(ch), _ptr(LPM),
+            _ptr(LPE), R, T_pad, batch.B,
+            staging(batch.B, fM.element_size()).vit_rows, _stream(fM.device))
     _raise_on("banded_vit", rc)
     LAUNCHES["banded_vit"] += 1
     return ch, LPM, LPE
@@ -395,12 +400,13 @@ def forward(batch: bb.BandedBatch, log_m1: float, log_e2: float):
     fM = torch.empty((R, T_pad, batch.B), dtype=batch.sig.dtype,
                      device=batch.sig.device)
     fE = torch.empty_like(fM)
-    rc = _entry("nt_banded_fwd", fM.dtype)(
-        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
-        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
-        _ptr(batch.bw), _ptr(fM), _ptr(fE), R, T_pad, batch.mu_pad.shape[1],
-        batch.B, batch.pad, train_staging(batch.B, fM.element_size()).fwd_rows,
-        log_m1, log_e2, _stream(fM.device))
+    with on_device(fM.device):
+        rc = _entry("nt_banded_fwd", fM.dtype)(
+            _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+            _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+            _ptr(batch.bw), _ptr(fM), _ptr(fE), R, T_pad, batch.mu_pad.shape[1],
+            batch.B, batch.pad, train_staging(batch.B, fM.element_size()).fwd_rows,
+            log_m1, log_e2, _stream(fM.device))
     _raise_on("banded_fwd", rc)
     LAUNCHES["banded_fwd"] += 1
     return fM, fE
@@ -434,13 +440,14 @@ def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
     bE = torch.empty_like(fE)
     rawM1 = torch.empty((R,), dtype=dtype, device=fE.device)
     rawE2 = torch.empty_like(rawM1)
-    rc = _entry("nt_banded_bwd_train", dtype)(
-        _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
-        _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
-        _ptr(batch.bw), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(rawM1),
-        _ptr(rawE2), R, T_pad, batch.mu_pad.shape[1], batch.B, batch.pad,
-        train_staging(batch.B, fE.element_size()).bwd_train_rows, log_m1,
-        log_e2, _stream(fE.device))
+    with on_device(fE.device):
+        rc = _entry("nt_banded_bwd_train", dtype)(
+            _ptr(batch.sig), _ptr(batch.mu_pad), _ptr(batch.c1_pad),
+            _ptr(batch.c2_pad), _ptr(batch.bstart), _ptr(batch.T), _ptr(batch.N),
+            _ptr(batch.bw), _ptr(fE), _ptr(bM), _ptr(bE), _ptr(rawM1),
+            _ptr(rawE2), R, T_pad, batch.mu_pad.shape[1], batch.B, batch.pad,
+            train_staging(batch.B, fE.element_size()).bwd_train_rows, log_m1,
+            log_e2, _stream(fE.device))
     _raise_on("banded_bwd_train", rc)
     LAUNCHES["banded_bwd_train"] += 1
     return bM, bE, rawM1, rawE2

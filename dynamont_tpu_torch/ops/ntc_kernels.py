@@ -62,6 +62,7 @@ from dynamont_tpu_torch.ops.nt_banded_kernels import (
     SMEM_LIMIT, _check, _check_aligned, _on_cpu, _ptr, _raise_on, _stream,
 )
 from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
+from dynamont_tpu_torch.parallel.mesh import on_device
 
 LATTICE_KERNELS = ("ntc_tab_gather", "ntc_bwd", "ntc_bwd_ckpt", "ntc_pv",
                    "ntc_pv_ckpt", "ntc_walk")
@@ -367,9 +368,10 @@ def tab_gather(ks, table, dims: nb.PlanDims) -> nb.NTCParams:
     e = lambda *sh: torch.empty(sh, dtype=dtype, device=ks.device)
     prm = nb.NTCParams(mu_k=e(T, R, CK), c1_k=e(T, R, CK), c2_k=e(T, R, CK),
                        suc=e(T, 3, R, A * CK), nsl=e(T, 3, 2 * R * CN))
-    rc = _entry(name, dtype)(
-        _ptr(ks), _ptr(table), *(_ptr(x) for x in prm), T, R, CN, CK, A, K,
-        _stream(ks.device))
+    with on_device(ks.device):
+        rc = _entry(name, dtype)(
+            _ptr(ks), _ptr(table), *(_ptr(x) for x in prm), T, R, CN, CK, A, K,
+            _stream(ks.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return prm
@@ -403,8 +405,9 @@ def table_gather(ks, tabT):
                          f"({nb.TG_ROWS}, K) float32")
     T, J = ks.shape
     out = torch.empty((T, nb.TG_ROWS, J), dtype=torch.float32, device=ks.device)
-    rc = _entry(name, torch.float32)(_ptr(ks), _ptr(tabT), _ptr(out), T, J,
-                                     tabT.shape[1], _stream(ks.device))
+    with on_device(ks.device):
+        rc = _entry(name, torch.float32)(_ptr(ks), _ptr(tabT), _ptr(out), T, J,
+                                         tabT.shape[1], _stream(ks.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return out
@@ -458,10 +461,11 @@ def bwd(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
                        brow_next=p.brow_next, bcol_same=p.bcol_same,
                        bcol_suc=p.bcol_suc, **prm._asdict())
     tl = tl_tensor(trans_log, dtype, dev)
-    rc = _entry(name, dtype)(
-        *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
-        _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK),
-        int(inst == "shared"), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name, dtype)(
+            *_bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
+            _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK),
+            int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     BWD_LAUNCHES[inst] += 1
@@ -505,13 +509,15 @@ def bwd_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
             _ptr(row0))
     if inst.name == "cluster":
         _check_aligned(name, hd=plan.hd, allowed=plan.allowed, d01=plan.d01, d02=plan.d02)
-        rc = _entry("ntc_bwd_ckpt_cluster", dtype)(
-            *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G), C,
-            _stream(dev))
+        with on_device(dev):
+            rc = _entry("ntc_bwd_ckpt_cluster", dtype)(
+                *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G), C,
+                _stream(dev))
     else:
         scratch = torch.empty((R, 2, 5, CN, CK), dtype=dtype, device=dev)
-        rc = _entry(name, dtype)(*head, _ptr(scratch), R, T_pad, CN, CK, A,
-                                 threads(CN * CK), C, _stream(dev))
+        with on_device(dev):
+            rc = _entry(name, dtype)(*head, _ptr(scratch), R, T_pad, CN, CK, A,
+                                     threads(CN * CK), C, _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     BWD_CKPT_LAUNCHES[inst.name] += 1
@@ -565,14 +571,15 @@ def pv(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     else:
         scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
     tl = tl_tensor(trans_log, dtype, dev)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
-        _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
-        _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
-        _ptr(tl), _ptr(Z_norm), _ptr(T_r), _ptr(bwd_store), _ptr(lp),
-        _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf),
-        None if scratch is None else _ptr(scratch), R, T_pad, CN, CK, A,
-        threads(CN * CK), nb.slot_bits(CK), int(inst == "shared"), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
+            _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
+            _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
+            _ptr(tl), _ptr(Z_norm), _ptr(T_r), _ptr(bwd_store), _ptr(lp),
+            _ptr(choices), _ptr(slots), _ptr(apEf), _ptr(fwdEf),
+            None if scratch is None else _ptr(scratch), R, T_pad, CN, CK, A,
+            threads(CN * CK), nb.slot_bits(CK), int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     PV_LAUNCHES[inst] += 1
@@ -619,15 +626,17 @@ def pv_ckpt(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
             _ptr(apEf), _ptr(fwdEf))
     if inst.name == "cluster":
         _check_aligned(name, hd=p.hd, allowed=p.allowed, d01=p.d01, d02=p.d02)
-        rc = _entry("ntc_pv_ckpt_cluster", dtype)(
-            *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G),
-            nb.slot_bits(CK), C, _stream(dev))
+        with on_device(dev):
+            rc = _entry("ntc_pv_ckpt_cluster", dtype)(
+                *head, R, T_pad, CN, CK, A, inst.G, cluster_threads(CN, CK // inst.G),
+                nb.slot_bits(CK), C, _stream(dev))
     else:
         scratch = torch.empty((R, 4, 5, CN, CK), dtype=dtype, device=dev)
         bbuf = torch.empty((R, C, 5, CN, CK), dtype=dtype, device=dev)
-        rc = _entry(name, dtype)(
-            *head, _ptr(scratch), _ptr(bbuf), R, T_pad, CN, CK, A, threads(CN * CK),
-            nb.slot_bits(CK), C, _stream(dev))
+        with on_device(dev):
+            rc = _entry(name, dtype)(
+                *head, _ptr(scratch), _ptr(bbuf), R, T_pad, CN, CK, A, threads(CN * CK),
+                nb.slot_bits(CK), C, _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     PV_CKPT_LAUNCHES[inst.name] += 1
@@ -739,11 +748,12 @@ def walk(lp, choices, slots, plan: nb.NTCPlan, i0, j0, k0, valid, N_r, T_r,
     NM = nw.n_micro(CN)
     rec = torch.empty((T_pad, NM, R, nw.NREC), dtype=dtype, device=dev)
     fin = torch.empty((R, 2), dtype=torch.int32, device=dev)
-    rc = _entry(name, dtype)(
-        _ptr(lp), _ptr(choices), _ptr(slots), _ptr(plan.row_same),
-        _ptr(plan.row_prev), _ptr(i0), _ptr(j0), _ptr(k0), _ptr(valid),
-        _ptr(N_r), _ptr(T_r), _ptr(rec), _ptr(fin), R, T_pad, CN, CK, A, K,
-        kmer_size // 2, S_max, NM, nb.slot_bits(CK), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name, dtype)(
+            _ptr(lp), _ptr(choices), _ptr(slots), _ptr(plan.row_same),
+            _ptr(plan.row_prev), _ptr(i0), _ptr(j0), _ptr(k0), _ptr(valid),
+            _ptr(N_r), _ptr(T_r), _ptr(rec), _ptr(fin), R, T_pad, CN, CK, A, K,
+            kmer_size // 2, S_max, NM, nb.slot_bits(CK), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     WALK_LAUNCHES[geo.instance] += 1

@@ -66,6 +66,7 @@ from dynamont_tpu_torch.ops.nt_banded_kernels import (
     SMEM_LIMIT, _check, _check_aligned, _on_cpu, _ptr, _raise_on, _stream,
 )
 from dynamont_tpu_torch.ops.ntc_pre import _prec_sum, _suc_sum
+from dynamont_tpu_torch.parallel.mesh import on_device
 from dynamont_tpu_torch.utils.logmath import log_normal_pdf_c
 
 KERNELS = ("ntc_tn_fwd", "ntc_tn_bwd_sel", "ntc_tk_bwd", "ntc_tk_fwd_u")
@@ -270,9 +271,10 @@ def tn_fwd(sig, tab, N_r, log_m1: float, log_e2: float):
         raise ValueError(f"{name}: tab/N_r do not match sig {tuple(sig.shape)}")
     B = tn_fwd_geometry(N2).threads
     fwd = torch.empty((Tm1 + 1, 2, R, N2), dtype=dtype, device=sig.device)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(fwd), R, Tm1 + 1, N2, B,
-        log_m1, log_e2, _stream(sig.device))
+    with on_device(sig.device):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(fwd), R, Tm1 + 1, N2, B,
+            log_m1, log_e2, _stream(sig.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return fwd
@@ -364,9 +366,10 @@ def tn_bwd_u(sig, tab, N_r, T_r, fwd, log_m1: float, log_e2: float):
     B = _check_width(name, N2)
     u = torch.empty((T_pad, R, N2), dtype=dtype, device=sig.device)
     E0 = torch.empty((R, N2), dtype=dtype, device=sig.device)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(T_r), _ptr(fwd), _ptr(u),
-        _ptr(E0), R, T_pad, N2, B, log_m1, log_e2, _stream(sig.device))
+    with on_device(sig.device):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(tab), _ptr(N_r), _ptr(T_r), _ptr(fwd), _ptr(u),
+            _ptr(E0), R, T_pad, N2, B, log_m1, log_e2, _stream(sig.device))
     _raise_on(name, rc)
     TN_BWD_SEL_LAUNCHES["tn_bwd_u"] += 1
     return u, E0
@@ -388,8 +391,9 @@ def tn_sel(u, kid, cap: int):
         raise ValueError(f"{name}: cap {cap} outside [1, {N2}]")
     B = _check_width(name, N2)
     pack = torch.empty((T_pad, R, 4 * cap + 2), dtype=u.dtype, device=u.device)
-    rc = _entry(name, u.dtype)(_ptr(u), _ptr(kid), _ptr(pack), T_pad * R, R,
-                               N2, B, cap, _stream(u.device))
+    with on_device(u.device):
+        rc = _entry(name, u.dtype)(_ptr(u), _ptr(kid), _ptr(pack), T_pad * R, R,
+                                   N2, B, cap, _stream(u.device))
     _raise_on(name, rc)
     TN_BWD_SEL_LAUNCHES["tn_sel"] += 1
     return pack
@@ -550,9 +554,10 @@ def tk_bwd(sig, tabk, T_r, alphabet_size: int, log_m1: float, log_e2: float):
         raise ValueError(f"{name}: tabk/T_r do not match sig {tuple(sig.shape)}")
     tk_geometry(K, alphabet_size, sig.element_size())  # raises for other shapes
     bwd = torch.empty((Tm1 + 1, 2, R, K), dtype=dtype, device=sig.device)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), R, Tm1 + 1, K,
-        alphabet_size, log_m1, log_e2, _stream(sig.device))
+    with on_device(sig.device):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), R, Tm1 + 1, K,
+            alphabet_size, log_m1, log_e2, _stream(sig.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return bwd
@@ -602,10 +607,11 @@ def tk_fwd_u(sig, tabk, T_r, bwd, alphabet_size: int, log_m1: float,
     _check_aligned(name, bwd=bwd)  # copied into the ring in 16-byte pieces
     U = torch.empty((Tm1 + 1, R, K), dtype=dtype, device=sig.device)
     finalE = torch.empty((R, K), dtype=dtype, device=sig.device)
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), _ptr(U), _ptr(finalE),
-        R, Tm1 + 1, K, alphabet_size, geo.ring, log_m1, log_e2,
-        _stream(sig.device))
+    with on_device(sig.device):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(tabk), _ptr(T_r), _ptr(bwd), _ptr(U), _ptr(finalE),
+            R, Tm1 + 1, K, alphabet_size, geo.ring, log_m1, log_e2,
+            _stream(sig.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return U, finalE

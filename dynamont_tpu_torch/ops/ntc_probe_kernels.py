@@ -46,6 +46,7 @@ from dynamont_tpu_torch.ops import ntc_kernels as kern
 from dynamont_tpu_torch.ops.nt_banded_kernels import (
     _check, _on_cpu, _ptr, _raise_on, _stream,
 )
+from dynamont_tpu_torch.parallel.mesh import on_device
 
 KERNELS = ("ntc_bwd_variant", "ntc_microop")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -196,10 +197,11 @@ def bwd_variant(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     out = torch.empty((T_pad, R, 5, CN, CK), **f32) if full else scratch
     row0 = scratch if full else torch.empty((R, 5, CN, CK), **f32)
     tl = kern.tl_tensor(trans_log, torch.float32, dev)
-    rc = _entry(name)(
-        *kern._bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
-        _ptr(out), _ptr(row0), _ptr(scratch), R, T_pad, CN, CK, A, nt, C,
-        int(stage), int(reverse), int(full), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name)(
+            *kern._bwd_ptrs(plan, prm, sig), _ptr(tl), _ptr(N_r), _ptr(T_r),
+            _ptr(out), _ptr(row0), _ptr(scratch), R, T_pad, CN, CK, A, nt, C,
+            int(stage), int(reverse), int(full), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return out if full else row0
@@ -467,8 +469,9 @@ def microop(block: str, x, aux, iters: int):
     _check_f32(name, x, aux)
     _check(name, torch.float32, x.device, x=x, aux=aux)
     out = torch.empty_like(x)
-    rc = _entry(name)(MICRO_BLOCKS.index(block), _ptr(x), _ptr(aux), _ptr(out),
-                      iters, _stream(x.device))
+    with on_device(x.device):
+        rc = _entry(name)(MICRO_BLOCKS.index(block), _ptr(x), _ptr(aux), _ptr(out),
+                          iters, _stream(x.device))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     return out

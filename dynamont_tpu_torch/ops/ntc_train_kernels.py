@@ -43,6 +43,7 @@ from dynamont_tpu_torch.ops.nt_banded_kernels import (
 )
 from dynamont_tpu_torch.ops.ntc_kernels import _al16, _check_dims, _check_plan, tl_tensor
 from dynamont_tpu_torch.ops.ntc_pre_kernels import _check_ints, threads
+from dynamont_tpu_torch.parallel.mesh import on_device
 
 KERNELS = ("ntc_fwd_store", "ntc_train")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -203,12 +204,13 @@ def fwd_store(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig,
     out = torch.empty((T_pad, R, 5, CN, CK), dtype=dtype, device=dev)
     tl = tl_tensor(trans_log, dtype, dev)
     p = plan
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
-        _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
-        _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
-        _ptr(tl), _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK),
-        int(inst == "shared"), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd),
+            _ptr(p.row_same), _ptr(p.row_prev), _ptr(p.col_same), _ptr(p.col_prec),
+            _ptr(prm.mu_k), _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.nsl),
+            _ptr(tl), _ptr(out), R, T_pad, CN, CK, A, threads(CN * CK),
+            int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     FWD_STORE_LAUNCHES[inst] += 1
@@ -260,14 +262,15 @@ def train(plan: nb.NTCPlan, dims: nb.PlanDims, prm: nb.NTCParams, sig, fwd,
                           dtype=dtype, device=dev)
     tl = tl_tensor(trans_log, dtype, dev)
     p = plan
-    rc = _entry(name, dtype)(
-        _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd), _ptr(p.d01),
-        _ptr(p.d02), _ptr(p.brow_same), _ptr(p.brow_next), _ptr(p.bcol_same),
-        _ptr(p.bcol_suc), _ptr(p.live), _ptr(p.ks), _ptr(prm.mu_k),
-        _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.suc), _ptr(prm.nsl), _ptr(tl),
-        _ptr(N_r), _ptr(T_r), _ptr(fwd), _ptr(Z), _ptr(tacc), _ptr(em),
-        _ptr(b0), _ptr(scratch), R, T_pad, CN, CK, A, K, threads(CN * CK),
-        int(inst == "shared"), _stream(dev))
+    with on_device(dev):
+        rc = _entry(name, dtype)(
+            _ptr(sig), _ptr(p.cand_n), _ptr(p.allowed), _ptr(p.hd), _ptr(p.d01),
+            _ptr(p.d02), _ptr(p.brow_same), _ptr(p.brow_next), _ptr(p.bcol_same),
+            _ptr(p.bcol_suc), _ptr(p.live), _ptr(p.ks), _ptr(prm.mu_k),
+            _ptr(prm.c1_k), _ptr(prm.c2_k), _ptr(prm.suc), _ptr(prm.nsl), _ptr(tl),
+            _ptr(N_r), _ptr(T_r), _ptr(fwd), _ptr(Z), _ptr(tacc), _ptr(em),
+            _ptr(b0), _ptr(scratch), R, T_pad, CN, CK, A, K, threads(CN * CK),
+            int(inst == "shared"), _stream(dev))
     _raise_on(name, rc)
     LAUNCHES[name] += 1
     TRAIN_LAUNCHES[inst] += 1

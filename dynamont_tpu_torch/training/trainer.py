@@ -1,6 +1,6 @@
 """Mini-batch Baum-Welch training loop, basic and resquiggle (NTC) mode,
-on one torch device (counterpart of dynamont_tpu/training/trainer.py; ref:
-src/python/segmentation/train.py).
+on one or more torch devices and processes (counterpart of
+dynamont_tpu/training/trainer.py; ref: src/python/segmentation/train.py).
 
 The pooling (ManagedList sliding windows), the polyA skip, the per-batch
 checkpoints and the params.csv rows with the post-update Z change follow
@@ -9,8 +9,13 @@ pieces without JAX (ManagedList, find_resume_state, read_passes_filters)
 are copied from it, the k-mer model reader and writer come from the
 port's copy of utils/pore_model. What differs:
 
-  * the device is explicit, and precision "auto" means fp32 on CUDA and
-    fp64 on the CPU;
+  * the devices are explicit (`device=` one, `devices=` a list), and
+    precision "auto" means fp32 on CUDA and fp64 on the CPU;
+  * with more than one device a basic batch runs the sharded step
+    (parallel/train_step) in both precisions, and a resquiggle batch of a
+    <= 5-mer model the sharded NTC step (parallel/ntc_step) in slots of
+    16 reads a device; the JAX Trainer does so only on a multi-chip host,
+    in fp32;
   * resquiggle mode trains each batch through a fresh batched NTC engine
     (models/ntc_batch.NTCBatchEngine.train, kernels K7-K11, K17, K18) on
     the current k-mer tables and transitions, in both precisions; the JAX
@@ -28,7 +33,13 @@ port's copy of utils/pore_model. What differs:
     re-runs a whole batch read by read on any exception;
   * the post-update Z of every read comes from one more batched pass in
     both modes and precisions (the JAX fp64 path re-runs each read alone);
-  * --distributed is not ported yet.
+  * distributed=True (torch.distributed, parallel/mesh.init_distributed)
+    trains jobs[rank::world] of each batch and merges every process's
+    per-read estimates with a summed all_reduce of one dense fp64 row a
+    read, as the JAX Trainer's process_allgather; a read whose estimates
+    fail to encode is marked failed, so every process always reaches the
+    collective (the JAX encode loop has no such guard, and one KeyError
+    there leaves every other host waiting).
 """
 
 from __future__ import annotations
@@ -48,11 +59,21 @@ from dynamont_tpu_torch.utils.kmer import int2kmer, seq_to_kmer_ids
 from dynamont_tpu_torch.utils.pore_model import (
     pore_model_from_dict, read_kmer_models, write_kmer_models,
 )
+from dynamont_tpu_torch.models.batch import device_list
 from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.models.ntc import NTCPreprocessError, NTCZError, run_ntc
-from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+from dynamont_tpu_torch.models.ntc_batch import (
+    NTCBatchEngine, emissions_from_moments, trans_from_terms,
+)
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops.nt_banded_train import banded_batch_train
+from dynamont_tpu_torch.parallel.mesh import rank_world
+from dynamont_tpu_torch.parallel.ntc_step import (
+    R_SHARD, make_ntc_sharded_train_step, prepare_ntc_shard,
+)
+from dynamont_tpu_torch.parallel.train_step import (
+    make_sharded_train_step, shard_batch,
+)
 
 T_PAD_TO = 512
 
@@ -141,18 +162,27 @@ class Trainer:
     def __init__(self, mode: str, pore: str, outdir: str, model_path: str,
                  batch_size: int = 24, epochs: int = 1, resume: bool = False,
                  precision: str = "auto", distributed: bool = False, *,
-                 device):
+                 device=None, devices=None):
         if mode not in ("basic", "resquiggle"):
             raise ValueError(f"mode {mode!r}")
-        if distributed:
-            raise NotImplementedError(
-                "--distributed training is not yet ported to the PyTorch "
-                "package")
         if precision not in ("auto", "fp64", "fp32"):
             raise ValueError(f"precision {precision!r}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but torch sees no CUDA device")
+        self.devices = device_list(device, devices)
+        self.device = self.devices[0]
+        # multi-process data parallelism: every process sees the same job
+        # stream, trains jobs[rank::world] of each batch, and the per-read
+        # estimates are merged before the (deterministic, identical on
+        # every process) ManagedList pooling; only rank 0 writes
+        # params.csv and the checkpoints. The process group must be up
+        # (parallel/mesh.init_distributed, cli/train.py --distributed).
+        self.dist = None
+        if distributed:
+            if not torch.distributed.is_initialized():
+                raise RuntimeError("distributed=True needs a process group "
+                                   "(parallel.mesh.init_distributed)")
+            self.dist = rank_world()
+            print(f"distributed training: process {self.dist[0]} of "
+                  f"{self.dist[1]}", file=sys.stderr)
         if precision == "auto":
             precision = "fp32" if self.device.type == "cuda" else "fp64"
             print(f"precision auto -> {precision} ({self.device.type} device)",
@@ -203,30 +233,41 @@ class Trainer:
         csv_path = join(outdir, "params.csv")
         if state is None:
             self.ckpt_path = join(outdir, "trained_0_0.model")
-            write_kmer_models(self.ckpt_path, self.kmer_models)
-            self.params_csv = open(csv_path, "w")
-            self.params_csv.write(
-                "epoch,batch,read,"
-                + ",".join(self.transition_params) + ",Zchange\n"
-            )
+            if self._is_writer:
+                write_kmer_models(self.ckpt_path, self.kmer_models)
+                self.params_csv = open(csv_path, "w")
+                self.params_csv.write(
+                    "epoch,batch,read,"
+                    + ",".join(self.transition_params) + ",Zchange\n"
+                )
+            else:
+                self.params_csv = open(os.devnull, "w")
             self.reads_done = 0
             self.batch_num = 0
         else:
             self.ckpt_path = state["ckpt"]
-            # terminate a partial final row (interrupt between the params
-            # flush and the Zchange append) so new rows don't merge onto it
-            with open(csv_path, "rb") as f:
-                f.seek(0, 2)
-                size = f.tell()
-                newline_missing = False
-                if size:
-                    f.seek(size - 1)
-                    newline_missing = f.read(1) != b"\n"
-            self.params_csv = open(csv_path, "a")
-            if newline_missing:
-                self.params_csv.write("\n")
+            if self._is_writer:
+                # terminate a partial final row (interrupt between the
+                # params flush and the Zchange append) so new rows don't
+                # merge onto it
+                with open(csv_path, "rb") as f:
+                    f.seek(0, 2)
+                    size = f.tell()
+                    newline_missing = False
+                    if size:
+                        f.seek(size - 1)
+                        newline_missing = f.read(1) != b"\n"
+                self.params_csv = open(csv_path, "a")
+                if newline_missing:
+                    self.params_csv.write("\n")
+            else:
+                self.params_csv = open(os.devnull, "w")
             self.reads_done = state["reads"]
             self.batch_num = state["batch"]
+
+    @property
+    def _is_writer(self) -> bool:
+        return self.dist is None or self.dist[0] == 0
 
     # -- per-read estimates ------------------------------------------------
     def _train_batch(self, jobs: list) -> list:
@@ -249,15 +290,22 @@ class Trainer:
             return out
         kids = [seq_to_kmer_ids(jobs[i].read, model.kmer_size,
                                 model.alphabet_size) for i in live]
+        sharded = len(self.devices) > 1
         batch = bb.prepare_batch([jobs[i].signal for i in live], kids, model,
-                                 device=self.device, dtype=self.dtype,
-                                 t_pad_to=T_PAD_TO)
+                                 device="cpu" if sharded else self.device,
+                                 dtype=self.dtype, t_pad_to=T_PAD_TO)
         kid_pad = np.zeros((len(live), max(len(k) for k in kids)), np.int32)
         for i, k in enumerate(kids):
             kid_pad[i, : len(k)] = k
-        res = banded_batch_train(batch, math.log(self.transition_params["m1"]),
-                                 math.log(self.transition_params["e2"]),
-                                 kid_pad, model.num_kmers)
+        m1, e2 = self.transition_params["m1"], self.transition_params["e2"]
+        if sharded:
+            # the data-parallel step over every device (JAX _run_fast_step)
+            step = make_sharded_train_step(self.devices, m1, e2, model.num_kmers,
+                                           pad=batch.pad, B=batch.B, dtype=self.dtype)
+            res = step(shard_batch(batch, kid_pad, self.devices)).per_read
+        else:
+            res = banded_batch_train(batch, math.log(m1), math.log(e2),
+                                     kid_pad, model.num_kmers)
         Zf, Zb = (x.cpu().numpy().astype(np.float64) for x in (res.Zf, res.Zb))
         m1, e2, means, stdevs, mask = (
             x.cpu().numpy() for x in (res.m1, res.e2, res.means, res.stdevs,
@@ -280,40 +328,155 @@ class Trainer:
 
     def _train_batch_ntc(self, jobs: list, exact) -> list:
         """All reads of a batch through a fresh batched NTC engine on the
-        current k-mer tables and transitions (NTCBatchEngine.train); a read
-        that overflows its caps or fails a Z gate gets exact(job)."""
+        current k-mer tables and transitions (NTCBatchEngine.train), or,
+        with more than one device and a <= 5-mer model, the sharded NTC
+        step (JAX's condition, trainer.py:347-349); a read that overflows
+        its caps or fails a Z gate gets exact(job, device)."""
         model = pore_model_from_dict(self.kmer_models, self.rna)
-        eng = NTCBatchEngine(model, self.pore, device=self.device,
+        if len(self.devices) > 1 and model.kmer_size <= 5:
+            return self._train_batch_ntc_sharded(jobs, model, exact)
+        eng = NTCBatchEngine(model, self.pore, devices=self.devices,
                              transition_overrides=self.transition_params,
                              dtype=self.dtype, batch_size=max(1, len(jobs)))
         return eng.train(jobs, exact=exact)
 
-    def _rung(self, job, mode: str):
-        """The exact per-read fp64 NTC rung (resquiggle mode); a Z-gate
-        error is the read's result, any other error propagates."""
+    def _train_batch_ntc_sharded(self, jobs: list, model, exact) -> list:
+        """The batch through the sharded NTC step in slots of R_SHARD
+        reads a device, on the current tables and transitions; per-read
+        estimates as NTCBatchEngine.train forms them, a read failing a
+        cap or gate to exact(job, its device)."""
+        out: list = [None] * len(jobs)
+        live = []
+        for i, job in enumerate(jobs):
+            try:
+                _validate(len(job.signal), len(job.read), model.kmer_size)
+                live.append(i)
+            except SystemExit as e:
+                out[i] = RuntimeError(
+                    f"input validation failed (reference exit {e.code})")
+        step = make_ntc_sharded_train_step(self.devices, model, self.pore,
+                                           self.transition_params, dtype=self.dtype)
+        slots = len(self.devices) * R_SHARD
+        for lo in range(0, len(live), slots):
+            part = live[lo:lo + slots]
+            shard = prepare_ntc_shard([jobs[i] for i in part], model, self.devices)
+            res = step(shard)
+            ok, term_lse, em, Zf = (res[k].cpu().numpy()
+                                    for k in ("ok", "term_lse", "em", "Zf"))
+            for p in shard.parts:
+                for r in range(p.lo, p.hi):
+                    i = part[r]
+                    if ok[r]:
+                        out[i] = (trans_from_terms(term_lse[:, r]),
+                                  emissions_from_moments(em[r], model), float(Zf[r]))
+                    else:
+                        out[i] = exact(jobs[i], p.device)
+        return out
+
+    def _rung(self, job, mode: str, device=None):
+        """The exact per-read fp64 NTC rung (resquiggle mode) on `device`
+        (the first by default); a Z-gate error is the read's result, any
+        other error propagates."""
         self.fp64_reads += 1
         model = pore_model_from_dict(self.kmer_models, self.rna)
         try:
             return run_ntc(job.signal, job.read, model, self.pore,
                            self.transition_params, mode=mode,
-                           device=self.device, validate=False)
+                           device=self.device if device is None else device,
+                           validate=False)
         except (NTCPreprocessError, NTCZError) as e:
             return e
 
-    def _train_read(self, job):
-        res = self._rung(job, "train")
+    def _train_read(self, job, device=None):
+        res = self._rung(job, "train", device)
         if isinstance(res, Exception):
             return res
         return res.trained_transitions, res.trained_emissions, res.Z
 
-    def _calc_z(self, job):
-        res = self._rung(job, "calcZ")
+    def _calc_z(self, job, device=None):
+        res = self._rung(job, "calcZ", device)
         return res if isinstance(res, Exception) else (None, None, res.Z)
+
+    # -- multi-process exchange -------------------------------------------
+    def _kmer_codec(self):
+        """(param_names, kmer->index map, index->kmer list, K) of the dense
+        cross-process estimate encoding."""
+        S = len(next(iter(self.kmer_models)))
+        A, K = 4, 4 ** S
+        idx2kmer = [int2kmer(k, A, S, self.rna) for k in range(K)]
+        return list(self.transition_params), {km: k for k, km in enumerate(idx2kmer)}, \
+            idx2kmer, K
+
+    @staticmethod
+    def _encode(row, result, names, kmer2idx, K: int) -> None:
+        """One read's (transitions, emissions, Z) into its fp64 slot row:
+        [ok, Z, P transitions, P presence flags, K means, K stdevs, K
+        k-mer flags]."""
+        tr, emis, z = result
+        P = len(names)
+        row[0], row[1] = 1.0, z
+        for p, name in enumerate(names):
+            if name in tr:
+                row[2 + p], row[2 + P + p] = tr[name], 1.0
+        base = 2 + 2 * P
+        for kmer, (m, s) in emis.items():
+            k = kmer2idx[kmer]
+            row[base + k], row[base + K + k], row[base + 2 * K + k] = m, s, 1.0
+
+    def _train_batch_distributed(self, jobs: list) -> list:
+        """Train jobs[rank::world], then merge every process's per-read
+        estimates into batch order: each read's slot row is filled by its
+        process alone, and a summed all_reduce of the (B, 2 + 2P + 3K)
+        fp64 rows gives every process the same results, so the pooling
+        that follows is identical everywhere. A read whose estimates do not
+        encode (the JAX encode loop's KeyError) is reported and left
+        failed: no exception stands between a process and the collective."""
+        rank, world = self.dist
+        names, kmer2idx, idx2kmer, K = self._kmer_codec()
+        P = len(names)
+        local = self._batch(jobs[rank::world], self._train_read)
+        slots = torch.zeros((len(jobs), 2 + 2 * P + 3 * K), dtype=torch.float64)
+        for i, r in enumerate(local):
+            j = rank + world * i
+            if isinstance(r, Exception):
+                print(f"read {jobs[j].readid} failed on process {rank}: {r}",
+                      file=sys.stderr)
+                continue
+            try:
+                self._encode(slots[j], r, names, kmer2idx, K)
+            except Exception as e:
+                slots[j] = 0.0
+                print(f"read {jobs[j].readid}: estimates not encoded on "
+                      f"process {rank}: {e!r}", file=sys.stderr)
+        torch.distributed.all_reduce(slots)
+        tot = slots.numpy()
+        base = 2 + 2 * P
+        out = []
+        for row in tot:
+            if row[0] == 0:
+                out.append(RuntimeError("training failed on its process"))
+                continue
+            tr = {n: float(row[2 + p]) for p, n in enumerate(names) if row[2 + P + p]}
+            emis = {idx2kmer[k]: (float(row[base + k]), float(row[base + K + k]))
+                    for k in np.nonzero(row[base + 2 * K:])[0]}
+            out.append((tr, emis, float(row[1])))
+        return out
 
     def _post_z(self, jobs: list, epoch: int) -> np.ndarray:
         """Post-update Z of every read (the reference re-runs each read
         with --calcZ, train.py:248-257): one more batched pass under the
-        updated parameters."""
+        updated parameters. Distributed, each process re-evaluates
+        jobs[rank::world] and the per-slot Zs merge with a summed
+        all_reduce."""
+        if self.dist is None:
+            return self._post_z_local(jobs, epoch)
+        rank, world = self.dist
+        z = torch.zeros(len(jobs), dtype=torch.float64)
+        z[rank::world] = torch.from_numpy(self._post_z_local(jobs[rank::world], epoch))
+        torch.distributed.all_reduce(z)
+        return z.numpy()
+
+    def _post_z_local(self, jobs: list, epoch: int) -> np.ndarray:
         post_z = np.zeros(len(jobs))
         for j, r in enumerate(self._batch(jobs, self._calc_z)):
             if isinstance(r, Exception):
@@ -325,6 +488,8 @@ class Trainer:
         return post_z
 
     def _batch(self, jobs: list, exact) -> list:
+        if not jobs:
+            return []
         if self.mode == "basic":
             return self._train_batch(jobs)
         return self._train_batch_ntc(jobs, exact)
@@ -343,7 +508,10 @@ class Trainer:
         )
         kmer_seen = set()
         pre_z = np.zeros(len(jobs))
-        results = self._batch(jobs, self._train_read)
+        if self.dist is not None:
+            results = self._train_batch_distributed(jobs)
+        else:
+            results = self._batch(jobs, self._train_read)
         for j, job in enumerate(jobs):
             r = results[j]
             if isinstance(r, Exception):
@@ -380,7 +548,8 @@ class Trainer:
         self.ckpt_path = join(
             self.outdir, f"trained_{epoch}_{self.batch_num}.model"
         )
-        write_kmer_models(self.ckpt_path, self.kmer_models)
+        if self._is_writer:
+            write_kmer_models(self.ckpt_path, self.kmer_models)
         self.params_csv.flush()
 
         post_z = self._post_z(jobs, epoch)

@@ -28,7 +28,12 @@ COPIED = ("constants.py", "utils/kmer.py", "utils/pore_model.py",
           "utils/signal.py", "utils/synthetic.py", "utils/output.py",
           "ops/geometry.py", "models/packing.py", "models/registry.py",
           "io/__init__.py", "io/readers.py", "io/fast5.py", "io/output.py",
-          "native.py", "_native/native.cpp")
+          "native.py", "_native/native.cpp",
+          "eval/__init__.py", "eval/collect_metrics.py", "eval/compare_tools.py",
+          "eval/converters.py", "eval/downstream.py", "eval/edge_detection.py",
+          "eval/evaluate_reads.py", "eval/figures.py", "eval/paper_figures.py",
+          "plot/__init__.py", "plot/readers.py", "plot/tool_segments.py",
+          "plot/trained_params.py")
 MODELS = ("rna002_5mer.npz", "rna004_5mer.npz", "trained_rna002_5mer.npz")
 
 

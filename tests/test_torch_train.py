@@ -461,12 +461,16 @@ def test_cli_trains_on_cpu_without_jax(tsv, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--mode", "resquiggle", "--distributed"],
                                   ["--mode", "basic", "--distributed"]])
-def test_cli_refuses_what_is_not_ported(tsv, tmp_path, capsys, flag):
-    with pytest.raises(SystemExit) as e:
+def test_cli_refuses_what_is_not_ported(tsv, tmp_path, monkeypatch, flag):
+    """--distributed is ported: without a process group to join (no
+    coordinator, no torchrun variables) the bring-up fails loudly, before
+    anything is written, instead of training alone."""
+    for var in ("DYNAMONT_COORDINATOR", "DYNAMONT_NUM_PROCESSES", "DYNAMONT_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="distributed run requested"):
         torch_cli.main(["--tsv", str(tsv), "-o", str(tmp_path / "o"), "-p", "rna002",
                         "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
 
 
@@ -481,9 +485,10 @@ def test_cli_without_cuda_fails(tsv, tmp_path, capsys, monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """distributed=True is ported, and needs a process group first."""
     path = get_model_path("rna002")
     for mode in ("basic", "resquiggle"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(RuntimeError, match="needs a process group"):
             torch_trainer.Trainer(mode, "rna002", str(tmp_path), path, device="cpu",
                                   distributed=True)
     assert jax.default_backend() == "cpu"
