@@ -66,7 +66,13 @@ def build_parser() -> ArgumentParser:
                         "NTC_main.cpp:95-99) instead of the reduced 5-mer "
                         "tables; memory-heavy")
     p.add_argument("--profile", action="store_true",
-                   help="print engine wall-clock accounting to stderr")
+                   help="trace the engine (dynamont_tpu_torch/tracing.py; "
+                        "totals per span name, in constant memory) and print "
+                        "to stderr, per span name, its count, host seconds, "
+                        "self seconds and summed counts (reads, samples, "
+                        "bytes each way), then reads a bucket and the "
+                        "padded-sample share over every bucket run, and the "
+                        "rungs' retry counts")
     return p
 
 
@@ -84,6 +90,7 @@ def main(argv=None):
 
     import torch
 
+    from dynamont_tpu_torch import tracing
     from dynamont_tpu_torch.constants import is_rna
     from dynamont_tpu_torch.io import output as out_io
     from dynamont_tpu_torch.io import readers
@@ -137,6 +144,8 @@ def main(argv=None):
                 writer.put_error(
                     f"error: raw read failed, {e}\tRid: {raw[6]}\tSid: {raw[7]}")
 
+    if args.profile:
+        tracing.enable()
     try:
         if args.mode == "basic":
             eng = BandedBatchEngine(model, args.pore, devices=devices,
@@ -151,20 +160,36 @@ def main(argv=None):
             _pump_engine(args, eng, jobs(), writer, rna, model, "error: ")
     finally:
         writer.close()
+        if args.profile:
+            tracing.disable()
     if args.profile:
-        pr = eng.profile
-        wall = max(1e-9, pr["dispatch_s"] + pr["collect_s"])
-        line = (f"profile: {pr['reads']} reads in {pr['buckets']} buckets | "
-                f"dispatch {pr['dispatch_s']:.2f}s | device-wait+collect "
-                f"{pr['collect_s']:.2f}s | {pr['reads'] / wall:.1f} reads/s")
         if args.mode == "basic":
-            line += f" | fp64 retries {pr.get('z_retries', 0)}"
+            _print_profile(eng, "banded.bucket", ("z_retries",))
         else:
-            line += (f" | wide-rung retries {pr['wide_retries']} "
-                     f"({pr['wide_s']:.2f}s) | exact-path retries "
-                     f"{pr['exact_retries']} ({pr['exact_s']:.2f}s)")
-        print(line, file=sys.stderr)
+            _print_profile(eng, "ntc.bucket", ("wide_retries", "exact_retries"))
     return eng
+
+
+def _print_profile(eng, bucket: str, rungs) -> None:
+    """--profile's lines: per span name its count, host seconds, self
+    seconds (less its child spans') and summed counts, then the fill of the
+    `bucket` spans and the engine's retries."""
+    from dynamont_tpu_torch import tracing
+
+    totals = tracing.totals()
+    for name, t in totals.items():
+        counts = "".join(f" {k} {v}" for k, v in t.counts.items())
+        print(f"profile: {name} {t.n} spans {t.ns / 1e9:.6f} s self "
+              f"{t.self_ns / 1e9:.6f} s{counts}", file=sys.stderr)
+    b = totals.get(bucket, tracing.Total())
+    reads, padded = b.counts.get("reads", 0), b.counts.get("padded_samples", 0)
+    share = 100.0 * (1.0 - b.counts["samples"] / padded) if padded else 0.0
+    line = (f"profile: {reads} reads in {b.n} buckets, "
+            f"{reads / max(1, b.n):.3f} reads a bucket, "
+            f"padded samples {share:.3f} %")
+    for k in rungs:
+        line += f", {k} {eng.profile.get(k, 0)}"
+    print(line, file=sys.stderr)
 
 
 def _emit(writer, job, out, model, rna) -> None:

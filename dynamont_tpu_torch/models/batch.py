@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dynamont_tpu_torch import tracing
 from dynamont_tpu_torch.constants import NT_TRANSITIONS
 from dynamont_tpu_torch.models.packing import pack_buckets, t_pad_ladder
 from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
@@ -94,6 +95,20 @@ def next_device(eng) -> torch.device:
     return eng.devices[slot]
 
 
+def nbytes(arrays) -> int:
+    """Bytes of the tensors and arrays among `arrays` (a bucket's wire or
+    results)."""
+    return sum(a.nbytes for a in arrays
+               if isinstance(a, (torch.Tensor, np.ndarray)))
+
+
+def fill_counts(T, t_pad: int) -> dict:
+    """A bucket's counts of its fill: its reads, their samples (each read's
+    T) and its padded samples (reads x t_pad, the rows the kernels run)."""
+    return {"reads": len(T), "samples": int(T.sum()),
+            "padded_samples": len(T) * t_pad}
+
+
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     """Start a copy of x into pinned host memory (no wait on CUDA)."""
     if x.device.type == "cpu":
@@ -124,8 +139,10 @@ class BandedBatchEngine:
         self.batch_size = batch_size
         self.fp64_fallback = fp64_fallback
         self.device_pipeline = device_pipeline
-        # wall-clock accounting across run() calls: dispatch = host prep +
-        # queueing, collect = device wait + summary decode; device_buckets
+        # always-on totals across run() calls: dispatch_s = host prep and
+        # queueing, collect_s = summary decode and the gate, each with the
+        # waits on the card inside it (a full launch queue, the buckets'
+        # done events; on a busy card nearly all of it); device_buckets
         # counts the buckets sent to each entry of the device list
         self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
                         "collect_s": 0.0,
@@ -151,115 +168,135 @@ class BandedBatchEngine:
 
     def dispatch(self, items: list[BatchItem]):
         """Validate and queue every bucket; returns a handle for collect()."""
-        outputs: list[BatchOutput | None] = [None] * len(items)
-        valid: list[int] = []
-        for i, it in enumerate(items):
-            err = self._validate(it)
-            if err is not None:
-                outputs[i] = BatchOutput(it, None, math.nan, err)
+        with tracing.entry("banded.dispatch"):
+            outputs: list[BatchOutput | None] = [None] * len(items)
+            valid: list[int] = []
+            for i, it in enumerate(items):
+                err = self._validate(it)
+                if err is not None:
+                    outputs[i] = BatchOutput(it, None, math.nan, err)
+                else:
+                    valid.append(i)
+            t0 = time.perf_counter()
+            with tracing.span("banded.pack"):
+                groups = [[valid[g] for g in group]
+                          for group in self._buckets([items[i] for i in valid])]
+            if self.device_pipeline:
+                pending = [self._dispatch_bucket([items[i] for i in gidx], gidx)
+                           for gidx in groups]
             else:
-                valid.append(i)
-        t0 = time.perf_counter()
-        groups = [[valid[g] for g in group]
-                  for group in self._buckets([items[i] for i in valid])]
-        if self.device_pipeline:
-            pending = [self._dispatch_bucket([items[i] for i in gidx], gidx)
-                       for gidx in groups]
-        else:
-            pending = [(gidx, next_device(self)) for gidx in groups]
-        self.profile["dispatch_s"] += time.perf_counter() - t0
+                pending = [(gidx, next_device(self)) for gidx in groups]
+            self.profile["dispatch_s"] += time.perf_counter() - t0
         return items, outputs, valid, pending
 
     def collect(self, handle) -> list[BatchOutput]:
         """Wait for the handle's buckets (the matrix route: run them) and
         build outputs."""
         items, outputs, valid, pending = handle
-        t1 = time.perf_counter()
-        for bucket in pending:
-            if self.device_pipeline:
-                self._collect_bucket(bucket, outputs)
-            else:
-                gidx, dev = bucket
-                self._run_bucket([items[i] for i in gidx], gidx, outputs, dev)
-        self.profile["buckets"] += len(pending)
-        self.profile["reads"] += len(valid)
-        self.profile["collect_s"] += time.perf_counter() - t1
+        with tracing.entry("banded.collect"):
+            t1 = time.perf_counter()
+            for bucket in pending:
+                if self.device_pipeline:
+                    self._collect_bucket(bucket, outputs)
+                else:
+                    gidx, dev = bucket
+                    self._run_bucket([items[i] for i in gidx], gidx, outputs, dev)
+            self.profile["buckets"] += len(pending)
+            self.profile["reads"] += len(valid)
+            self.profile["collect_s"] += time.perf_counter() - t1
         return outputs  # type: ignore[return-value]
 
     def run(self, items: list[BatchItem]) -> list[BatchOutput]:
         return self.collect(self.dispatch(items))
 
     def _dispatch_bucket(self, its: list[BatchItem], gidx: list[int]):
-        kmer_ids = [
-            seq_to_kmer_ids(it.read, self.model.kmer_size,
-                            self.model.alphabet_size)
-            for it in its
-        ]
-        t_pad = t_pad_ladder(max(len(it.signal) for it in its) + 1, T_PAD_TO)
-        dev = next_device(self)
-        with on_device(dev):
-            wire = dv.prepare_wire(
-                [it.signal for it in its], kmer_ids, band=self.band,
-                device=dev, t_pad=t_pad,
-            )
-            res = self._dev_run[dev](wire)
-            host = dv.DeviceSegResult(*(_to_host(x) for x in res))
-            done = None
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
         T = np.array([len(it.signal) + 1 for it in its])
+        t_pad = t_pad_ladder(int(T.max()), T_PAD_TO)
+        with tracing.span("banded.bucket") as sp:
+            with tracing.span("banded.kmers"):
+                kmer_ids = [
+                    seq_to_kmer_ids(it.read, self.model.kmer_size,
+                                    self.model.alphabet_size)
+                    for it in its
+                ]
+            dev = next_device(self)
+            with on_device(dev):
+                with tracing.span("banded.wire"):
+                    wire = dv.prepare_wire(
+                        [it.signal for it in its], kmer_ids, band=self.band,
+                        device=dev, t_pad=t_pad,
+                    )
+                with tracing.span("banded.launch"):
+                    res = self._dev_run[dev](wire)
+                with tracing.span("banded.to_host"):
+                    host = dv.DeviceSegResult(*(_to_host(x) for x in res))
+                    done = None
+                    if dev.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(dev))
+            if tracing.on():
+                sp.add(**fill_counts(T, t_pad), h2d_bytes=nbytes(wire),
+                       d2h_bytes=nbytes(host))
         N = np.array([len(k) + 1 for k in kmer_ids])
         return its, gidx, T, N, wire.B, host, done, dev
 
     def _collect_bucket(self, bucket, outputs):
         its, gidx, T, N, B, host, done, dev = bucket
         if done is not None:
-            done.synchronize()
-        Zf = host.Zf.numpy().astype(np.float64)
-        Zb = host.Zb.numpy().astype(np.float64)
-        starts = host.starts.numpy()
-        medians = host.medians.numpy()
-        ok = bb.check_z_batch(Zf, Zb, T, B, self.dtype)
-        for j, out_i in enumerate(gidx):
-            if not ok[j]:
-                outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
-                                              float(Zb[j]), dev)
-            else:
-                outputs[out_i] = BatchOutput(
-                    its[j], None, float(Zb[j]),
-                    summaries=(starts[j], medians[j], int(N[j]),
-                               self.model.kmer_size),
-                )
+            with tracing.span("banded.wait"):
+                done.synchronize()
+        with tracing.span("banded.gate"):
+            Zf = host.Zf.numpy().astype(np.float64)
+            Zb = host.Zb.numpy().astype(np.float64)
+            starts = host.starts.numpy()
+            medians = host.medians.numpy()
+            ok = bb.check_z_batch(Zf, Zb, T, B, self.dtype)
+            for j, out_i in enumerate(gidx):
+                if not ok[j]:
+                    outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
+                                                  float(Zb[j]), dev)
+                else:
+                    outputs[out_i] = BatchOutput(
+                        its[j], None, float(Zb[j]),
+                        summaries=(starts[j], medians[j], int(N[j]),
+                                   self.model.kmer_size),
+                    )
 
     def _run_bucket(self, its: list[BatchItem], gidx: list[int], outputs,
                     dev: torch.device):
         """One bucket through the matrix route on `dev`: host-prepared raw
         signals, the posterior matrices on the device, the native host
         walk."""
-        kmer_ids = [
-            seq_to_kmer_ids(it.read, self.model.kmer_size,
-                            self.model.alphabet_size)
-            for it in its
-        ]
-        with on_device(dev):
-            batch = bb.prepare_batch(
-                [it.signal for it in its], kmer_ids, self.model, self.band,
-                device=dev, dtype=self.dtype, t_pad_to=T_PAD_TO)
-            res = self._run(batch)
-        Zf = res.Zf.cpu().numpy().astype(np.float64)
-        Zb = res.Zb.cpu().numpy().astype(np.float64)
-        T, N, bw = (x.cpu().numpy() for x in (batch.T, batch.N, batch.bw))
-        ok = bb.check_z_batch(Zf, Zb, T, batch.B, self.dtype)
-        seg_lists = bb.traceback_batch(res, batch.bstart.cpu().numpy(), T, N,
-                                       bw, self.model.kmer_size)
-        for j, out_i in enumerate(gidx):
-            if not ok[j]:
-                outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
-                                              float(Zb[j]), dev)
-            else:
-                outputs[out_i] = BatchOutput(its[j], seg_lists[j],
-                                             float(Zb[j]))
+        with tracing.span("banded.bucket") as sp:
+            kmer_ids = [
+                seq_to_kmer_ids(it.read, self.model.kmer_size,
+                                self.model.alphabet_size)
+                for it in its
+            ]
+            with on_device(dev):
+                batch = bb.prepare_batch(
+                    [it.signal for it in its], kmer_ids, self.model, self.band,
+                    device=dev, dtype=self.dtype, t_pad_to=T_PAD_TO)
+                res = self._run(batch)
+            T, N, bw = (x.cpu().numpy() for x in (batch.T, batch.N, batch.bw))
+            Zf = res.Zf.cpu().numpy().astype(np.float64)
+            Zb = res.Zb.cpu().numpy().astype(np.float64)
+            ok = bb.check_z_batch(Zf, Zb, T, batch.B, self.dtype)
+            seg_lists = bb.traceback_batch(res, batch.bstart.cpu().numpy(), T,
+                                           N, bw, self.model.kmer_size)
+            if tracing.on():
+                sp.add(**fill_counts(T, batch.bstart.shape[1]),
+                       h2d_bytes=nbytes(batch),
+                       d2h_bytes=nbytes((batch.T, batch.N, batch.bw,
+                                         batch.bstart, res.Zf, res.Zb,
+                                         res.choices, res.PM, res.PE)))
+            for j, out_i in enumerate(gidx):
+                if not ok[j]:
+                    outputs[out_i] = self._z_fail(its[j], float(Zf[j]),
+                                                  float(Zb[j]), dev)
+                else:
+                    outputs[out_i] = BatchOutput(its[j], seg_lists[j],
+                                                 float(Zb[j]))
 
     def _validate(self, it: BatchItem) -> str | None:
         try:
@@ -277,13 +314,14 @@ class BandedBatchEngine:
         err = f"Z values between matrices do not match! Zf: {zf}, Zb: {zb}"
         if self.dtype == torch.float32 and self.fp64_fallback:
             self.profile["z_retries"] = self.profile.get("z_retries", 0) + 1
-            try:
-                res = run_nt_banded(
-                    it.signal, it.read, self.model, self.pore,
-                    {"m1": self.m1, "e2": self.e2}, band=self.band,
-                    device=dev, dtype=torch.float64, validate=False,
-                )
-                return BatchOutput(it, res.segments, res.Z)
-            except ZConsistencyError as e:
-                return BatchOutput(it, None, zb, str(e))
+            with tracing.span("banded.fp64_rung"):
+                try:
+                    res = run_nt_banded(
+                        it.signal, it.read, self.model, self.pore,
+                        {"m1": self.m1, "e2": self.e2}, band=self.band,
+                        device=dev, dtype=torch.float64, validate=False,
+                    )
+                    return BatchOutput(it, res.segments, res.Z)
+                except ZConsistencyError as e:
+                    return BatchOutput(it, None, zb, str(e))
         return BatchOutput(it, None, zb, err)

@@ -59,11 +59,13 @@ import time
 import numpy as np
 import torch
 
+from dynamont_tpu_torch import tracing
 from dynamont_tpu_torch.constants import (
     EPSILON, NT_TRANSITIONS, NTK_TRANSITIONS, resolve_transitions,
 )
 from dynamont_tpu_torch.models.batch import (
-    BatchItem, BatchOutput, _to_host, device_list, next_device,
+    BatchItem, BatchOutput, _to_host, device_list, fill_counts, nbytes,
+    next_device,
 )
 from dynamont_tpu_torch.models.nt import _validate
 from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
@@ -121,45 +123,51 @@ def ntc_bucket_program(sig, kid, N_r, T_r, tensors: dict, *, A: int, S: int,
     ran."""
     means, stdevs = tensors["means"], tensors["stdevs"]
     K = means.shape[0]
-    pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, log_ppm, log_ppe,
-                         CN, dtype)
-    pk = _pre_tk(sig, T_r, tensors, K, A, log_ppm, log_ppe, CK0, dtype)
-    plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid,
-                                     N_r, K, A, S, pn.kn1, pn.kn2)
-    ks = nb.gather_index(plan)
-    prm = kern.tab_gather(ks, tensors["table"], dims)
-    sigd = sig.to(dtype).contiguous()
-    if keep is not None:
-        keep.update(plan=plan, dims=dims, ks=ks, table=tensors["table"],
-                    prm=prm, sig=sigd, N_r=N_r, T_r=T_r, trans_log=trans_log,
-                    walk_dims=(K, A, S, S_max))
-    if ckpt is None:
-        ckpt = dims.CK > CKPT_CK
-    if ckpt:
-        ckpts, row0 = kern.bwd_ckpt(plan, dims, prm, sigd, trans_log, N_r, T_r)
-        Zb = nb.ntc_zb_batch(plan, row0)
+    with tracing.span("ntc.prepass"):
+        pn = nb.pre_tn_batch(sig, kid, N_r, T_r, means, stdevs, log_ppm,
+                             log_ppe, CN, dtype)
+        pk = _pre_tk(sig, T_r, tensors, K, A, log_ppm, log_ppe, CK0, dtype)
+    with tracing.span("ntc.plan"):
+        plan, dims = nb.build_plan_batch(pn.cand, pn.cnt, pk.cand, pk.cnt, kid,
+                                         N_r, K, A, S, pn.kn1, pn.kn2)
+    with tracing.span("ntc.lattice"):
+        ks = nb.gather_index(plan)
+        prm = kern.tab_gather(ks, tensors["table"], dims)
+        sigd = sig.to(dtype).contiguous()
         if keep is not None:
-            keep.update(ckpt=ckpts, row0=row0, Zb=Zb)
-        lp, choices, slots, apEf, fwdEf = kern.pv_ckpt(
-            plan, dims, prm, sigd, ckpts, Zb, trans_log, N_r, T_r)
-        del ckpts
-    else:
-        bwd = kern.bwd(plan, dims, prm, sigd, trans_log, N_r, T_r)
-        Zb = nb.ntc_zb_batch(plan, bwd[0])
+            keep.update(plan=plan, dims=dims, ks=ks, table=tensors["table"],
+                        prm=prm, sig=sigd, N_r=N_r, T_r=T_r,
+                        trans_log=trans_log, walk_dims=(K, A, S, S_max))
+        if ckpt is None:
+            ckpt = dims.CK > CKPT_CK
+        if ckpt:
+            ckpts, row0 = kern.bwd_ckpt(plan, dims, prm, sigd, trans_log, N_r,
+                                        T_r)
+            Zb = nb.ntc_zb_batch(plan, row0)
+            if keep is not None:
+                keep.update(ckpt=ckpts, row0=row0, Zb=Zb)
+            lp, choices, slots, apEf, fwdEf = kern.pv_ckpt(
+                plan, dims, prm, sigd, ckpts, Zb, trans_log, N_r, T_r)
+            del ckpts
+        else:
+            bwd = kern.bwd(plan, dims, prm, sigd, trans_log, N_r, T_r)
+            Zb = nb.ntc_zb_batch(plan, bwd[0])
+            if keep is not None:
+                keep.update(bwd=bwd.clone(), Zb=Zb)
+            # lp is written over the backward store (row t read before written)
+            lp, choices, slots, apEf, fwdEf = kern.pv(
+                plan, dims, prm, sigd, bwd, Zb, trans_log, T_r, out=bwd)
+        Zf = nb.ntc_zf_batch(plan, fwdEf, N_r, T_r)
+    with tracing.span("ntc.walk"):
+        i0, j0, k0, valid = nw.start_slots(plan, apEf, N_r, T_r)
+        rec, fin = kern.walk(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
+                             T_r, K, A, S, S_max)
         if keep is not None:
-            keep.update(bwd=bwd.clone(), Zb=Zb)
-        # lp is written over the backward store (row t read before written)
-        lp, choices, slots, apEf, fwdEf = kern.pv(plan, dims, prm, sigd, bwd,
-                                                  Zb, trans_log, T_r, out=bwd)
-    Zf = nb.ntc_zf_batch(plan, fwdEf, N_r, T_r)
-    i0, j0, k0, valid = nw.start_slots(plan, apEf, N_r, T_r)
-    rec, fin = kern.walk(lp, choices, slots, plan, i0, j0, k0, valid, N_r,
-                         T_r, K, A, S, S_max)
-    if keep is not None:
-        keep.update(lp=lp, choices=choices, slots=slots, apEf=apEf,
-                    fwdEf=fwdEf, start=(i0, j0, k0, valid), rec=rec, fin=fin)
-    seg_cnt, st_a, bp_a, start_a, k_a, med, seg_ovf = nw.finish_records(
-        rec, fin, S_max)
+            keep.update(lp=lp, choices=choices, slots=slots, apEf=apEf,
+                        fwdEf=fwdEf, start=(i0, j0, k0, valid), rec=rec,
+                        fin=fin)
+        seg_cnt, st_a, bp_a, start_a, k_a, med, seg_ovf = nw.finish_records(
+            rec, fin, S_max)
     return dict(
         Zf_tn=pn.Zf, Zb_tn=pn.Zb, ovf_tn=pn.overflow,
         Zf_tk=pk.Zf, Zb_tk=pk.Zb, ovf_tk=pk.overflow,
@@ -313,8 +321,9 @@ class NTCBatchEngine:
             if d not in self._tensors:
                 self._tensors[d] = model_tensors(model, d, dtype)
         self.tensors = self._tensors[self.device]
-        # wall-clock accounting across run() calls (see --profile);
-        # device_buckets counts the buckets sent to each entry of the list
+        # always-on totals across run() calls: the walls hold the waits on
+        # the card inside them; device_buckets counts the buckets sent to
+        # each entry of the list
         self.profile = {"buckets": 0, "reads": 0, "dispatch_s": 0.0,
                         "collect_s": 0.0, "wide_retries": 0, "wide_s": 0.0,
                         "exact_retries": 0, "exact_s": 0.0,
@@ -352,50 +361,53 @@ class NTCBatchEngine:
     def dispatch(self, items: list[BatchItem]):
         """Validate and queue every bucket on the device, starting the
         results' copies to the host; returns a handle for collect()."""
-        outputs: list[BatchOutput | None] = [None] * len(items)
-        valid: list[int] = []
-        for i, it in enumerate(items):
-            try:
-                _validate(len(it.signal), len(it.read), self.model.kmer_size)
-            except SystemExit as e:
-                outputs[i] = BatchOutput(
-                    it, None, math.nan,
-                    f"input validation failed (reference exit {e.code})")
-                continue
-            valid.append(i)
-        t0 = time.perf_counter()
-        pending = [self._dispatch(gidx, items, self.cap_n, self.cap_k)
-                   for gidx in self._buckets(valid, items, self.batch_size)]
-        self.profile["dispatch_s"] += time.perf_counter() - t0
+        with tracing.entry("ntc.dispatch"):
+            outputs: list[BatchOutput | None] = [None] * len(items)
+            valid: list[int] = []
+            for i, it in enumerate(items):
+                try:
+                    _validate(len(it.signal), len(it.read), self.model.kmer_size)
+                except SystemExit as e:
+                    outputs[i] = BatchOutput(
+                        it, None, math.nan,
+                        f"input validation failed (reference exit {e.code})")
+                    continue
+                valid.append(i)
+            t0 = time.perf_counter()
+            pending = [self._dispatch(gidx, items, self.cap_n, self.cap_k)
+                       for gidx in self._buckets(valid, items, self.batch_size)]
+            self.profile["dispatch_s"] += time.perf_counter() - t0
         return items, outputs, valid, pending
 
     def collect(self, handle) -> list[BatchOutput]:
         """Wait for the handle's buckets, build outputs, and run the
         escalation ladder on the reads that need it."""
         items, outputs, valid, pending = handle
-        t1 = time.perf_counter()
-        # the reads to retry, by the device of their bucket
-        retry: dict = {}
-        for bucket in pending:
-            retry.setdefault(bucket[-1], []).extend(
-                self._collect(bucket, items, outputs))
-        n_retry = sum(len(v) for v in retry.values())
-        t2 = time.perf_counter()
-        use_wide = bool(n_retry) and self.fallback and self.wide_retry
-        exact = {dev: self._run_wide(idxs, items, outputs, dev) if use_wide else idxs
-                 for dev, idxs in retry.items()}
-        t3 = time.perf_counter()
-        for dev, idxs in exact.items():
-            for i in idxs:
-                outputs[i] = self._run_exact(items[i], dev)
-        pr = self.profile
-        pr["buckets"] += len(pending)
-        pr["reads"] += len(valid)
-        pr["collect_s"] += t2 - t1
-        pr["wide_retries"] += n_retry if use_wide else 0
-        pr["wide_s"] += t3 - t2
-        pr["exact_retries"] += sum(len(v) for v in exact.values())
-        pr["exact_s"] += time.perf_counter() - t3
+        with tracing.entry("ntc.collect"):
+            t1 = time.perf_counter()
+            # the reads to retry, by the device of their bucket
+            retry: dict = {}
+            for bucket in pending:
+                retry.setdefault(bucket[-1], []).extend(
+                    self._collect(bucket, items, outputs))
+            n_retry = sum(len(v) for v in retry.values())
+            t2 = time.perf_counter()
+            use_wide = bool(n_retry) and self.fallback and self.wide_retry
+            exact = {dev: self._run_wide(idxs, items, outputs, dev)
+                     if use_wide else idxs for dev, idxs in retry.items()}
+            t3 = time.perf_counter()
+            for dev, idxs in exact.items():
+                for i in idxs:
+                    with tracing.span("ntc.exact_rung"):
+                        outputs[i] = self._run_exact(items[i], dev)
+            pr = self.profile
+            pr["buckets"] += len(pending)
+            pr["reads"] += len(valid)
+            pr["collect_s"] += t2 - t1
+            pr["wide_retries"] += n_retry if use_wide else 0
+            pr["wide_s"] += t3 - t2
+            pr["exact_retries"] += sum(len(v) for v in exact.values())
+            pr["exact_s"] += time.perf_counter() - t3
         return outputs  # type: ignore[return-value]
 
     def run(self, items: list[BatchItem]) -> list[BatchOutput]:
@@ -482,28 +494,42 @@ class NTCBatchEngine:
         """Queue one bucket on `dev` (the next device round-robin by
         default); returns its handle for _collect."""
         dev = next_device(self) if dev is None else dev
-        T_arr, N_arr, sig, kid, N2 = self._pad_bucket(gidx, items)
-        # segment cap: one per base plus polish slack (overflow -> ladder)
-        S_max = round_up(N2 + N2 // 4 + 64, 128)
-        put = lambda a: torch.from_numpy(a).to(dev)
-        with on_device(dev):
-            res = ntc_bucket_program(
-                put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
-                self._tensors[dev], A=self.model.alphabet_size,
-                S=self.model.kmer_size, log_ppm=self.log_ppm,
-                log_ppe=self.log_ppe, trans_log=self.trans_log, CN=cap_n,
-                CK0=cap_k, S_max=S_max, dtype=self.dtype, keep=keep, ckpt=ckpt)
-            host = {k: _to_host(v) for k, v in res.items()}
-            done = None
-            if dev.type == "cuda":
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(dev))
+        with tracing.span("ntc.bucket") as sp:
+            with tracing.span("ntc.pad"):
+                T_arr, N_arr, sig, kid, N2 = self._pad_bucket(gidx, items)
+            # segment cap: one per base plus polish slack (overflow -> ladder)
+            S_max = round_up(N2 + N2 // 4 + 64, 128)
+            put = lambda a: torch.from_numpy(a).to(dev)
+            with on_device(dev):
+                res = ntc_bucket_program(
+                    put(sig).to(self.dtype), put(kid), put(N_arr), put(T_arr),
+                    self._tensors[dev], A=self.model.alphabet_size,
+                    S=self.model.kmer_size, log_ppm=self.log_ppm,
+                    log_ppe=self.log_ppe, trans_log=self.trans_log, CN=cap_n,
+                    CK0=cap_k, S_max=S_max, dtype=self.dtype, keep=keep,
+                    ckpt=ckpt)
+                host = {k: _to_host(v) for k, v in res.items()}
+                done = None
+                if dev.type == "cuda":
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+            if tracing.on():
+                sp.add(**fill_counts(T_arr, sig.shape[1] + 1),
+                       h2d_bytes=nbytes((sig, kid, N_arr, T_arr)),
+                       d2h_bytes=nbytes(host.values()))
         return gidx, T_arr, N_arr, host, done, (cap_n, cap_k), dev
 
     def _collect(self, bucket, items, outputs) -> list[int]:
         gidx, T_arr, N_arr, host, done, caps, _ = bucket
         if done is not None:
-            done.synchronize()
+            with tracing.span("ntc.wait"):
+                done.synchronize()
+        with tracing.span("ntc.gate"):
+            return self._gate(gidx, T_arr, N_arr, host, caps, items, outputs)
+
+    def _gate(self, gidx, T_arr, N_arr, host, caps, items, outputs) -> list[int]:
+        """The Z gates and the outputs of a bucket whose results are on the
+        host; returns the reads to retry."""
         host = {k: v.numpy() for k, v in host.items()}
         K = self.model.num_kmers
         retry: list[int] = []
@@ -585,14 +611,16 @@ class NTCBatchEngine:
         succeed)."""
         dev = self.device if dev is None else dev
         still: list[int] = []
-        for gidx in self._buckets(idxs, items, min(self.batch_size, WIDE_READS)):
-            bucket = self._dispatch(gidx, items, *self.wide_caps, dev=dev)
-            still += self._collect(bucket, items, outputs)
-            for i in gidx:
-                if (i not in still and outputs[i] is not None
-                        and outputs[i].error is not None):
-                    outputs[i] = None
-                    still.append(i)
+        with tracing.span("ntc.wide_rung"):
+            for gidx in self._buckets(idxs, items,
+                                      min(self.batch_size, WIDE_READS)):
+                bucket = self._dispatch(gidx, items, *self.wide_caps, dev=dev)
+                still += self._collect(bucket, items, outputs)
+                for i in gidx:
+                    if (i not in still and outputs[i] is not None
+                            and outputs[i].error is not None):
+                        outputs[i] = None
+                        still.append(i)
         if still:
             print(f"ntc wide-cap rung: {len(still)}/{len(idxs)} reads still "
                   "overflow; falling to exact fp64", file=sys.stderr)
