@@ -2532,21 +2532,22 @@ def run_ranks(module: str, args: list, cwd: str, world: int = 2,
 
 def basic_bucket_shapes(jobs, batch_size: int) -> list:
     """(t_pad, B, N_max) of the bucket each job lands in when the banded
-    engine runs `jobs` as one chunk (models/batch.py's packing, the wire's
-    B and N_max)."""
-    from dynamont_tpu_torch.models.batch import MAX_BATCH_SAMPLES, T_PAD_TO
-    from dynamont_tpu_torch.models.packing import pack_buckets, round_up, t_pad_ladder
-    from dynamont_tpu_torch.ops.geometry import effective_bandwidth
+    engine of `resquiggle --mode basic` (its defaults: float32, band 400,
+    the device route) runs `jobs` as one chunk: the engine's own packing,
+    the wire's B and N_max."""
+    from dynamont_tpu_torch.models.batch import T_PAD_TO, BandedBatchEngine
+    from dynamont_tpu_torch.models.packing import round_up, t_pad_ladder
+    from dynamont_tpu_torch.models.registry import load_model_for_pore
+    from dynamont_tpu_torch.ops.nt_banded_device import band_width
     from dynamont_tpu_torch.utils.kmer import seq_to_kmer_ids
 
+    eng = BandedBatchEngine(load_model_for_pore("rna002"), "rna002", device="cpu",
+                            batch_size=batch_size)
     shapes = [None] * len(jobs)
-    for group in pack_buckets([len(j.signal) for j in jobs], batch_size=batch_size,
-                              max_batch_samples=MAX_BATCH_SAMPLES, t_pad_to=T_PAD_TO,
-                              group=1):
+    for group in eng._buckets(jobs):
         N = [len(seq_to_kmer_ids(jobs[i].read, 5, 4)) + 1 for i in group]
-        bw = max(effective_bandwidth(400, n) for n in N)
         shape = (t_pad_ladder(max(len(jobs[i].signal) for i in group) + 1, T_PAD_TO),
-                 round_up(2 * bw + 3, 128), round_up(max(N), 128))
+                 max(band_width(eng.band, n) for n in N), round_up(max(N), 128))
         for i in group:
             shapes[i] = shape
     return shapes

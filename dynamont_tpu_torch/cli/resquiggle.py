@@ -70,9 +70,10 @@ def build_parser() -> ArgumentParser:
                         "totals per span name, in constant memory) and print "
                         "to stderr, per span name, its count, host seconds, "
                         "self seconds and summed counts (reads, samples, "
-                        "bytes each way), then reads a bucket and the "
-                        "padded-sample share over every bucket run, and the "
-                        "rungs' retry counts")
+                        "bytes each way, basic mode's band matrices), then "
+                        "reads a bucket and the padded-sample share over "
+                        "every bucket run, the largest bucket's band "
+                        "matrices, and the rungs' retry counts")
     return p
 
 
@@ -173,7 +174,9 @@ def main(argv=None):
 def _print_profile(eng, bucket: str, rungs) -> None:
     """--profile's lines: per span name its count, host seconds, self
     seconds (less its child spans') and summed counts, then the fill of the
-    `bucket` spans and the engine's retries."""
+    `bucket` spans, their largest band matrices (models/batch.
+    pack_card_buckets bounds those of buckets of more than one read) and
+    the engine's retries."""
     from dynamont_tpu_torch import tracing
 
     totals = tracing.totals()
@@ -187,6 +190,8 @@ def _print_profile(eng, bucket: str, rungs) -> None:
     line = (f"profile: {reads} reads in {b.n} buckets, "
             f"{reads / max(1, b.n):.3f} reads a bucket, "
             f"padded samples {share:.3f} %")
+    if "band_bytes" in b.peak:
+        line += f", band_bytes at most {b.peak['band_bytes']} a bucket"
     for k in rungs:
         line += f", {k} {eng.profile.get(k, 0)}"
     print(line, file=sys.stderr)

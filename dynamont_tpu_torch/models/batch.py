@@ -38,12 +38,22 @@ from dynamont_tpu_torch.models.nt_banded import run_nt_banded
 from dynamont_tpu_torch.models.params import params_from_numpy
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
 from dynamont_tpu_torch.ops import nt_banded_device as dv
+from dynamont_tpu_torch.ops.nt_banded_kernels import band_bytes
 from dynamont_tpu_torch.parallel.mesh import on_device
 
 # bucket limits of the JAX engine's defaults: padded lengths on the
-# t_pad_ladder floored at 512 rows, at most 4M padded samples per bucket
+# t_pad_ladder floored at 512 rows; the matrix route's buckets at most 4M
+# padded samples
 T_PAD_TO = 512
 MAX_BATCH_SAMPLES = 4_000_000
+# the device route's bound on the band matrices that a bucket of more than
+# one read stores (band_bytes): every read of a bucket runs at once on the
+# card, so padding costs it memory, not time, and the budget bounds that
+# memory in bytes. A chunk whose reads x rows packing (pack_buckets) makes a
+# larger bucket gets that bucket's bytes as its budget, so its buckets cost
+# no more rows than that packing's, and no more memory than the larger of
+# the two; float32 buckets hold twice the reads of float64 ones
+BAND_BYTES_BUDGET = 7 * 2**29
 
 
 @dataclass
@@ -109,6 +119,57 @@ def fill_counts(T, t_pad: int) -> dict:
             "padded_samples": len(T) * t_pad}
 
 
+def pack_card_buckets(lengths, N, *, batch_size: int, band: int,
+                      itemsize: int, budget: int = BAND_BYTES_BUDGET):
+    """The device route's buckets: reads (signal `lengths`, `N` k-mers + 1)
+    in buckets, each a list of indices ordered short-to-long, that minimize
+    the rows the card runs in sequence.
+
+    K1-K3 run one thread block a read and each read's rows to its own T, so
+    a bucket of up to `batch_size` reads (no more than the card's SMs)
+    costs its longest read's padded rows, not reads x rows as
+    models/packing.pack_buckets charges (the TPU's read groups ran a
+    bucket's reads one after another):
+
+        rows(bucket) = t_pad(longest) + 512 (a launch)
+
+    A bucket holds at most `batch_size` reads, and one of more than one
+    read at most max(`budget`, the largest bucket of pack_buckets) bytes of
+    band matrices (band_bytes, at its own B and `itemsize`). pack_buckets'
+    buckets, contiguous runs of the same sorted order, are thus one split
+    the DP weighs, so its buckets never cost more rows. An exact interval
+    DP over the reads sorted by length, as pack_buckets: a bucket's bytes
+    grow with each read added, so each bucket end's search stops at the
+    first that does not fit.
+    """
+    n = len(lengths)
+    order = sorted(range(n), key=lambda i: lengths[i])
+    pads = [t_pad_ladder(lengths[i] + 1, T_PAD_TO) for i in order]
+    widths = [dv.band_width(band, N[i]) for i in order]
+    for b in pack_buckets(lengths, batch_size=batch_size, group=1,
+                          max_batch_samples=MAX_BATCH_SAMPLES, t_pad_to=T_PAD_TO):
+        budget = max(budget, band_bytes(
+            len(b), t_pad_ladder(max(lengths[i] for i in b) + 1, T_PAD_TO),
+            max(dv.band_width(band, N[i]) for i in b), itemsize))
+    cost = [0] + [math.inf] * n
+    cut = [0] * (n + 1)
+    for i in range(1, n + 1):
+        t_pad, B = pads[i - 1], 0  # sorted: the last read is the longest
+        for j in range(i - 1, max(0, i - batch_size) - 1, -1):
+            B = max(B, widths[j])
+            if i - j > 1 and band_bytes(i - j, t_pad, B, itemsize) > budget:
+                break
+            c = cost[j] + t_pad + 512
+            if c <= cost[i]:  # ties: the larger last bucket
+                cost[i], cut[i] = c, j
+    buckets = []
+    i = n
+    while i > 0:
+        buckets.append(order[cut[i]:i])
+        i = cut[i]
+    return buckets[::-1]
+
+
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     """Start a copy of x into pinned host memory (no wait on CUDA)."""
     if x.device.type == "cpu":
@@ -159,12 +220,20 @@ class BandedBatchEngine:
         self._run = bb.make_banded_batch_fn(self.m1, self.e2)
 
     def _buckets(self, items: list[BatchItem]):
-        """Reads packed into padded buckets minimizing device rows
-        (models/packing.py); one thread block per read, so group 1."""
-        return pack_buckets(
-            [len(it.signal) for it in items], batch_size=self.batch_size,
-            max_batch_samples=MAX_BATCH_SAMPLES, t_pad_to=T_PAD_TO, group=1,
-        )
+        """Reads packed into padded buckets: the device route's by what a
+        bucket costs the card (pack_card_buckets), the matrix route's by
+        reads x rows (models/packing.py, group 1), as its cost is the
+        matrices it moves to the host."""
+        lengths = [len(it.signal) for it in items]
+        if not self.device_pipeline:
+            return pack_buckets(lengths, batch_size=self.batch_size,
+                                max_batch_samples=MAX_BATCH_SAMPLES,
+                                t_pad_to=T_PAD_TO, group=1)
+        k = self.model.kmer_size
+        return pack_card_buckets(
+            lengths, [len(it.read) - k + 2 for it in items],
+            batch_size=self.batch_size, band=self.band,
+            itemsize=self.dtype.itemsize)
 
     def dispatch(self, items: list[BatchItem]):
         """Validate and queue every bucket; returns a handle for collect()."""
@@ -236,12 +305,14 @@ class BandedBatchEngine:
                         done.record(torch.cuda.current_stream(dev))
             if tracing.on():
                 sp.add(**fill_counts(T, t_pad), h2d_bytes=nbytes(wire),
-                       d2h_bytes=nbytes(host))
+                       d2h_bytes=nbytes(host),
+                       band_bytes=band_bytes(len(T), t_pad, wire.B,
+                                             self.dtype.itemsize))
         N = np.array([len(k) + 1 for k in kmer_ids])
-        return its, gidx, T, N, wire.B, host, done, dev
+        return its, gidx, T, N, host, done, dev
 
     def _collect_bucket(self, bucket, outputs):
-        its, gidx, T, N, B, host, done, dev = bucket
+        its, gidx, T, N, host, done, dev = bucket
         if done is not None:
             with tracing.span("banded.wait"):
                 done.synchronize()
@@ -250,6 +321,9 @@ class BandedBatchEngine:
             Zb = host.Zb.numpy().astype(np.float64)
             starts = host.starts.numpy()
             medians = host.medians.numpy()
+            # each read gated at its own band width, as if alone in its
+            # bucket: which reads share a bucket does not move the gate
+            B = np.array([dv.band_width(self.band, int(n)) for n in N])
             ok = bb.check_z_batch(Zf, Zb, T, B, self.dtype)
             for j, out_i in enumerate(gidx):
                 if not ok[j]:

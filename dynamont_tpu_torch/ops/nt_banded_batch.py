@@ -45,11 +45,12 @@ def z_epsilon(dtype) -> float:
     return EPSILON if dtype == torch.float64 else 1e-6
 
 
-def check_z_batch(Zf: np.ndarray, Zb: np.ndarray, T: np.ndarray, B: int,
+def check_z_batch(Zf: np.ndarray, Zb: np.ndarray, T: np.ndarray, B,
                   dtype) -> np.ndarray:
     """Per-read pass/fail of the forward/backward invariant over T*B cells.
-    B is the padded bucket band width, as in the JAX package: changing it
-    changes which reads escalate to the fp64 rung."""
+    B is the padded band width: the bucket's (an int, as in the JAX
+    package, so changing it changes which reads escalate to the fp64 rung)
+    or each read's own (an array, as the device route gates)."""
     eps = z_epsilon(dtype)
     cells = T.astype(np.float64) * B
     ok = np.isfinite(Zf) & np.isfinite(Zb)

@@ -64,6 +64,12 @@ def quantize_signal(sig: np.ndarray) -> tuple[np.ndarray, float, float]:
     return dac, a, 0.0
 
 
+def band_width(band: int, N: int) -> int:
+    """The band axis B of a bucket whose longest read has N (k-mers + 1):
+    room for its band of 2 bw + 3 columns, rounded up to 128."""
+    return bb.round_up(2 * effective_bandwidth(band, N) + 3, 128)
+
+
 def prepare_wire(signals, kmer_ids_list, band: int = 400, *, device,
                  t_pad: int) -> WireBatch:
     """Pack float `signals` (int16-quantized here) into the wire format on
@@ -76,7 +82,7 @@ def prepare_wire(signals, kmer_ids_list, band: int = 400, *, device,
     N_arr = np.array([len(k) + 1 for k in kmer_ids_list], dtype=np.int32)
     bw_arr = np.array([effective_bandwidth(band, int(n)) for n in N_arr], np.int32)
     max_bw = int(bw_arr.max())
-    B = bb.round_up(2 * max_bw + 3, 128)
+    B = band_width(band, int(N_arr.max()))
     pad = max_bw + 3
     if t_pad < int(T_arr.max()):
         raise ValueError(f"t_pad={t_pad} is shorter than the longest read")

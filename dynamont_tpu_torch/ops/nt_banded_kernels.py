@@ -453,6 +453,13 @@ def backward_train(batch: bb.BandedBatch, fE, log_m1: float, log_e2: float):
     return bM, bE, rawM1, rawE2
 
 
+def band_bytes(reads: int, T_pad: int, B: int, itemsize: int) -> int:
+    """Bytes of the band matrices banded_segment holds at once: bM, bE,
+    LPM and LPE in the batch's dtype and the uint8 choices, each
+    (reads, T_pad, B)."""
+    return reads * T_pad * B * (4 * itemsize + 1)
+
+
 def banded_segment(batch: bb.BandedBatch, N_max: int, log_m1: float,
                    log_e2: float):
     """Fused entry: backward (its row 0 yields Zb) -> forward + posterior +

@@ -5,10 +5,11 @@ which decides once for the whole call whether tracing is on: while a
 torch.profiler session is active, or after `enable()`. Off, `span` returns
 one shared null context and nothing is counted. On, each span adds its
 duration, its self time (less its child spans') and its counts to the
-totals of its name, so memory stays constant however long the run. Under a
-profiler, a span also enters `torch.profiler.record_function(name)`, so that
-it lands in the profiler's chrome trace on the kernels' clock, its launches
-linked to their kernels by correlation ids.
+totals of its name, and keeps the largest of each count, so memory stays
+constant however long the run. Under a profiler, a span also enters
+`torch.profiler.record_function(name)`, so that it lands in the profiler's
+chrome trace on the kernels' clock, its launches linked to their kernels by
+correlation ids.
 
 The totals are cleared when tracing turns on from off, so a traced window
 holds its own spans only; `totals()` returns them. The state is the
@@ -27,12 +28,14 @@ import torch
 @dataclass(slots=True)
 class Total:
     """The spans of one name: how many, their ns of `time.perf_counter_ns`,
-    their self ns (less their child spans') and the sums of their counts."""
+    their self ns (less their child spans'), the sums of their counts and
+    the largest of each count in one span."""
 
     n: int = 0
     ns: int = 0
     self_ns: int = 0
     counts: dict = field(default_factory=dict)
+    peak: dict = field(default_factory=dict)
 
 
 class _Null:
@@ -94,6 +97,7 @@ class _Span:
         t.self_ns += ns - self.child_ns
         for k, v in self.counts.items():
             t.counts[k] = t.counts.get(k, 0) + v
+            t.peak[k] = max(t.peak.get(k, v), v)
         if self._fn is not None:
             self._fn.__exit__(*exc)
         return False

@@ -5,12 +5,13 @@ CPU (the kernels' plain versions), and the benchmark's readers of it.
   record_function, and gives the outputs of a traced run.
 * On under torch.profiler: the chrome trace holds the engine's spans nested
   as the tracer saw them; each bucket span's reads, samples and padded
-  samples are those of a bucket the packer made, and add up to the
-  profile's deltas; a span's self time is its time less its children's;
+  samples are those of a bucket the packer made, its band bytes those its
+  kernels allocate, and they add up to the profile's deltas; a span's self time is its time less its children's;
   the totals are cleared when tracing next turns on from off. The same for
   the NTC engine, its rungs included, and for the banded matrix route's
   buckets. With `tracing.enable()` alone no record_function is entered.
-* --profile prints a line per span name and the fill of the buckets.
+* --profile prints a line per span name, the fill of the buckets and the
+  largest bucket's band matrices.
 * The three readers of the totals and the trace on hand-made ones, and
   the two readers that were there before read the same with the program's
   spans in the trace as without them.
@@ -27,10 +28,12 @@ from torch.profiler import ProfilerActivity, profile
 from dynamont_tpu_torch import tracing
 from dynamont_tpu_torch.cli import resquiggle as cli
 from dynamont_tpu_torch.models import ntc_batch
-from dynamont_tpu_torch.models.batch import T_PAD_TO, BandedBatchEngine, BatchItem
+from dynamont_tpu_torch.models.batch import (BAND_BYTES_BUDGET, T_PAD_TO,
+                                             BandedBatchEngine, BatchItem)
 from dynamont_tpu_torch.models.packing import round_up, t_pad_ladder
 from dynamont_tpu_torch.models.registry import load_model_for_pore
 from dynamont_tpu_torch.ops import nt_banded_batch as bb
+from dynamont_tpu_torch.ops.nt_banded_device import band_width
 from dynamont_tpu_torch.utils.synthetic import make_read
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -203,12 +206,16 @@ def test_banded_spans_under_the_profiler(items, banded_traced):
     assert [s[0] for s in spans if s[1] is None] == [
         "banded.dispatch", "banded.dispatch", "banded.collect", "banded.collect"]
     # the packer's buckets, chunk by chunk
-    want = []
+    want, bytes_ = [], []
     for part in (items[:3], items[3:]):
         for group in eng._buckets(part):
             T = [len(part[g].signal) + 1 for g in group]
-            want.append((len(T), sum(T), len(T) * t_pad_ladder(max(T), T_PAD_TO)))
+            t_pad = t_pad_ladder(max(T), T_PAD_TO)
+            want.append((len(T), sum(T), len(T) * t_pad))
+            B = max(band_width(eng.band, len(part[g].read) - 3) for g in group)
+            bytes_.append(len(T) * t_pad * B * (4 * 8 + 1))
     assert _fill(spans, "banded.bucket") == want
+    assert [c["band_bytes"] for n, _, c in spans if n == "banded.bucket"] == bytes_
     assert all(c["h2d_bytes"] > 0 and c["d2h_bytes"] > 0
                for n, _, c in spans if n == "banded.bucket")
     b = tot["banded.bucket"]
@@ -216,6 +223,7 @@ def test_banded_spans_under_the_profiler(items, banded_traced):
     assert delta["buckets"] == b.n == len(want)
     assert b.counts["samples"] == sum(w[1] for w in want)
     assert b.counts["padded_samples"] == sum(w[2] for w in want)
+    assert b.counts["band_bytes"] == sum(bytes_) and b.peak["band_bytes"] == max(bytes_)
     assert all(not c for n, _, c in spans if n != "banded.bucket")
 
 
@@ -316,11 +324,16 @@ def test_profile_flag_prints_spans_and_fill(model, tmp_path, capsys):
     assert b[2] == str(eng.profile["buckets"]) == "2"
     counts = dict(zip(b[9::2], map(int, b[10::2]), strict=True))
     assert set(counts) == {"reads", "samples", "padded_samples", "h2d_bytes",
-                           "d2h_bytes"}
+                           "d2h_bytes", "band_bytes"}
     assert counts["reads"] == 3 and counts["samples"] == sum(T)
+    # float32 band matrices, every read's band 128 wide
+    assert counts["band_bytes"] == counts["padded_samples"] * 128 * (4 * 4 + 1)
+    largest = tracing.totals()["banded.bucket"].peak["band_bytes"]
+    assert largest < counts["band_bytes"] and largest <= BAND_BYTES_BUDGET
     share = 100.0 * (1.0 - sum(T) / counts["padded_samples"])
     assert lines[-1] == (f"profile: 3 reads in 2 buckets, 1.500 reads a bucket, "
-                         f"padded samples {share:.3f} %, z_retries 0")
+                         f"padded samples {share:.3f} %, band_bytes at most "
+                         f"{largest} a bucket, z_retries 0")
 
 
 # -- the benchmark's readers ------------------------------------------------
