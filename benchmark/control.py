@@ -1,10 +1,11 @@
 """The check's control: the program's own float32 path, one precision below
-the configuration's float64, judged by the same comparison against the
-float64 reference on the reads a run would check (the same sample of the
-same pool, drawn from the seed; the engine with its dtype lowered, the
-sampled reads dispatched as one chunk). It has to come out as not correct;
-its readings are the upper ones the limits are set under (PERF.md). The
-benchmark's runs do not run it.
+the configuration's float64, put in the program's place and judged by the
+same check against the float64 reference: the engine with its dtype
+lowered runs the cell's window over the cell's pool (the same reads, drawn
+from the seed), and the check samples the reads that window completed, as
+a run does. It has to come out as not correct; its readings are the upper
+ones the limits are set under (PERF.md). The benchmark's runs do not run
+it.
 
     python3 benchmark/control.py --workload <cell> --seeds 1,2,3
 
@@ -34,9 +35,10 @@ def control(workload: str, seed: int, root: str = ROOT,
     from benchmark.harness.main import load_cell
     from benchmark.harness.program import Program
     from benchmark.harness.traffic import make_pool
+    from benchmark.harness.window import run_window
     from benchmark.reference.table import load_table
 
-    _, _, config, traffic = load_cell(root, workload)
+    bench, _, config, traffic = load_cell(root, workload)
     if config["engine"]["dtype"] != "float64":
         raise SystemExit("the control lowers a float64 configuration to the "
                          "program's float32 path")
@@ -44,26 +46,22 @@ def control(workload: str, seed: int, root: str = ROOT,
     table = load_table(os.path.join(root, config["table"]),
                        rna=config["pore"].startswith("rna"))
     reads = make_pool(traffic, config, table, seed)
-    # a window completes every read of the pool, so the run samples these
-    ids = chk.sample(range(len(reads)), config["check"]["reads"], seed)
+    eng = config["engine"]
+    lowered = {**config, "engine": {**eng, "dtype": "float32"}}
     t0 = time.perf_counter()
-    ref = chk.reference_rows(config, table, reads, ids, device, torch.float64)
-    t1 = time.perf_counter()
-    lowered = {**config, "engine": {**config["engine"], "dtype": "float32"}}
     prog = Program(lowered, root, device)
-    outs = prog.collect(prog.dispatch(prog.items(reads, ids)))
-    low = {o.item.meta: (chk.parse_rows(prog.format(o)) if o.error is None
-                         else None) for o in outs}
+    win = run_window(prog, reads, seconds=bench["run_seconds"],
+                     chunk_reads=eng["chunk_reads"], inflight=eng["inflight"])
     prog.close()
-    t2 = time.perf_counter()
-    nums = chk.compare(low, ref)
-    limits = config["check"]["limits"]
+    t1 = time.perf_counter()
+    res = chk.run_check(config, table, reads, win, seed, device)
     return {"workload": workload, "seed": seed, "dtype": "float32",
-            "device": str(device), "reads": len(ids),
-            "numbers": {k: {"value": nums[k], "limit": limits[k]}
-                        for k in chk.NUMBERS},
-            "passes": all(nums[k] <= limits[k] for k in chk.NUMBERS),
-            "reference_s": t1 - t0, "control_s": t2 - t1}
+            "device": str(device), "reads": len(res["reads"]),
+            "window_reads": win.done, "failed": win.failed,
+            "numbers": {k: {"value": v, "limit": lim}
+                        for k, (v, lim) in res["numbers"].items()},
+            "passes": res["ok"], "reference_s": res["seconds"],
+            "control_s": t1 - t0}
 
 
 def main(argv=None) -> int:

@@ -44,14 +44,27 @@ def sample(done_ids, n: int, seed: int) -> list:
     return sorted(int(ids[j]) for j in rng.choice(len(ids), size=k, replace=False))
 
 
+def _keyed(rows) -> dict:
+    """Rows by (base position, how many rows of that position came before):
+    a base that holds more than one row (an NTC polish row beside its
+    alignment row) keeps each."""
+    seen: dict = {}
+    out = {}
+    for r in rows:
+        j = seen.get(r[2], 0)
+        seen[r[2]] = j + 1
+        out[(r[2], j)] = r
+    return out
+
+
 def compare(prog: dict, ref: dict) -> dict:
     """The numbers of PROG's rows (read id -> rows, None for a read that
     failed) against REF's (read id -> rows)."""
     mism = total = 0
     pmax = 0.0
     for i, ref_rows in ref.items():
-        by_ref = {r[2]: r for r in ref_rows}
-        by_prog = {r[2]: r for r in (prog.get(i) or [])}
+        by_ref = _keyed(ref_rows)
+        by_prog = _keyed(prog.get(i) or [])
         keys = set(by_ref) | set(by_prog)
         total += len(keys)
         for k in keys:
@@ -65,10 +78,12 @@ def compare(prog: dict, ref: dict) -> dict:
 
 
 def reference_rows(config: dict, table, reads, ids, device, dtype) -> dict:
-    """Read id -> the reference's rows for pool reads `ids`."""
+    """Read id -> the reference's rows for pool reads `ids`; the reference
+    takes the configuration's own `reference_args`."""
     ref = importlib.import_module(f"benchmark.reference.{config['reference']}")
     res = ref.segment([reads[i] for i in ids], table, config["pore"],
-                      band=config["engine"]["band"], device=device, dtype=dtype)
+                      device=device, dtype=dtype,
+                      **config.get("reference_args", {}))
     return {i: rows for i, (_, _, rows) in zip(ids, res)}
 
 

@@ -218,7 +218,7 @@ def main(argv=None, t_start: float | None = None, root: str | None = None,
                "kernel_time": lambda names: tr.matching(kernel_s, names),
                "events": [e for e in trace.get("traceEvents", [])
                           if e.get("ph") == "X"],
-               "peaks": peaks, "config": config,
+               "peaks": peaks, "config": config, "table": table,
                "roofline": lambda g: load_file(
                    os.path.join(root, "benchmark", "roofline", f"{g}.py"),
                    f"bench_roofline_{g}")}

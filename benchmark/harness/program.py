@@ -8,13 +8,22 @@ it imports it only inside its functions.
 
 from __future__ import annotations
 
-ENGINE_COUNTERS = ("reads", "buckets", "dispatch_s", "collect_s", "z_retries")
+# the engine's always-on totals that the run reports, by mode: the walls,
+# and the reads each rung of the mode's escalation took
+ENGINE_COUNTERS = {
+    "basic": ("reads", "buckets", "dispatch_s", "collect_s", "z_retries"),
+    "resquiggle": ("reads", "buckets", "dispatch_s", "collect_s",
+                   "wide_retries", "exact_retries"),
+}
 
 
 class Program:
     """One configuration's engine on `device` ("cuda" for every visible
-    GPU, as the CLI's default), with the CLI's bucket size, band and
-    precision, and the formatter the CLI's `_emit` uses."""
+    GPU, as the CLI's default), as the CLI builds it for the configuration's
+    mode: the banded engine with its bucket size, band and precision in
+    basic mode, the NTC engine with its bucket size and precision (the
+    packaged 5-mer table, no native 9-mer) in resquiggle mode; and the
+    formatter the CLI's `_emit` uses."""
 
     def __init__(self, config: dict, root: str, device: str = "cuda"):
         import os
@@ -33,13 +42,20 @@ class Program:
         self.rna = bool(self.model.rna)
         dtype = getattr(torch, eng["dtype"])
         devices = local_devices(device)
-        if self.mode != "basic":
-            raise ValueError(f"no cell runs mode {self.mode!r}")
-        from dynamont_tpu_torch.models.batch import BandedBatchEngine
+        if self.mode == "basic":
+            from dynamont_tpu_torch.models.batch import BandedBatchEngine
 
-        self.engine = BandedBatchEngine(
-            self.model, self.pore, devices=devices, dtype=dtype,
-            batch_size=eng["batch_size"], band=eng["band"])
+            self.engine = BandedBatchEngine(
+                self.model, self.pore, devices=devices, dtype=dtype,
+                batch_size=eng["batch_size"], band=eng["band"])
+        elif self.mode == "resquiggle":
+            from dynamont_tpu_torch.models.ntc_batch import NTCBatchEngine
+
+            self.engine = NTCBatchEngine(
+                self.model, self.pore, devices=devices, dtype=dtype,
+                batch_size=eng["batch_size"], native_kmer=False)
+        else:
+            raise ValueError(f"no cell runs mode {self.mode!r}")
 
     def items(self, reads, ids):
         """The engine's items of pool reads `ids`, each carrying its pool
@@ -75,7 +91,8 @@ class Program:
                                    self.model.kmer_size, self.rna)
 
     def counters(self) -> dict:
-        return {k: self.engine.profile.get(k, 0) for k in ENGINE_COUNTERS}
+        return {k: self.engine.profile.get(k, 0)
+                for k in ENGINE_COUNTERS[self.mode]}
 
     def close(self):
         self.engine = None

@@ -15,6 +15,7 @@ if ROOT not in sys.path:
 
 with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
     CELL = json.load(_f)["workloads"][0]["name"]
+RQ_CELL = "rna002-resquiggle-fp64.ragged"
 
 
 @pytest.fixture(scope="session", autouse=True)
@@ -32,9 +33,10 @@ SHORT = {"law": "lognormal_quantiles", "median": 900, "sigma": 0.3,
 
 
 def make_small_root(path, pool_reads=8, chunk_reads=4, check_reads=3,
-                    lengths=SHORT):
-    """A checkout-like root at `path` whose cell CELL runs a few reads of
-    `lengths` (a traffic file's signal_length); returns its path."""
+                    lengths=SHORT, cell_name=CELL):
+    """A checkout-like root at `path` whose cell `cell_name` runs a few
+    reads of `lengths` (a traffic file's signal_length); returns its
+    path."""
     root = str(path)
     os.makedirs(os.path.join(root, "benchmark", "configs"), exist_ok=True)
     os.makedirs(os.path.join(root, "benchmark", "traffic"), exist_ok=True)
@@ -45,7 +47,7 @@ def make_small_root(path, pool_reads=8, chunk_reads=4, check_reads=3,
                    os.path.join(root, "benchmark", d))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    cell = next(w for w in bench["workloads"] if w["name"] == CELL)
+    cell = next(w for w in bench["workloads"] if w["name"] == cell_name)
     cfg = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(os.path.join(ROOT, cfg["file"])) as f:
         config = json.load(f)
@@ -77,3 +79,38 @@ def long_root(tmp_path_factory):
                            chunk_reads=2, check_reads=2,
                            lengths={"law": "lognormal_quantiles", "median": 8000,
                                     "sigma": 0.5, "min": 8000, "max": 8000})
+
+
+# resquiggle mode on the CPU: reads of ~300 samples (the NTC engine's plain
+# path costs ~10 ms a padded row)
+TINY = {"law": "lognormal_quantiles", "median": 330, "sigma": 0.2,
+        "min": 260, "max": 420}
+
+
+@pytest.fixture(scope="session")
+def rq_root(tmp_path_factory):
+    return make_small_root(tmp_path_factory.mktemp("rq_cell"), pool_reads=4,
+                           chunk_reads=2, check_reads=2, lengths=TINY,
+                           cell_name=RQ_CELL)
+
+
+@pytest.fixture(scope="session")
+def rq_long_root(tmp_path_factory):
+    """Two reads of 8,000 samples in resquiggle mode: long enough for the
+    float32 NTC path's departure from float64 to show."""
+    return make_small_root(tmp_path_factory.mktemp("rq_long_cell"), pool_reads=2,
+                           chunk_reads=2, check_reads=2, cell_name=RQ_CELL,
+                           lengths={"law": "lognormal_quantiles", "median": 8000,
+                                    "sigma": 0.5, "min": 8000, "max": 8000})
+
+
+def short_pad_program(config, root, device):
+    """The harness's Program with the NTC engine's rows padded to 64 and its
+    k-mers to 16 instead of 2048 and 256, so that the CPU's plain path
+    stays short; padding changes no output (tests/test_torch_ntc_engine.py
+    holds the engine to that)."""
+    from benchmark.harness.program import Program
+
+    p = Program(config, root, device)
+    p.engine.t_pad_to, p.engine.n_pad_to = 64, 16
+    return p

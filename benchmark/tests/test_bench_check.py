@@ -125,7 +125,8 @@ def test_reference_imports_nothing_of_the_program():
             for n in names:
                 assert n.split(".")[0] not in ("dynamont_tpu_torch", "dynamont_tpu", "jax"), (path, n)
     code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
-            "import benchmark.reference.banded, benchmark.reference.table\n"
+            "import benchmark.reference.banded, benchmark.reference.ntc\n"
+            "import benchmark.reference.table\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)

@@ -34,3 +34,17 @@ def test_kernel_names_exist_in_the_sources():
         g = _group(os.path.basename(path)[:-3])
         for k in g.KERNELS:
             assert f"{k}(" in src, k
+
+
+def test_ntc_counts_one_short_read():
+    g = _group("ntc")
+    # 10 samples, 4 k-mers, the 1,024 5-mers: T 11, N 5; a TN cell 16 + 23,
+    # a TK cell 18 + 25, one lattice cell a row 340
+    ops, nbytes = g.counts(11, 5, K=1024, itemsize=8)
+    assert ops == 11 * (39 * 5 + 43 * 1024 + 340) == 490237
+    # signal 10 x 8 B, 4 k-mer ids, mean/c1/c2 of 1,024 k-mers, 5 segments
+    # of four int32 and a median
+    assert nbytes == 80 + 16 + 3 * 1024 * 8 + 5 * 24
+    # float32 halves what the precision holds, not the operations
+    ops32, nbytes32 = g.counts(11, 5, K=1024, itemsize=4)
+    assert ops32 == ops and nbytes32 == 40 + 16 + 3 * 1024 * 4 + 5 * 20
